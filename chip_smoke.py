@@ -1,0 +1,422 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout (it puts `src` on sys.path itself).  It
+drives `repro_torch` only, never JAX, in five phases, each printing a line:
+
+  1. device  — the card's name and power limit from nvidia-smi; no CUDA
+               device is an error;
+  2. build   — both kernels from `src/repro_torch/csrc`, `nvcc` for
+               sm_90a, started together;
+  3. kernels — each CUDA kernel against its plain PyTorch version on the
+               card at gemma2-2b's prefill and decode shapes (tolerance
+               relative to max|plain|: 2e-2 bf16, 1e-4 fp32), with its
+               time from CUDA events beside the plain version's time, the
+               card's lower bound for the same work and, as a yardstick,
+               the time of torch's own `flex_attention` (compiled, tanh
+               softcap as its score_mod) on the same inputs;
+  4. serve   — full-width gemma2-2b (26 layers, d 2304, vocab 256,000,
+               seeded random weights, bf16) answers 4 left-padded requests
+               through `ServeEngine.generate`; the launch counters must
+               show every attention call went through the kernels;
+  5. card vs CPU — 2 layers (SWA, FULL) at full width in fp32: logits of
+               the CUDA path agree with the CPU path within 1e-4.
+
+Any failure raises and exits non-zero.  The second-to-last line is a JSON
+object with one entry per kernel; the last is the device line.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import importlib
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+# H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W limit)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean milliseconds per call from CUDA events around `iters` calls."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound(flops: float, nbytes: float, dtype: str):
+    t_ops = flops / PEAK_FLOPS[dtype]
+    t_mem = nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_mem) * 1e3, ("operations" if t_ops >= t_mem
+                                     else "bytes")
+
+
+def flash_live_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
+    """(row, col) pairs the mask keeps, for one head."""
+    n = 0
+    for r in range(Sq):
+        hi = min(r, Sk - 1) if causal else Sk - 1
+        lo = max(0, r - window + 1) if window > 0 else 0
+        n += max(0, hi - lo + 1)
+    return n
+
+
+def phase_device():
+    import torch
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: this smoke test runs on the card")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(smi)
+    log(f"[device] torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"{torch.cuda.get_device_name(0)}")
+    return smi
+
+
+def phase_build():
+    from repro_torch.kernels import runtime
+    t0 = time.perf_counter()
+    runtime.build(["flash_attention", "decode_attention"])
+    for name in ("flash_attention", "decode_attention"):
+        runtime.load(name)
+    log(f"[build] flash_attention.cu, decode_attention.cu for sm_90a in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def library_attention():
+    """torch's `flex_attention` compiled, with `create_block_mask`; None
+    where this torch has none.  Only timed here, as a yardstick: the port
+    never calls it."""
+    import torch
+    try:
+        from torch.nn.attention.flex_attention import (create_block_mask,
+                                                       flex_attention)
+    except ImportError:
+        log(f"[kernels] torch {torch.__version__} has no flex_attention: "
+            f"library_ms is null")
+        return None
+    return torch.compile(flex_attention, dynamic=False), create_block_mask
+
+
+def phase_kernels(fa, da):
+    """Kernel vs plain on the card; returns per-kernel JSON entries."""
+    import torch
+    from repro_torch.kernels.decode_attention import decode_attention_ref
+    from repro_torch.kernels.flash_attention import attention_ref
+    from repro_torch.launch.profile_serve import MAX_LEN
+    dev = torch.device("cuda")
+    library = library_attention()
+    gen = torch.Generator(dev).manual_seed(0)
+    DT = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(DT[dtype])
+
+    def compare(name, got, want, dtype):
+        torch.cuda.synchronize()
+        abs_err = float((got.float() - want.float()).abs().max())
+        rel = abs_err / max(float(want.float().abs().max()), 1e-6)
+        if not (math.isfinite(rel) and rel < TOL[dtype]):
+            raise AssertionError(f"{name}: rel err {rel:.3e} >= "
+                                 f"{TOL[dtype]:.0e}")
+        return abs_err, rel
+
+    entries = {}
+    B, Hq, Hkv, D, scale, cap = 4, 8, 4, 256, 1 / 16, 50.0
+
+    def softcap_mod(score, b, h, q_idx, kv_idx):
+        return cap * torch.tanh(score / cap)
+
+    def library_ms(label, q, k, v, mask_mod, want, dtype):
+        """Check flex_attention against the plain version, then time it."""
+        if library is None:
+            return None
+        flex, create_block_mask = library
+        mask = create_block_mask(mask_mod, None, None, q.shape[2],
+                                 k.shape[2], device=dev)
+
+        def call():
+            return flex(q, k, v, score_mod=softcap_mod, block_mask=mask,
+                        scale=scale, enable_gqa=True)
+        _, rel = compare(f"flex_attention {label}", call(), want, dtype)
+        ms = time_ms(call)
+        log(f"[kernels] library flex_attention {label}: rel err {rel:.2e}, "
+            f"{ms:.4f} ms")
+        return ms
+    flash_cases = [
+        # (label, S, causal, window, dtype, main path?)
+        ("full", 4608, True, 0, "bfloat16", True),
+        ("local", 4608, True, 4096, "bfloat16", False),
+        ("full", 4608, True, 0, "float32", False),
+        ("local", 4608, True, 4096, "float32", False),
+        ("ragged", 4133, True, 4096, "bfloat16", False),
+        ("noncausal", 1000, False, 0, "bfloat16", False),
+    ]
+    worst = 0.0
+    for label, S, causal, w, dtype, main in flash_cases:
+        q = randn((B, Hq, S, D), dtype)
+        k, v = randn((B, Hkv, S, D), dtype), randn((B, Hkv, S, D), dtype)
+        kw = dict(causal=causal, window=w, softcap=cap, scale=scale)
+        want = attention_ref(q, k, v, **kw)
+        abs_err, rel = compare(f"flash {label} {dtype}",
+                               fa.flash_attention_cuda(q, k, v, **kw),
+                               want, dtype)
+        worst = max(worst, abs_err)
+        ms = time_ms(lambda: fa.flash_attention_cuda(q, k, v, **kw))
+        plain_ms = time_ms(lambda: attention_ref(q, k, v, **kw), iters=5,
+                           warmup=1)
+        pairs = flash_live_pairs(S, S, causal, w) * B * Hq
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        b_ms, b_by = bound(4 * D * pairs, nbytes, dtype)
+        log(f"[kernels] flash {label} B{B} Hq{Hq} Hkv{Hkv} S{S} D{D} "
+            f"w{w} cap{cap:g} {dtype}: rel err {rel:.2e} (tol "
+            f"{TOL[dtype]:.0e}) | kernel {ms:.3f} ms, plain {plain_ms:.3f} "
+            f"ms, bound {b_ms:.4f} ms ({b_by}), "
+            f"{4 * D * pairs / ms / 1e9:.1f} TFLOP/s")
+        if main:
+            entries["flash_attention"] = dict(
+                name="flash_attention", route="cuda",
+                source="src/repro_torch/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention/"
+                         "flash_attention.py:136",
+                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=library_ms(
+                    f"flash {label} S{S} {dtype}", q, k, v,
+                    lambda b, h, q_idx, kv_idx: q_idx >= kv_idx, want,
+                    dtype))
+        del q, k, v, want
+    entries["flash_attention"]["max_abs_err"] = worst
+
+    worst = 0.0
+    for dtype in ("bfloat16", "float32"):
+        q = randn((B, Hq, D), dtype)
+        k, v = randn((B, Hkv, MAX_LEN, D), dtype), \
+            randn((B, Hkv, MAX_LEN, D), dtype)
+        for n in (1, 17, 4097, 4608):
+            for w in (4096, 0):
+                kw = dict(window=w, softcap=cap, scale=scale)
+                # kv_len as a 0-d int32 tensor on the card in the w=0 cases
+                kv_len = torch.tensor(n, dtype=torch.int32, device=dev) \
+                    if w == 0 else n
+                want = decode_attention_ref(q, k, v, kv_len=n, **kw)
+                abs_err, rel = compare(
+                    f"decode kv{n} w{w} {dtype}",
+                    da.decode_attention_cuda(q, k, v, kv_len=kv_len, **kw),
+                    want, dtype)
+                worst = max(worst, abs_err)
+                ms = time_ms(lambda: da.decode_attention_cuda(
+                    q, k, v, kv_len=kv_len, **kw), iters=50)
+                plain_ms = time_ms(lambda: decode_attention_ref(
+                    q, k, v, kv_len=n, **kw))
+                live = n - (max(0, n - w) if w else 0)
+                nbytes = (2 * B * Hkv * live * D + 2 * q.numel()) \
+                    * q.element_size()
+                b_ms, b_by = bound(4 * B * Hq * live * D, nbytes, dtype)
+                log(f"[kernels] decode B{B} Hq{Hq} Hkv{Hkv} S{MAX_LEN} "
+                    f"D{D} kv_len {n} w{w} {dtype}: rel err {rel:.2e} (tol "
+                    f"{TOL[dtype]:.0e}) | kernel {ms:.4f} ms, plain "
+                    f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+                    f"{nbytes / ms / 1e6:.0f} GB/s")
+                if dtype == "bfloat16" and n == 4608 and w == 0:
+                    entries["decode_attention"] = dict(
+                        name="decode_attention", route="cuda",
+                        source="src/repro_torch/csrc/decode_attention.cu",
+                        replaces="src/repro/kernels/decode_attention/"
+                                 "decode_attention.py:119",
+                        ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                        bound_by=b_by, library_ms=library_ms(
+                            f"decode kv{n} w{w} {dtype}", q[:, :, None],
+                            k, v, lambda b, h, q_idx, kv_idx: kv_idx < n,
+                            want[:, :, None], dtype))
+        del q, k, v
+    entries["decode_attention"]["max_abs_err"] = worst
+    return entries
+
+
+def phase_serve(fa, da):
+    import torch
+    from repro_torch.configs import RunConfig, get
+    from repro_torch.launch.profile_serve import (
+        HOT_ROW, HOT_TEMPERATURE, MAX_LEN, NEW_TOKENS, PROMPTS,
+        make_requests)
+    from repro_torch.models import LM
+    from repro_torch.models.common import unembed
+    from repro_torch.serve import ServeEngine
+
+    cfg = get("gemma2-2b")
+    t0 = time.perf_counter()
+    model = LM(cfg, RunConfig(dtype="bfloat16"), seed=0, device="cuda")
+    torch.cuda.synchronize()
+    log(f"[serve] gemma2-2b full width: {cfg.n_layers} layers, d "
+        f"{cfg.d_model}, vocab {cfg.vocab_size}, "
+        f"{sum(p.numel() for p in model.parameters()) / 1e9:.3f} B params "
+        f"(bf16), seeded init {time.perf_counter() - t0:.1f} s")
+    engine = ServeEngine(model, max_len=MAX_LEN, seed=0)
+
+    # Time the engine's two phases: wrap its step closures with a
+    # synchronize on each side, and check the logits they return.
+    phases = {"prefill": [], "decode": []}
+
+    def timed(fn, key):
+        def run(*args):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            logits, caches = fn(*args)
+            torch.cuda.synchronize()
+            phases[key].append(time.perf_counter() - t)
+            if not bool(torch.isfinite(logits).all()):
+                raise AssertionError(f"non-finite logits in {key}")
+            return logits, caches
+        return run
+
+    engine._prefill = timed(engine._prefill, "prefill")
+    engine._decode = timed(engine._decode, "decode")
+
+    runs = []
+    for attempt in range(2):
+        for key in phases:
+            phases[key].clear()
+        fa.launches = da.launches = 0          # the main path's run
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        out = engine.generate(make_requests(cfg.vocab_size))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        counts = (fa.launches, da.launches)
+        steps = len(phases["decode"])
+        if counts != (cfg.n_layers, cfg.n_layers * steps):
+            raise AssertionError(f"launches flash/decode {counts}, want "
+                                 f"({cfg.n_layers}, {cfg.n_layers * steps})")
+        for r in out:
+            if len(r.output) != NEW_TOKENS or not all(
+                    0 <= t < cfg.vocab_size for t in r.output):
+                raise AssertionError(f"bad output {r.output}")
+        n_new = sum(len(r.output) for r in out)
+        runs.append(dict(outputs=[r.output for r in out], counts=counts,
+                         steps=steps))
+        log(f"[serve] run {attempt}: prompts {PROMPTS} left-padded, "
+            f"{NEW_TOKENS} new tokens, row {HOT_ROW} at T="
+            f"{HOT_TEMPERATURE} | prefill {phases['prefill'][0]:.3f} s, "
+            f"decode {1e3 * sum(phases['decode']) / steps:.2f} ms/step "
+            f"over {steps} steps, {n_new / wall:.1f} tokens/s "
+            f"({wall:.2f} s wall), peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | launches "
+            f"flash {counts[0]}, decode {counts[1]}")
+    for i in range(len(PROMPTS)):
+        if i != HOT_ROW and runs[0]["outputs"][i] != runs[1]["outputs"][i]:
+            raise AssertionError(f"greedy row {i} differs on rerun")
+    log(f"[serve] greedy rows identical on rerun; row 0 starts "
+        f"{runs[0]['outputs'][0][:8]}")
+
+    # cost of fp32 logits: upcast operands vs a bf16 product, decode shape
+    x = torch.randn(len(PROMPTS), cfg.d_model, device="cuda",
+                    dtype=torch.bfloat16)
+    up_ms = time_ms(lambda: unembed(model.embed, x))
+    bf_ms = time_ms(lambda: x @ model.embed.t())
+    log(f"[serve] unembed (B {len(PROMPTS)}, vocab {cfg.vocab_size}): fp32 "
+        f"upcast {up_ms:.3f} ms vs bf16 product {bf_ms:.3f} ms per step")
+    return runs[0]["counts"]
+
+
+def phase_card_vs_cpu(fa, da):
+    import numpy as np
+    import torch
+    from repro_torch.configs import ATTN_FULL, ATTN_SWA, RunConfig, get
+    from repro_torch.models import LM, lm_decode_step, lm_prefill
+
+    cfg = dataclasses.replace(get("gemma2-2b"), n_layers=2,
+                              layer_pattern=(((ATTN_SWA, ATTN_FULL), 1),))
+    f32 = RunConfig(dtype="float32")
+    gpu = LM(cfg, f32, seed=1, device="cuda")
+    cpu = LM(cfg, f32, device="cpu", init=False)
+    cpu.load_state_dict(gpu.state_dict())
+    rng = np.random.default_rng(1)
+    B, S, steps = 2, 600, 3
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S + steps)))
+    max_len = S + steps
+    fa.launches = da.launches = 0
+    worst = 0.0
+    lg, cg = lm_prefill(gpu, toks[:, :S].cuda(), max_len=max_len)
+    lc, cc = lm_prefill(cpu, toks[:, :S], max_len=max_len)
+    pairs = [(lg, lc)]
+    for i in range(steps):
+        t = toks[:, S + i:S + i + 1]
+        lg, cg = lm_decode_step(gpu, cg, t.cuda(), S + i)
+        lc, cc = lm_decode_step(cpu, cc, t, S + i)
+        pairs.append((lg, lc))
+    for g, c in pairs:
+        rel = float((g.cpu() - c).abs().max() / c.abs().max())
+        if not rel < 1e-4:
+            raise AssertionError(f"card vs CPU logits rel err {rel:.2e}")
+        worst = max(worst, rel)
+    if (fa.launches, da.launches) != (2, 2 * steps):
+        raise AssertionError(f"card path launches {fa.launches}, "
+                             f"{da.launches}")
+    log(f"[card-vs-cpu] 2 layers (SWA, FULL) d {cfg.d_model} fp32, B {B}, "
+        f"prompt {S}, {steps} decode steps: max logits rel err {worst:.2e} "
+        f"(tol 1e-4)")
+
+
+def main() -> int:
+    if not (SRC / "repro_torch").is_dir():
+        raise SystemExit(f"chip_smoke.py: {SRC / 'repro_torch'} not found; "
+                         f"run it from a checkout of the repository")
+    sys.path.insert(0, str(SRC))
+    # compiled code of the library yardstick stays inside the checkout
+    for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "torchinductor"),
+                     ("TRITON_CACHE_DIR", "triton/cache"),
+                     ("TRITON_HOME", "triton")):
+        os.environ.setdefault(var, str(ROOT / "build" / sub))
+    import torch
+    smi = phase_device()
+    phase_build()
+    fa = importlib.import_module(
+        "repro_torch.kernels.flash_attention.flash_attention")
+    da = importlib.import_module(
+        "repro_torch.kernels.decode_attention.decode_attention")
+    entries = phase_kernels(fa, da)
+    flash_n, decode_n = phase_serve(fa, da)
+    entries["flash_attention"]["launches"] = flash_n
+    entries["decode_attention"]["launches"] = decode_n
+    phase_card_vs_cpu(fa, da)
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    log(smi)
+    log(json.dumps({"kernels": [{k: e[k] for k in keys}
+                                for e in entries.values()]}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

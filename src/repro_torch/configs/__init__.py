@@ -1,0 +1,27 @@
+"""Architecture configs of the port.
+
+`get(name)` returns the full ArchConfig; only gemma2-2b is ported so far.
+`reduced` (from .base) shrinks it for CPU tests.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+from .base import (ALL_SHAPES, ArchConfig, EncoderConfig, MoEConfig,
+                   RunConfig, SSMConfig, ShapeSpec, VisionStub, reduced,
+                   TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K,
+                   ATTN_FULL, ATTN_SWA, SSM, HYBRID)
+from .gemma2_2b import CONFIG as gemma2_2b
+
+REGISTRY: Dict[str, ArchConfig] = {c.name: c for c in [gemma2_2b]}
+
+
+def get(name: str) -> ArchConfig:
+    try:
+        cfg = REGISTRY[name]
+    except KeyError:
+        raise KeyError(f"unknown arch {name!r}; have {sorted(REGISTRY)}") \
+            from None
+    cfg.validate()
+    return cfg

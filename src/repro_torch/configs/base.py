@@ -1,0 +1,196 @@
+"""Architecture & run configuration records (the port's own copy).
+
+Mirrors `repro.configs.base` field for field, so a test can build the
+reference config and this one from the same numbers.  `RunConfig` keeps
+only what the ported path reads: the implementation of each kernel is
+chosen by the device of the tensor it is given, not by a knob.
+
+Layer heterogeneity (gemma2's local/global alternation) is a
+`layer_pattern`: a tuple of ((kinds...), repeat) segments.  The real
+layer order is segment by segment, and within a segment repeat by
+repeat, each repeat running `kinds` in order.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
+
+# Layer kinds
+ATTN_FULL = "attn_full"
+ATTN_SWA = "attn_swa"
+SSM = "ssm"
+HYBRID = "hybrid"          # parallel attention + SSM heads (hymba)
+
+
+@dataclass(frozen=True)
+class ShapeSpec:
+    """One assigned workload shape."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                # "train" | "prefill" | "decode"
+
+    @property
+    def tokens(self) -> int:
+        return self.seq_len * self.global_batch
+
+
+TRAIN_4K = ShapeSpec("train_4k", 4096, 256, "train")
+PREFILL_32K = ShapeSpec("prefill_32k", 32768, 32, "prefill")
+DECODE_32K = ShapeSpec("decode_32k", 32768, 128, "decode")
+LONG_500K = ShapeSpec("long_500k", 524288, 1, "decode")
+
+ALL_SHAPES = (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_ff_expert: int
+    n_shared_experts: int = 0
+    d_ff_shared: int = 0
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    d_state: int             # N
+    head_dim: int = 64       # P
+    n_heads: int = 0         # 0 → derived: d_inner // head_dim
+    n_groups: int = 1        # G (B/C groups)
+    expand: int = 2          # d_inner = expand * d_model
+    conv_kernel: int = 4
+    chunk: int = 128
+    dt_min: float = 0.001
+    dt_max: float = 0.1
+
+
+@dataclass(frozen=True)
+class EncoderConfig:
+    n_layers: int
+    subsample: int = 4
+
+
+@dataclass(frozen=True)
+class VisionStub:
+    n_patches: int = 256
+    patch_embed_dim: int = 3200
+
+
+@dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: str                       # dense | moe | ssm | hybrid | audio | vlm
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0                 # 0 → d_model // n_heads
+    window: int = 0                   # SWA width (0 = full attention)
+    attn_softcap: float = 0.0
+    final_softcap: float = 0.0
+    qkv_bias: bool = False
+    rope_fraction: float = 1.0
+    rope_theta: float = 10000.0
+    query_scale: Optional[float] = None
+    post_block_norm: bool = False
+    tie_embeddings: bool = False
+    act: str = "silu"                 # silu | gelu
+    layer_pattern: Optional[Tuple[Tuple[Tuple[str, ...], int], ...]] = None
+    moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
+    encoder: Optional[EncoderConfig] = None
+    vision: Optional[VisionStub] = None
+    shapes: Tuple[ShapeSpec, ...] = (TRAIN_4K, PREFILL_32K, DECODE_32K)
+    source: str = ""
+
+    @property
+    def resolved_head_dim(self) -> int:
+        if self.head_dim:
+            return self.head_dim
+        return self.d_model // self.n_heads if self.n_heads else 0
+
+    @property
+    def padded_vocab(self) -> int:
+        """Embedding rows padded to a multiple of 128; logits past
+        `vocab_size` are masked to -1e30."""
+        return -(-self.vocab_size // 128) * 128
+
+    @property
+    def pattern(self) -> Tuple[Tuple[Tuple[str, ...], int], ...]:
+        if self.layer_pattern is not None:
+            return self.layer_pattern
+        kind = SSM if self.family == "ssm" else ATTN_FULL
+        if self.window and self.family != "ssm":
+            kind = ATTN_SWA
+        return (((kind,), self.n_layers),)
+
+    @property
+    def total_layers(self) -> int:
+        return sum(len(kinds) * rep for kinds, rep in self.pattern)
+
+    @property
+    def layer_kinds(self) -> Tuple[str, ...]:
+        """Every layer's kind in the order the model runs them."""
+        return tuple(kind for kinds, rep in self.pattern
+                     for _ in range(rep) for kind in kinds)
+
+    def validate(self) -> None:
+        if self.total_layers != self.n_layers:
+            raise ValueError(f"{self.name}: pattern covers "
+                             f"{self.total_layers} != {self.n_layers}")
+        if self.n_kv_heads and self.n_heads % self.n_kv_heads:
+            raise ValueError(f"{self.name}: n_heads {self.n_heads} not a "
+                             f"multiple of n_kv_heads {self.n_kv_heads}")
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    """Runtime knobs the ported path reads."""
+
+    dtype: str = "bfloat16"           # compute dtype: bfloat16 | float32
+
+
+def reduced(cfg: ArchConfig, n_layers: int = 2, d_model: int = 128,
+            n_heads: int = 4, n_kv_heads: int = 2, d_ff: int = 256,
+            vocab: int = 512) -> ArchConfig:
+    """A tiny same-family config for CPU smoke tests."""
+    changes: Dict = dict(
+        n_layers=n_layers, d_model=d_model, n_heads=n_heads,
+        n_kv_heads=min(n_kv_heads, cfg.n_kv_heads) or n_kv_heads,
+        d_ff=d_ff, vocab_size=vocab, head_dim=d_model // n_heads,
+        window=min(cfg.window, 64) if cfg.window else 0,
+    )
+    if cfg.moe is not None:
+        changes["moe"] = dataclasses.replace(
+            cfg.moe, n_experts=min(cfg.moe.n_experts, 4),
+            top_k=min(cfg.moe.top_k, 2), d_ff_expert=64,
+            d_ff_shared=128 if cfg.moe.n_shared_experts else 0,
+            n_shared_experts=min(cfg.moe.n_shared_experts, 1),
+            capacity_factor=8.0)
+    if cfg.ssm is not None:
+        changes["ssm"] = dataclasses.replace(
+            cfg.ssm, d_state=32, head_dim=16, n_heads=0, chunk=32)
+    if cfg.encoder is not None:
+        changes["encoder"] = dataclasses.replace(cfg.encoder, n_layers=2)
+    if cfg.vision is not None:
+        changes["vision"] = dataclasses.replace(
+            cfg.vision, n_patches=16, patch_embed_dim=64)
+    if cfg.layer_pattern is not None:
+        # shrink the pattern to n_layers while keeping heterogeneity
+        kinds = []
+        for ks, rep in cfg.layer_pattern:
+            kinds.extend(list(ks) * rep)
+        step = max(len(kinds) // n_layers, 1)
+        picked = tuple(kinds[::step][:n_layers])
+        while len(picked) < n_layers:
+            picked = picked + (picked[-1],)
+        changes["layer_pattern"] = tuple(((k,), 1) for k in picked)
+    return dataclasses.replace(cfg, **changes)

@@ -1,0 +1,84 @@
+"""Shared model primitives: dense, norms, softcap, activation, RoPE,
+embeddings (the port of `repro.models.common`).
+
+Functions take weights as tensors.  Matmul weights are stored in the
+compute dtype, so `dense` casts only the activations; the reference casts
+fp32 weights at every call, which gives the same values.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+
+def dense(x: torch.Tensor, w: torch.Tensor,
+          b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x (..., d_in) @ w (d_in, d_out) in w's dtype."""
+    y = x.to(w.dtype) @ w
+    if b is not None:
+        y = y + b.to(w.dtype)
+    return y
+
+
+def rmsnorm(scale: torch.Tensor, x: torch.Tensor,
+            eps: float = 1e-6) -> torch.Tensor:
+    """RMS norm with the (1 + scale) convention, in fp32."""
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * (1.0 + scale.float())).to(x.dtype)
+
+
+def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    if cap <= 0:
+        return x
+    return cap * torch.tanh(x / cap)
+
+
+def activate(x: torch.Tensor, act: str) -> torch.Tensor:
+    if act == "silu":
+        return F.silu(x)
+    if act == "gelu":
+        return F.gelu(x, approximate="tanh")
+    raise ValueError(f"unknown activation {act!r}")
+
+
+def rope_frequencies(head_dim: int, fraction: float, theta: float,
+                     device=None) -> torch.Tensor:
+    rot = int(head_dim * fraction) // 2 * 2
+    exps = torch.arange(0, rot, 2, dtype=torch.float32, device=device) / rot
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               fraction: float = 1.0, theta: float = 10000.0
+               ) -> torch.Tensor:
+    """x (..., S, D); positions (S,).  Pairs (0::2, 1::2) rotate together."""
+    D = x.shape[-1]
+    rot = int(D * fraction) // 2 * 2
+    if rot == 0:
+        return x
+    freqs = rope_frequencies(D, fraction, theta, x.device)
+    angles = positions.to(x.device, torch.float32)[..., None] * freqs
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x_rot = x[..., :rot].float()
+    x1, x2 = x_rot[..., 0::2], x_rot[..., 1::2]
+    y1 = x1 * cos - x2 * sin
+    y2 = x2 * cos + x1 * sin
+    y = torch.stack([y1, y2], dim=-1).reshape(x_rot.shape)
+    return torch.cat([y.to(x.dtype), x[..., rot:]], dim=-1)
+
+
+def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    return table[tokens]
+
+
+def unembed(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Tied unembedding, logits = x @ tableᵀ in fp32.  The operands are
+    upcast: the products of bf16 values are exact in fp32, so this is the
+    reference's bf16 product with fp32 accumulation, where a bf16 matmul
+    would round every logit to bf16."""
+    return x.float() @ table.float().t()

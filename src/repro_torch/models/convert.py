@@ -1,0 +1,76 @@
+"""Weights from the reference: the JAX parameter tree, as nested dicts and
+lists of numpy arrays, into the port's `LM`.
+
+The reference stacks the layers of each segment ((kinds...), repeat) along
+a leading axis of length `repeat`, one stack per kind; the port keeps one
+module per layer in the order they run, segment by segment, repeat by
+repeat, kind by kind (gemma2: swa[0], full[0], swa[1], ...).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Union
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchConfig, RunConfig
+from .lm import LM
+
+# reference path inside one layer's tree → the port's parameter name
+_LAYER_LEAVES = {
+    ("ln1", "scale"): "ln1",
+    ("ln2", "scale"): "ln2",
+    ("post_ln1", "scale"): "post_ln1",
+    ("post_ln2", "scale"): "post_ln2",
+    ("attn", "wq", "kernel"): "attn.wq",
+    ("attn", "wk", "kernel"): "attn.wk",
+    ("attn", "wv", "kernel"): "attn.wv",
+    ("attn", "wo", "kernel"): "attn.wo",
+    ("ffn", "w_gate", "kernel"): "ffn.w_gate",
+    ("ffn", "w_up", "kernel"): "ffn.w_up",
+    ("ffn", "w_down", "kernel"): "ffn.w_down",
+}
+
+
+def _flatten(tree: Dict[str, Any], prefix=()) -> Dict[tuple, np.ndarray]:
+    out = {}
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            out.update(_flatten(val, prefix + (key,)))
+        else:
+            out[prefix + (key,)] = np.asarray(val)
+    return out
+
+
+@torch.no_grad()
+def lm_from_numpy(cfg: ArchConfig, tree: Dict[str, Any],
+                  rcfg: RunConfig = RunConfig(dtype="float32"),
+                  device: Union[str, torch.device, None] = None) -> LM:
+    """Build the port's LM holding the reference tree's weights."""
+    model = LM(cfg, rcfg, device=device, init=False)
+    params = dict(model.named_parameters())
+
+    def put(name: str, arr: np.ndarray) -> None:
+        p = params.pop(name)
+        if tuple(arr.shape) != tuple(p.shape):
+            raise ValueError(f"{name}: reference shape {arr.shape} != "
+                             f"{tuple(p.shape)}")
+        p.copy_(torch.tensor(arr, dtype=torch.float32))
+
+    put("embed", tree["embed"]["table"])
+    put("final_norm", tree["final_norm"]["scale"])
+    layer = 0
+    for (kinds, rep), seg in zip(cfg.pattern, tree["segments"]):
+        for r in range(rep):
+            for stack in seg:
+                leaves = _flatten(stack)
+                unknown = set(leaves) - set(_LAYER_LEAVES)
+                if unknown:
+                    raise ValueError(f"unported parameters {sorted(unknown)}")
+                for path, arr in leaves.items():
+                    put(f"layers.{layer}.{_LAYER_LEAVES[path]}", arr[r])
+                layer += 1
+    if params:
+        raise ValueError(f"reference tree lacks {sorted(params)}")
+    return model

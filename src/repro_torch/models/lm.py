@@ -1,0 +1,144 @@
+"""Decoder-only LM (the port of `repro.models.lm` for dense attention
+models).
+
+  LM             — the module; weights drawn from a seeded torch.Generator
+  lm_prefill     — tokens → last-position logits and decode caches padded
+                   to `max_len`
+  lm_decode_step — one token per row through the caches (updated in place)
+
+Matmul weights and the embedding table are stored in the compute dtype,
+norm scales in fp32.  Logits are fp32.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import List, Optional, Tuple, Union
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ArchConfig, RunConfig
+from repro_torch.kernels.runtime import resolve_device
+from .blocks import Block, Cache, block_decode_step, segments_forward
+from .common import embed, rmsnorm, softcap, unembed
+
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def _check_supported(cfg: ArchConfig) -> None:
+    missing = [name for name, on in (
+        ("moe", cfg.moe is not None), ("ssm", cfg.ssm is not None),
+        ("encoder", cfg.encoder is not None),
+        ("vision", cfg.vision is not None), ("qkv_bias", cfg.qkv_bias),
+        ("untied embeddings", not cfg.tie_embeddings)) if on]
+    if missing:
+        raise NotImplementedError(
+            f"{cfg.name}: {', '.join(missing)} not ported yet (ROADMAP.md, "
+            f"queue 1)")
+
+
+class LM(nn.Module):
+    """`rcfg.dtype` is the compute dtype ("bfloat16" or "float32");
+    `device` defaults to the card.  Weights follow the reference's
+    initializers (truncated normal at ±2σ; σ = 1/sqrt(fan_in), 0.02 for
+    the embedding; norm scales 0) but are drawn from
+    `torch.Generator(device)` seeded with `seed`, so they are not the
+    reference's numbers.  `init=False` leaves them unset for a caller
+    that copies weights in."""
+
+    def __init__(self, cfg: ArchConfig, rcfg: RunConfig = RunConfig(),
+                 seed: int = 0,
+                 device: Union[str, torch.device, None] = None,
+                 init: bool = True) -> None:
+        super().__init__()
+        cfg.validate()
+        _check_supported(cfg)
+        self.cfg = cfg
+        self.dtype = DTYPES[rcfg.dtype]
+        dev = resolve_device(device)
+        self.embed = nn.Parameter(torch.empty(
+            cfg.padded_vocab, cfg.d_model, dtype=self.dtype, device=dev))
+        self.layers = nn.ModuleList(
+            Block(cfg, kind, self.dtype, dev) for kind in cfg.layer_kinds)
+        self.final_norm = nn.Parameter(
+            torch.zeros(cfg.d_model, dtype=torch.float32, device=dev))
+        if init:
+            self._init_weights(torch.Generator(dev).manual_seed(seed))
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    @torch.no_grad()
+    def _init_weights(self, gen: torch.Generator) -> None:
+        def fill(p: torch.Tensor, std: float) -> None:
+            tmp = torch.empty(p.shape, dtype=torch.float32, device=p.device)
+            nn.init.trunc_normal_(tmp, 0.0, std, -2 * std, 2 * std,
+                                  generator=gen)
+            p.copy_(tmp)
+
+        cfg = self.cfg
+        dh = cfg.resolved_head_dim
+        fill(self.embed, 0.02)
+        for layer in self.layers:
+            a, f = layer.attn, layer.ffn
+            for w in (a.wq, a.wk, a.wv, f.w_gate, f.w_up):
+                fill(w, 1.0 / math.sqrt(cfg.d_model))
+            fill(a.wo, 1.0 / math.sqrt(cfg.n_heads * dh))
+            fill(f.w_down, 1.0 / math.sqrt(cfg.d_ff))
+
+
+def _embed_in(model: LM, tokens: torch.Tensor) -> torch.Tensor:
+    x = embed(model.embed, tokens)
+    if model.cfg.tie_embeddings:
+        x = x * x.new_tensor(math.sqrt(model.cfg.d_model))
+    return x
+
+
+def _logits(model: LM, x: torch.Tensor) -> torch.Tensor:
+    cfg = model.cfg
+    logits = softcap(unembed(model.embed, x), cfg.final_softcap)
+    if cfg.padded_vocab != cfg.vocab_size:
+        logits[..., cfg.vocab_size:] = -1e30   # pad rows out of the softmax
+    return logits
+
+
+@torch.no_grad()
+def lm_prefill(model: LM, tokens: torch.Tensor,
+               max_len: Optional[int] = None
+               ) -> Tuple[torch.Tensor, List[Cache]]:
+    """tokens (B, S) → (last-position logits (B, V) fp32, caches), one
+    cache {"k", "v"} per layer, each (B, Hkv, max_len, dh), zero past S."""
+    B, S = tokens.shape
+    max_len = max_len or S
+    if S > max_len:
+        raise ValueError(f"prompt of {S} tokens exceeds max_len {max_len}")
+    x = _embed_in(model, tokens)
+    positions = torch.arange(S, device=tokens.device)
+    x, caches = segments_forward(model.layers, x, model.cfg,
+                                 positions=positions, collect_caches=True)
+    x = rmsnorm(model.final_norm, x[:, -1:])
+    logits = _logits(model, x)[:, 0]
+
+    def pad(a: torch.Tensor) -> torch.Tensor:
+        out = a.new_zeros(a.shape[:2] + (max_len,) + a.shape[3:])
+        out[:, :, :S] = a
+        return out
+
+    return logits, [{"k": pad(c["k"]), "v": pad(c["v"])} for c in caches]
+
+
+@torch.no_grad()
+def lm_decode_step(model: LM, caches: List[Cache], tokens: torch.Tensor,
+                   pos: int) -> Tuple[torch.Tensor, List[Cache]]:
+    """tokens (B, 1); `pos` — the current cache fill.  Returns (logits
+    (B, V) fp32, caches); the caches are updated in place."""
+    x = _embed_in(model, tokens)
+    new_caches: List[Cache] = []
+    for layer, kind, cache in zip(model.layers, model.cfg.layer_kinds,
+                                  caches):
+        x, c = block_decode_step(layer, x, cache, pos, model.cfg, kind)
+        new_caches.append(c)
+    x = rmsnorm(model.final_norm, x)
+    return _logits(model, x)[:, 0], new_caches

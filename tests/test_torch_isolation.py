@@ -1,0 +1,73 @@
+"""The port stands alone: every module of `repro_torch`, and
+`chip_smoke.py`, import in a process whose import system refuses `jax` and
+`repro`, as on the machine with the card, which has no JAX.  The serving
+entry point also runs there on the CPU."""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+BLOCKER = """
+import importlib.abc, sys
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "repro"):
+            raise ImportError(f"refused import of {name}")
+        return None
+
+for mod in [m for m in sys.modules if m.split(".")[0] in
+            ("jax", "jaxlib", "repro")]:
+    del sys.modules[mod]
+sys.meta_path.insert(0, Refuse())
+"""
+
+
+def _run(body: str) -> str:
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    proc = subprocess.run(
+        [sys.executable, "-c", BLOCKER + textwrap.dedent(body)],
+        capture_output=True, text=True, timeout=300, env=env, cwd=REPO)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    return proc.stdout
+
+
+def test_blocker_refuses_jax():
+    out = _run("""
+        try:
+            import jax  # noqa: F401
+        except ImportError:
+            print("refused")
+    """)
+    assert "refused" in out
+
+
+def test_every_module_imports_without_jax_or_repro():
+    out = _run("""
+        import importlib, importlib.util, pkgutil
+        import repro_torch
+        names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
+            repro_torch.__path__, "repro_torch.")]
+        for n in names:
+            importlib.import_module(n)
+        spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                      "chip_smoke.py")
+        spec.loader.exec_module(importlib.util.module_from_spec(spec))
+        assert not any(m.split(".")[0] in ("jax", "repro")
+                       for m in sys.modules)
+        print(len(names))
+    """)
+    assert int(out.split()[-1]) >= 15
+
+
+def test_serve_entry_point_runs_on_cpu_without_jax():
+    out = _run("""
+        import runpy
+        sys.argv = ["serve", "--device", "cpu", "--batch", "2",
+                    "--prompt-len", "70", "--new-tokens", "3"]
+        runpy.run_module("repro_torch.launch.serve", run_name="__main__")
+    """)
+    assert '"new_tokens": 6' in out

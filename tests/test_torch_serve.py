@@ -1,0 +1,149 @@
+"""The slice end to end on the CPU: the port's `ServeEngine` and JAX's
+`ServeEngine` (Pallas kernels in interpret mode, float32) answer the same
+requests on reduced gemma2 with the same weights.
+
+Greedy token streams must be equal.  Each step's top-2 logit margin is
+asserted to exceed the two frameworks' logit disagreement (1e-4 of
+max|logit|) many times over, so a near-tie cannot flip a token.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get as j_get
+from repro.configs.base import RunConfig as JRunConfig, reduced as j_reduced
+from repro.models import init_lm
+from repro.serve import Request as JRequest, ServeEngine as JServeEngine
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import lm_from_numpy
+from repro_torch.serve import Request, ServeEngine, greedy_sample, \
+    temperature_sample
+
+MAX_LEN = 128
+# 90 and 70 exceed the reduced window of 64, so the local layer masks
+PROMPT_LENS = (90, 70, 40, 12)
+NEW_TOKENS = 8
+
+
+class RecordingEngine(ServeEngine):
+    """Keeps the logits of every sampling step."""
+
+    def generate(self, requests):
+        self.seen = []
+        return super().generate(requests)
+
+    def _sample(self, logits, requests, gens):
+        self.seen.append(logits.clone())
+        return super()._sample(logits, requests, gens)
+
+
+def seeded_params(jcfg, seed):
+    """`init_lm`'s tree with every leaf redrawn from a seeded numpy
+    stream at the reference initializer's scale (truncated normal at
+    ±2σ; σ 0.02 for the embedding, 1/sqrt(fan_in) for a kernel; norm
+    scales stay 0).  `init_lm` salts its keys with Python's `hash()`,
+    which differs between processes; these weights do not, so the token
+    streams and their top-2 margins are the same in every run."""
+    rng = np.random.default_rng(seed)
+
+    def redraw(path, leaf):
+        a = np.asarray(leaf)
+        if not np.any(a):
+            return leaf
+        std = 0.02 if "embed" in jax.tree_util.keystr(path) \
+            else 1.0 / np.sqrt(a.shape[-2])
+        w = np.clip(rng.standard_normal(a.shape), -2.0, 2.0) * std
+        return jnp.asarray(w.astype(a.dtype))
+
+    return jax.tree_util.tree_map_with_path(
+        redraw, init_lm(jax.random.PRNGKey(seed), jcfg))
+
+
+@pytest.fixture(scope="module")
+def setup():
+    jcfg = j_reduced(j_get("gemma2-2b"))
+    params = seeded_params(jcfg, 0)
+    tree = jax.tree_util.tree_map(np.asarray, params)
+    cfg = ArchConfig(**{f.name: getattr(jcfg, f.name)
+                        for f in dataclasses.fields(jcfg)})
+    model = lm_from_numpy(cfg, tree, device="cpu")
+    rng = np.random.default_rng(11)
+    prompts = [[int(t) for t in rng.integers(1, jcfg.vocab_size, n)]
+               for n in PROMPT_LENS]
+    j_engine = JServeEngine(
+        jcfg, JRunConfig(kernels="pallas", dtype="float32", remat=False),
+        params, max_len=MAX_LEN)
+    j_out = [r.output for r in j_engine.generate(
+        [JRequest(prompt=list(p), max_new_tokens=NEW_TOKENS)
+         for p in prompts])]
+    return model, prompts, j_out
+
+
+def test_greedy_streams_equal_jax(setup):
+    model, prompts, j_out = setup
+    engine = RecordingEngine(model, max_len=MAX_LEN)
+    out = [r.output for r in engine.generate(
+        [Request(prompt=list(p), max_new_tokens=NEW_TOKENS)
+         for p in prompts])]
+    assert out == j_out
+    assert len(engine.seen) == NEW_TOKENS
+    for logits in engine.seen:
+        top2 = torch.topk(logits, 2, dim=-1).values
+        margin = float((top2[:, 0] - top2[:, 1]).min())
+        assert margin > 10 * 1e-4 * float(logits.abs().max()), margin
+
+
+def test_greedy_row_unchanged_by_hot_neighbour(setup):
+    model, prompts, _ = setup
+    engine = ServeEngine(model, max_len=MAX_LEN, seed=5)
+    pure = engine.generate([Request(prompt=list(prompts[0]),
+                                    max_new_tokens=6)])
+    mixed = engine.generate([
+        Request(prompt=list(prompts[0]), max_new_tokens=6),
+        Request(prompt=list(prompts[0]), max_new_tokens=6,
+                temperature=1.3)])
+    assert mixed[0].output == pure[0].output
+    assert len(mixed[1].output) == 6
+    again = engine.generate([
+        Request(prompt=list(prompts[0]), max_new_tokens=6),
+        Request(prompt=list(prompts[0]), max_new_tokens=6,
+                temperature=1.3)])
+    assert again[1].output == mixed[1].output   # seeded per (seed, row)
+
+
+def test_stop_tokens_end_generation_early(setup):
+    model, prompts, _ = setup
+    engine = ServeEngine(model, max_len=MAX_LEN)
+    full = engine.generate([Request(prompt=list(prompts[2]),
+                                    max_new_tokens=8)])[0]
+    stop = full.output[2]
+    stopped = engine.generate([Request(prompt=list(prompts[2]),
+                                       max_new_tokens=8,
+                                       stop_tokens=(stop,))])[0]
+    assert stopped.finished
+    first = full.output.index(stop)
+    assert stopped.output == full.output[:first + 1]
+
+
+def test_decode_past_max_len_raises(setup):
+    model, prompts, _ = setup
+    engine = ServeEngine(model, max_len=len(prompts[3]) + 2)
+    with pytest.raises(IndexError):
+        engine.generate([Request(prompt=list(prompts[3]),
+                                 max_new_tokens=5)])
+    with pytest.raises(ValueError):
+        ServeEngine(model, max_len=8).generate(
+            [Request(prompt=list(prompts[3]), max_new_tokens=2)])
+
+
+def test_sampling():
+    logits = torch.tensor([[0.0, 5.0, 1.0]])
+    assert int(greedy_sample(logits)[0]) == 1
+    gen = torch.Generator().manual_seed(0)
+    assert int(temperature_sample(gen, logits, temperature=1e-6)[0]) == 1
+    assert int(temperature_sample(gen, logits, temperature=0.0)[0]) == 1
