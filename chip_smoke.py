@@ -4,25 +4,34 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout (it puts `src` on sys.path itself).  It
-drives `repro_torch` only, never JAX, in five phases, each printing a line:
+drives `repro_torch` only, never JAX, in these phases, each printing
+lines tagged with its name:
 
   1. device  — the card's name and power limit from nvidia-smi; no CUDA
                device is an error;
-  2. build   — both kernels from `src/repro_torch/csrc`, `nvcc` for
+  2. build   — the three kernels from `src/repro_torch/csrc`, `nvcc` for
                sm_90a, started together;
   3. kernels — each CUDA kernel against its plain PyTorch version on the
-               card at gemma2-2b's prefill and decode shapes (tolerance
-               relative to max|plain|: 2e-2 bf16, 1e-4 fp32), with its
-               time from CUDA events beside the plain version's time, the
-               card's lower bound for the same work and, as a yardstick,
-               the time of torch's own `flex_attention` (compiled, tanh
-               softcap as its score_mod) on the same inputs;
-  4. serve   — full-width gemma2-2b (26 layers, d 2304, vocab 256,000,
-               seeded random weights, bf16) answers 4 left-padded requests
-               through `ServeEngine.generate`; the launch counters must
-               show every attention call went through the kernels;
-  5. card vs CPU — 2 layers (SWA, FULL) at full width in fp32: logits of
-               the CUDA path agree with the CPU path within 1e-4.
+               card (tolerance relative to max|plain|: 2e-2 bf16, 1e-4
+               fp32), with its time from CUDA events beside the plain
+               version's time and the card's lower bound for the same
+               work: flash and decode attention at gemma2-2b's prefill and
+               decode shapes, with torch's own `flex_attention`
+               (compiled, tanh softcap as its score_mod) timed as a
+               yardstick; the SSD scan at mamba2-1.3b's prefill shape in
+               fp32 and bf16, on views of (B, S, ...) tensors as the SSM
+               layer passes them, with four groups, and a small case also
+               held against the sequential recurrence;
+  4. serve   — full-width gemma2-2b (26 layers, d 2304, vocab 256,000)
+               and then full-width mamba2-1.3b (48 SSM layers, d 2048,
+               vocab 50,280), seeded random weights, bf16, each answer
+               4 left-padded requests through `ServeEngine.generate`,
+               twice; the launch counters, set to 0 before each run, must
+               show every attention and SSD call went through the kernels
+               and no other kernel ran;
+  5. card vs CPU — 2 gemma2 layers (SWA, FULL) and 2 mamba2 layers at
+               full width in fp32, a 600-token prompt and 3 decode steps:
+               logits of the CUDA path agree with the CPU path within 1e-4.
 
 Any failure raises and exits non-zero.  The second-to-last line is a JSON
 object with one entry per kernel; the last is the device line.
@@ -101,14 +110,46 @@ def phase_device():
     return smi
 
 
+KERNELS = {  # launch counter's module → the TPU kernel it replaces
+    "flash_attention": ("repro_torch.kernels.flash_attention."
+                        "flash_attention",
+                        "src/repro/kernels/flash_attention/"
+                        "flash_attention.py:136"),
+    "decode_attention": ("repro_torch.kernels.decode_attention."
+                         "decode_attention",
+                         "src/repro/kernels/decode_attention/"
+                         "decode_attention.py:119"),
+    "ssd": ("repro_torch.kernels.ssd.ssd",
+            "src/repro/kernels/ssd/ssd.py:112"),
+}
+
+
 def phase_build():
     from repro_torch.kernels import runtime
     t0 = time.perf_counter()
-    runtime.build(["flash_attention", "decode_attention"])
-    for name in ("flash_attention", "decode_attention"):
+    runtime.build(list(KERNELS))
+    for name in KERNELS:
         runtime.load(name)
-    log(f"[build] flash_attention.cu, decode_attention.cu for sm_90a in "
+    log(f"[build] {', '.join(n + '.cu' for n in KERNELS)} for sm_90a in "
         f"{time.perf_counter() - t0:.1f} s")
+
+
+def expected_launches(cfg, steps: int):
+    """Kernel launches of one prefill and `steps` decode steps of `cfg`."""
+    from repro_torch.configs import SSM
+    n_ssm = sum(kind == SSM for kind in cfg.layer_kinds)
+    n_attn = cfg.n_layers - n_ssm
+    return {"flash_attention": n_attn, "decode_attention": n_attn * steps,
+            "ssd": n_ssm}
+
+
+def reset(mods):
+    for mod in mods.values():
+        mod.launches = 0
+
+
+def read(mods):
+    return {name: mod.launches for name, mod in mods.items()}
 
 
 def library_attention():
@@ -205,8 +246,7 @@ def phase_kernels(fa, da):
             entries["flash_attention"] = dict(
                 name="flash_attention", route="cuda",
                 source="src/repro_torch/csrc/flash_attention.cu",
-                replaces="src/repro/kernels/flash_attention/"
-                         "flash_attention.py:136",
+                replaces=KERNELS["flash_attention"][1],
                 ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=library_ms(
                     f"flash {label} S{S} {dtype}", q, k, v,
@@ -249,8 +289,7 @@ def phase_kernels(fa, da):
                     entries["decode_attention"] = dict(
                         name="decode_attention", route="cuda",
                         source="src/repro_torch/csrc/decode_attention.cu",
-                        replaces="src/repro/kernels/decode_attention/"
-                                 "decode_attention.py:119",
+                        replaces=KERNELS["decode_attention"][1],
                         ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                         bound_by=b_by, library_ms=library_ms(
                             f"decode kv{n} w{w} {dtype}", q[:, :, None],
@@ -261,7 +300,100 @@ def phase_kernels(fa, da):
     return entries
 
 
-def phase_serve(fa, da):
+def ssd_flops_bytes(B, H, G, S, P, N, elt):
+    """The least work that gives y and the final state, by the recurrence
+    h_t = exp(A·dt_t)·h_{t-1} + B_t ⊗ (dt_t·x_t), y_t = C_t·h_t + D·x_t:
+    per step and head a multiply and a multiply-add for each of the N·P
+    state elements, a multiply-add each for C·h, a multiply for dt·x and a
+    multiply-add for D·x over P.  The chunked form the kernel runs does
+    more (about 7·N·P a step at L 128); the bound counts what the function
+    needs.  Each input read once and each output written once."""
+    flops = B * H * S * (5 * N * P + 3 * P)
+    nbytes = (2 * B * H * S * P + 2 * B * G * S * N) * elt + \
+        4 * (B * H * S + 2 * H + B * H * N * P)
+    return flops, nbytes
+
+
+def phase_ssd_kernel(sk):
+    """The SSD kernel against its plain versions; returns its JSON entry."""
+    import torch
+    from repro_torch.kernels.ssd import ssd_chunked_ref, ssd_ref
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(2)
+    DT = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+    log("[kernels] ssd: no single PyTorch call computes the chunked SSD "
+        "scan, so library_ms is null")
+
+    def inputs(B, H, G, S, P, N, dtype):
+        """mamba2's ranges: dt = softplus(.) in [0.001, 0.1], A = -exp(A_log)
+        with A_log = log(1..H), D = 1.  x, B and C are (B, H or G, S, .)
+        views of one (B, S, H·P + 2·G·N) tensor and dt of a (B, S, H) one,
+        as the SSM layer passes them."""
+        xbc = torch.randn((B, S, H * P + 2 * G * N), generator=gen,
+                          device=dev)
+        xbc[..., H * P:] *= 0.3
+        xs, Bs, Cs = torch.split(xbc.to(DT[dtype]), [H * P, G * N, G * N],
+                                 dim=-1)
+        dt = 0.001 + 0.099 * torch.rand((B, S, H), generator=gen, device=dev)
+        return (xs.reshape(B, S, H, P).transpose(1, 2), dt.transpose(1, 2),
+                -torch.arange(1, H + 1, device=dev, dtype=torch.float32),
+                torch.ones(H, device=dev),
+                *(t.reshape(B, S, G, N).transpose(1, 2) for t in (Bs, Cs)))
+
+    def rel(got, want):
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        return err, err / max(float(want.float().abs().max()), 1e-6)
+
+    cases = [
+        # (label, B, H, G, S, P, N, dtype, main path?)
+        ("main", 4, 64, 1, 4608, 64, 128, "float32", True),
+        ("main", 4, 64, 1, 4608, 64, 128, "bfloat16", False),
+        ("groups", 2, 64, 4, 1024, 64, 128, "float32", False),
+        ("small", 1, 4, 1, 256, 64, 128, "float32", False),
+    ]
+    L, worst, entry = 128, 0.0, None
+    for label, B, H, G, S, P, N, dtype, main in cases:
+        args = inputs(B, H, G, S, P, N, dtype)
+        y, state = sk.ssd_cuda(*args, chunk=L)
+        wy, wstate = ssd_chunked_ref(*args, chunk=L, return_state=True)
+        checks = {"y": rel(y, wy), "state": rel(state, wstate)}
+        if label == "small":
+            sy, sstate = ssd_ref(*args, return_state=True)
+            checks.update({"y vs sequential": rel(y, sy),
+                           "state vs sequential": rel(state, sstate)})
+        for what, (err, r) in checks.items():
+            if not (math.isfinite(r) and r < TOL[dtype]):
+                raise AssertionError(f"ssd {label} {dtype} {what}: rel err "
+                                     f"{r:.3e} >= {TOL[dtype]:.0e}")
+            worst = max(worst, err)
+        ms = time_ms(lambda: sk.ssd_cuda(*args, chunk=L), iters=10)
+        plain_ms = time_ms(lambda: ssd_chunked_ref(*args, chunk=L,
+                                                   return_state=True),
+                           iters=5, warmup=1)
+        flops, nbytes = ssd_flops_bytes(B, H, G, S, P, N,
+                                        args[0].element_size())
+        b_ms, b_by = bound(flops, nbytes, dtype)
+        log(f"[kernels] ssd {label} B{B} H{H} G{G} S{S} P{P} N{N} L{L} "
+            f"{dtype}: rel err " + ", ".join(
+                f"{what} {r:.2e}" for what, (_, r) in checks.items()) +
+            f" (tol {TOL[dtype]:.0e}) | kernel {ms:.3f} ms, plain "
+            f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}), "
+            f"{flops / ms / 1e9:.1f} TFLOP/s")
+        if main:
+            entry = dict(name="ssd", route="cuda",
+                         source="src/repro_torch/csrc/ssd.cu",
+                         replaces=KERNELS["ssd"][1], ms=ms,
+                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                         library_ms=None)
+        del args, y, state, wy, wstate
+    entry["max_abs_err"] = worst
+    return entry
+
+
+def phase_serve(arch, mods):
+    """Full-width `arch` answers the traffic twice; returns the launches
+    of the first run."""
     import torch
     from repro_torch.configs import RunConfig, get
     from repro_torch.launch.profile_serve import (
@@ -271,11 +403,11 @@ def phase_serve(fa, da):
     from repro_torch.models.common import unembed
     from repro_torch.serve import ServeEngine
 
-    cfg = get("gemma2-2b")
+    cfg = get(arch)
     t0 = time.perf_counter()
     model = LM(cfg, RunConfig(dtype="bfloat16"), seed=0, device="cuda")
     torch.cuda.synchronize()
-    log(f"[serve] gemma2-2b full width: {cfg.n_layers} layers, d "
+    log(f"[serve] {arch} full width: {cfg.n_layers} layers, d "
         f"{cfg.d_model}, vocab {cfg.vocab_size}, "
         f"{sum(p.numel() for p in model.parameters()) / 1e9:.3f} B params "
         f"(bf16), seeded init {time.perf_counter() - t0:.1f} s")
@@ -304,17 +436,17 @@ def phase_serve(fa, da):
     for attempt in range(2):
         for key in phases:
             phases[key].clear()
-        fa.launches = da.launches = 0          # the main path's run
+        reset(mods)                            # the main path's run
         torch.cuda.reset_peak_memory_stats()
         t = time.perf_counter()
         out = engine.generate(make_requests(cfg.vocab_size))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-        counts = (fa.launches, da.launches)
+        counts = read(mods)
         steps = len(phases["decode"])
-        if counts != (cfg.n_layers, cfg.n_layers * steps):
-            raise AssertionError(f"launches flash/decode {counts}, want "
-                                 f"({cfg.n_layers}, {cfg.n_layers * steps})")
+        want = expected_launches(cfg, steps)
+        if counts != want:
+            raise AssertionError(f"{arch} launches {counts}, want {want}")
         for r in out:
             if len(r.output) != NEW_TOKENS or not all(
                     0 <= t < cfg.vocab_size for t in r.output):
@@ -322,18 +454,18 @@ def phase_serve(fa, da):
         n_new = sum(len(r.output) for r in out)
         runs.append(dict(outputs=[r.output for r in out], counts=counts,
                          steps=steps))
-        log(f"[serve] run {attempt}: prompts {PROMPTS} left-padded, "
+        log(f"[serve] {arch} run {attempt}: prompts {PROMPTS} left-padded, "
             f"{NEW_TOKENS} new tokens, row {HOT_ROW} at T="
             f"{HOT_TEMPERATURE} | prefill {phases['prefill'][0]:.3f} s, "
             f"decode {1e3 * sum(phases['decode']) / steps:.2f} ms/step "
             f"over {steps} steps, {n_new / wall:.1f} tokens/s "
             f"({wall:.2f} s wall), peak memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | launches "
-            f"flash {counts[0]}, decode {counts[1]}")
+            + ", ".join(f"{k} {v}" for k, v in counts.items()))
     for i in range(len(PROMPTS)):
         if i != HOT_ROW and runs[0]["outputs"][i] != runs[1]["outputs"][i]:
-            raise AssertionError(f"greedy row {i} differs on rerun")
-    log(f"[serve] greedy rows identical on rerun; row 0 starts "
+            raise AssertionError(f"{arch}: greedy row {i} differs on rerun")
+    log(f"[serve] {arch}: greedy rows identical on rerun; row 0 starts "
         f"{runs[0]['outputs'][0][:8]}")
 
     # cost of fp32 logits: upcast operands vs a bf16 product, decode shape
@@ -341,19 +473,17 @@ def phase_serve(fa, da):
                     dtype=torch.bfloat16)
     up_ms = time_ms(lambda: unembed(model.embed, x))
     bf_ms = time_ms(lambda: x @ model.embed.t())
-    log(f"[serve] unembed (B {len(PROMPTS)}, vocab {cfg.vocab_size}): fp32 "
-        f"upcast {up_ms:.3f} ms vs bf16 product {bf_ms:.3f} ms per step")
+    log(f"[serve] {arch} unembed (B {len(PROMPTS)}, vocab {cfg.vocab_size}): "
+        f"fp32 upcast {up_ms:.3f} ms vs bf16 product {bf_ms:.3f} ms per step")
     return runs[0]["counts"]
 
 
-def phase_card_vs_cpu(fa, da):
+def phase_card_vs_cpu(cfg, label, mods):
     import numpy as np
     import torch
-    from repro_torch.configs import ATTN_FULL, ATTN_SWA, RunConfig, get
+    from repro_torch.configs import RunConfig
     from repro_torch.models import LM, lm_decode_step, lm_prefill
 
-    cfg = dataclasses.replace(get("gemma2-2b"), n_layers=2,
-                              layer_pattern=(((ATTN_SWA, ATTN_FULL), 1),))
     f32 = RunConfig(dtype="float32")
     gpu = LM(cfg, f32, seed=1, device="cuda")
     cpu = LM(cfg, f32, device="cpu", init=False)
@@ -362,7 +492,7 @@ def phase_card_vs_cpu(fa, da):
     B, S, steps = 2, 600, 3
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S + steps)))
     max_len = S + steps
-    fa.launches = da.launches = 0
+    reset(mods)
     worst = 0.0
     lg, cg = lm_prefill(gpu, toks[:, :S].cuda(), max_len=max_len)
     lc, cc = lm_prefill(cpu, toks[:, :S], max_len=max_len)
@@ -372,15 +502,17 @@ def phase_card_vs_cpu(fa, da):
         lg, cg = lm_decode_step(gpu, cg, t.cuda(), S + i)
         lc, cc = lm_decode_step(cpu, cc, t, S + i)
         pairs.append((lg, lc))
+    counts, want = read(mods), expected_launches(cfg, steps)
     for g, c in pairs:
-        rel = float((g.cpu() - c).abs().max() / c.abs().max())
+        # the padded vocab rows hold -1e30 on both sides: leave them out
+        g, c = g[:, :cfg.vocab_size].cpu(), c[:, :cfg.vocab_size]
+        rel = float((g - c).abs().max() / c.abs().max())
         if not rel < 1e-4:
             raise AssertionError(f"card vs CPU logits rel err {rel:.2e}")
         worst = max(worst, rel)
-    if (fa.launches, da.launches) != (2, 2 * steps):
-        raise AssertionError(f"card path launches {fa.launches}, "
-                             f"{da.launches}")
-    log(f"[card-vs-cpu] 2 layers (SWA, FULL) d {cfg.d_model} fp32, B {B}, "
+    if counts != want:
+        raise AssertionError(f"card path launches {counts}, want {want}")
+    log(f"[card-vs-cpu] 2 layers ({label}) d {cfg.d_model} fp32, B {B}, "
         f"prompt {S}, {steps} decode steps: max logits rel err {worst:.2e} "
         f"(tol 1e-4)")
 
@@ -396,17 +528,23 @@ def main() -> int:
                      ("TRITON_HOME", "triton")):
         os.environ.setdefault(var, str(ROOT / "build" / sub))
     import torch
+    from repro_torch.configs import ATTN_FULL, ATTN_SWA, get
     smi = phase_device()
     phase_build()
-    fa = importlib.import_module(
-        "repro_torch.kernels.flash_attention.flash_attention")
-    da = importlib.import_module(
-        "repro_torch.kernels.decode_attention.decode_attention")
-    entries = phase_kernels(fa, da)
-    flash_n, decode_n = phase_serve(fa, da)
-    entries["flash_attention"]["launches"] = flash_n
-    entries["decode_attention"]["launches"] = decode_n
-    phase_card_vs_cpu(fa, da)
+    mods = {name: importlib.import_module(mod)
+            for name, (mod, _) in KERNELS.items()}
+    entries = phase_kernels(mods["flash_attention"], mods["decode_attention"])
+    entries["ssd"] = phase_ssd_kernel(mods["ssd"])
+    gemma = phase_serve("gemma2-2b", mods)
+    mamba = phase_serve("mamba2-1.3b", mods)
+    entries["flash_attention"]["launches"] = gemma["flash_attention"]
+    entries["decode_attention"]["launches"] = gemma["decode_attention"]
+    entries["ssd"]["launches"] = mamba["ssd"]
+    phase_card_vs_cpu(dataclasses.replace(
+        get("gemma2-2b"), n_layers=2,
+        layer_pattern=(((ATTN_SWA, ATTN_FULL), 1),)), "SWA, FULL", mods)
+    phase_card_vs_cpu(dataclasses.replace(get("mamba2-1.3b"), n_layers=2),
+                      "SSM, SSM", mods)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(smi)

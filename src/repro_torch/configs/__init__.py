@@ -1,6 +1,7 @@
 """Architecture configs of the port.
 
-`get(name)` returns the full ArchConfig; only gemma2-2b is ported so far.
+`get(name)` returns the full ArchConfig; gemma2-2b and mamba2-1.3b are
+ported so far.
 `reduced` (from .base) shrinks it for CPU tests.
 """
 
@@ -13,8 +14,10 @@ from .base import (ALL_SHAPES, ArchConfig, EncoderConfig, MoEConfig,
                    TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K,
                    ATTN_FULL, ATTN_SWA, SSM, HYBRID)
 from .gemma2_2b import CONFIG as gemma2_2b
+from .mamba2_1_3b import CONFIG as mamba2_1_3b
 
-REGISTRY: Dict[str, ArchConfig] = {c.name: c for c in [gemma2_2b]}
+REGISTRY: Dict[str, ArchConfig] = {c.name: c for c in [gemma2_2b,
+                                                       mamba2_1_3b]}
 
 
 def get(name: str) -> ArchConfig:

@@ -9,6 +9,7 @@ Each kernel package has three files, as in `repro.kernels`:
 Kernels:
   flash_attention  — GQA/SWA/softcap prefill attention
   decode_attention — single-token decode over the KV cache
+  ssd              — Mamba-2 chunked SSD scan (prefill of SSM layers)
 """
 
 from . import runtime

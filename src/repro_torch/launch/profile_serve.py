@@ -1,11 +1,12 @@
 """Where the serving time goes on the card.
 
-  PYTHONPATH=src python -m repro_torch.launch.profile_serve
+  PYTHONPATH=src python -m repro_torch.launch.profile_serve [--arch ARCH]
 
-Full-width gemma2-2b (random weights from seed 0, bf16) answers the
-smoke test's requests (`chip_smoke.py` phase 4, defined here as
-`make_requests`) through `ServeEngine.generate`: once to warm up, once
-timed, once under `torch.profiler`.  For prefill and for the decode step
+A full-width model (`--arch`, default gemma2-2b; also mamba2-1.3b;
+random weights from seed 0, bf16) answers the smoke test's requests
+(`chip_smoke.py`'s serve phases, defined here as `make_requests`)
+through `ServeEngine.generate`: once to warm up, once timed, once under
+`torch.profiler`.  For prefill and for the decode step
 (the model's step plus sampling and the host's wait for the tokens) it
 prints the wall time without the profiler, the device's busy time, its
 idle share against that wall time, the kernel launches and the kernels
@@ -14,6 +15,7 @@ by device time.  The last line is a JSON summary.
 
 from __future__ import annotations
 
+import argparse
 import json
 import time
 from typing import Dict, List
@@ -103,15 +105,19 @@ def _kernel_table(prof, n_steps: int, top: int = 12):
 
 
 def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="gemma2-2b")
+    args = ap.parse_args()
     dev = resolve_device("cuda")
-    cfg = get("gemma2-2b")
+    cfg = get(args.arch)
     model = LM(cfg, RunConfig(dtype="bfloat16"), seed=SEED, device=dev)
     engine = ServeEngine(model, max_len=MAX_LEN, seed=SEED)
     run_generate(engine, profiled=False)                  # warm-up
     plain, steps, _ = run_generate(engine, profiled=False)
     under, steps, profs = run_generate(engine, profiled=True)
 
-    summary = {"config": f"gemma2-2b full width bf16, prompts {PROMPTS} "
+    summary = {"arch": cfg.name,
+               "config": f"{cfg.name} full width bf16, prompts {PROMPTS} "
                          f"left-padded, {NEW_TOKENS} new tokens",
                "device": torch.cuda.get_device_name(dev),
                "decode_steps": steps}

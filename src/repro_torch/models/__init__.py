@@ -1,4 +1,5 @@
-"""Models of the port: the dense attention LM (gemma2) in PyTorch."""
+"""Models of the port in PyTorch: the dense attention LM (gemma2) and the
+pure SSM LM (mamba2)."""
 
 from .lm import LM, lm_decode_step, lm_prefill
 from .convert import lm_from_numpy

@@ -1,8 +1,9 @@
-"""Transformer blocks and the layer loop (the port of `repro.models.blocks`
-for the attention kinds).
+"""Transformer and SSM blocks and the layer loop (the port of
+`repro.models.blocks` for the attention and SSM kinds).
 
 A block is one residual layer:
   attn_full / attn_swa — [norm → attention → (+)] [norm → FFN → (+)]
+  ssm                  — [norm → mamba2 → (+)]      (no FFN in Mamba-2)
 with gemma2's optional post-norms on each branch.  The reference scans
 stacked parameters per segment; the port keeps its layers in a flat list
 in the order they run (`ArchConfig.layer_kinds`) and loops over it.
@@ -15,20 +16,22 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from repro_torch.configs.base import ArchConfig, ATTN_FULL, ATTN_SWA
+from repro_torch.configs.base import ArchConfig, ATTN_FULL, ATTN_SWA, SSM
 from .attention import Attention, attention_decode_step, attention_forward
 from .common import rmsnorm
 from .ffn import FFN, ffn_forward
+from .ssm import SSM as SSMMixer, ssm_decode_step, ssm_forward
 
 ATTN_KINDS = (ATTN_FULL, ATTN_SWA)
+# attention layers: {"k", "v"}; SSM layers: {"conv", "state"}
 Cache = Dict[str, torch.Tensor]
 
 
 def check_kind(kind: str) -> None:
-    if kind not in ATTN_KINDS:
+    if kind not in ATTN_KINDS + (SSM,):
         raise NotImplementedError(
             f"layer kind {kind!r} is not ported yet (ROADMAP.md, queue 1: "
-            f"SSM, hybrid and MoE blocks)")
+            f"hybrid and MoE blocks)")
 
 
 def _window_for(kind: str, cfg: ArchConfig) -> int:
@@ -45,17 +48,25 @@ class Block(nn.Module):
         super().__init__()
         check_kind(kind)
         self.kind = kind
+        self.has_ffn = kind != SSM         # Mamba-2 layers have no FFN
         d = cfg.d_model
         self.ln1 = _norm(d, device)
-        self.attn = Attention(cfg, dtype, device)
-        self.ln2 = _norm(d, device)
-        self.ffn = FFN(d, cfg.d_ff, dtype, device)
+        if kind == SSM:
+            self.ssm = SSMMixer(cfg, dtype, device)
+        else:
+            self.attn = Attention(cfg, dtype, device)
+        if self.has_ffn:
+            self.ln2 = _norm(d, device)
+            self.ffn = FFN(d, cfg.d_ff, dtype, device)
         if cfg.post_block_norm:
             self.post_ln1 = _norm(d, device)
-            self.post_ln2 = _norm(d, device)
+            if self.has_ffn:
+                self.post_ln2 = _norm(d, device)
 
 
 def _ffn_branch(p: Block, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    if not p.has_ffn:
+        return x
     h = ffn_forward(p.ffn, rmsnorm(p.ln2, x), cfg.act)
     if cfg.post_block_norm:
         h = rmsnorm(p.post_ln2, h)
@@ -65,28 +76,41 @@ def _ffn_branch(p: Block, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
 def block_forward(p: Block, x: torch.Tensor, cfg: ArchConfig, kind: str,
                   positions: Optional[torch.Tensor] = None,
                   collect_cache: bool = False):
-    """Returns x, or (x, cache) with the roped k/v when `collect_cache`."""
-    h = attention_forward(p.attn, rmsnorm(p.ln1, x), cfg,
-                          window=_window_for(kind, cfg), positions=positions,
-                          return_kv=collect_cache)
-    if collect_cache:
-        h, (k, v) = h
+    """Returns x, or (x, cache) when `collect_cache`: the roped k/v of an
+    attention layer, the final state and conv tail of an SSM layer."""
+    h = rmsnorm(p.ln1, x)
+    if kind == SSM:
+        h = ssm_forward(p.ssm, h, cfg, return_state=collect_cache)
+        if collect_cache:
+            h, cache = h
+    else:
+        h = attention_forward(p.attn, h, cfg, window=_window_for(kind, cfg),
+                              positions=positions, return_kv=collect_cache)
+        if collect_cache:
+            h, (k, v) = h
+            cache = {"k": k, "v": v}
     if cfg.post_block_norm:
         h = rmsnorm(p.post_ln1, h)
     x = _ffn_branch(p, x + h, cfg)
-    return (x, {"k": k, "v": v}) if collect_cache else x
+    return (x, cache) if collect_cache else x
 
 
 def block_decode_step(p: Block, x: torch.Tensor, cache: Cache, pos: int,
                       cfg: ArchConfig, kind: str
                       ) -> Tuple[torch.Tensor, Cache]:
-    """One token through one layer; the cache is updated in place."""
-    h, ck, cv = attention_decode_step(
-        p.attn, rmsnorm(p.ln1, x), cache["k"], cache["v"], pos, cfg,
-        window=_window_for(kind, cfg))
+    """One token through one layer.  An attention cache is written in
+    place; an SSM cache is replaced by the returned one."""
+    h = rmsnorm(p.ln1, x)
+    if kind == SSM:
+        h, cache = ssm_decode_step(p.ssm, h, cache, cfg)
+    else:
+        h, ck, cv = attention_decode_step(
+            p.attn, h, cache["k"], cache["v"], pos, cfg,
+            window=_window_for(kind, cfg))
+        cache = {"k": ck, "v": cv}
     if cfg.post_block_norm:
         h = rmsnorm(p.post_ln1, h)
-    return _ffn_branch(p, x + h, cfg), {"k": ck, "v": cv}
+    return _ffn_branch(p, x + h, cfg), cache
 
 
 def segments_forward(layers: Sequence[Block], x: torch.Tensor,

@@ -30,6 +30,14 @@ _LAYER_LEAVES = {
     ("ffn", "w_gate", "kernel"): "ffn.w_gate",
     ("ffn", "w_up", "kernel"): "ffn.w_up",
     ("ffn", "w_down", "kernel"): "ffn.w_down",
+    ("ssm", "in_proj", "kernel"): "ssm.in_proj",
+    ("ssm", "out_proj", "kernel"): "ssm.out_proj",
+    ("ssm", "conv_w"): "ssm.conv_w",
+    ("ssm", "conv_b"): "ssm.conv_b",
+    ("ssm", "A_log"): "ssm.A_log",
+    ("ssm", "D"): "ssm.D",
+    ("ssm", "dt_bias"): "ssm.dt_bias",
+    ("ssm", "gate_norm", "scale"): "ssm.gate_norm",
 }
 
 

@@ -1,13 +1,14 @@
-"""Decoder-only LM (the port of `repro.models.lm` for dense attention
-models).
+"""Decoder-only LM (the port of `repro.models.lm` for dense attention and
+pure SSM models).
 
   LM             — the module; weights drawn from a seeded torch.Generator
   lm_prefill     — tokens → last-position logits and decode caches padded
                    to `max_len`
-  lm_decode_step — one token per row through the caches (updated in place)
+  lm_decode_step — one token per row through the caches (attention caches
+                   updated in place, SSM caches replaced)
 
 Matmul weights and the embedding table are stored in the compute dtype,
-norm scales in fp32.  Logits are fp32.
+norm scales and the SSM's small leaves in fp32.  Logits are fp32.
 """
 
 from __future__ import annotations
@@ -18,9 +19,10 @@ from typing import List, Optional, Tuple, Union
 import torch
 from torch import nn
 
-from repro_torch.configs.base import ArchConfig, RunConfig
+from repro_torch.configs.base import ArchConfig, RunConfig, SSM
 from repro_torch.kernels.runtime import resolve_device
 from .blocks import Block, Cache, block_decode_step, segments_forward
+from .ssm import SSM as SSMMixer, ssm_dims
 from .common import embed, rmsnorm, softcap, unembed
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -28,8 +30,7 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 def _check_supported(cfg: ArchConfig) -> None:
     missing = [name for name, on in (
-        ("moe", cfg.moe is not None), ("ssm", cfg.ssm is not None),
-        ("encoder", cfg.encoder is not None),
+        ("moe", cfg.moe is not None), ("encoder", cfg.encoder is not None),
         ("vision", cfg.vision is not None), ("qkv_bias", cfg.qkv_bias),
         ("untied embeddings", not cfg.tie_embeddings)) if on]
     if missing:
@@ -42,10 +43,10 @@ class LM(nn.Module):
     """`rcfg.dtype` is the compute dtype ("bfloat16" or "float32");
     `device` defaults to the card.  Weights follow the reference's
     initializers (truncated normal at ±2σ; σ = 1/sqrt(fan_in), 0.02 for
-    the embedding; norm scales 0) but are drawn from
-    `torch.Generator(device)` seeded with `seed`, so they are not the
-    reference's numbers.  `init=False` leaves them unset for a caller
-    that copies weights in."""
+    the embedding; norm scales 0; the SSM leaves by `init_ssm`'s law)
+    but are drawn from `torch.Generator(device)` seeded with `seed`, so
+    they are not the reference's numbers.  `init=False` leaves them unset
+    for a caller that copies weights in."""
 
     def __init__(self, cfg: ArchConfig, rcfg: RunConfig = RunConfig(),
                  seed: int = 0,
@@ -78,10 +79,30 @@ class LM(nn.Module):
                                   generator=gen)
             p.copy_(tmp)
 
+        def init_ssm(p: SSMMixer) -> None:
+            """`init_ssm`'s law: A_log = log(1..H), D = 1, dt_bias the
+            inverse softplus of a log-uniform dt in [dt_min, dt_max];
+            conv_b and gate_norm stay 0."""
+            sc = cfg.ssm
+            d_inner, H = ssm_dims(cfg)[:2]
+            fill(p.in_proj, 1.0 / math.sqrt(cfg.d_model))
+            fill(p.out_proj, 1.0 / math.sqrt(d_inner))
+            fill(p.conv_w, 1.0 / math.sqrt(sc.conv_kernel))
+            p.A_log.copy_(torch.log(torch.arange(1, H + 1,
+                                                 dtype=torch.float32)))
+            p.D.fill_(1.0)
+            lo, hi = math.log(sc.dt_min), math.log(sc.dt_max)
+            u = torch.rand(H, generator=gen, device=p.dt_bias.device)
+            dt = torch.exp(u * (hi - lo) + lo)
+            p.dt_bias.copy_(dt + torch.log(-torch.expm1(-dt)))
+
         cfg = self.cfg
         dh = cfg.resolved_head_dim
         fill(self.embed, 0.02)
         for layer in self.layers:
+            if layer.kind == SSM:
+                init_ssm(layer.ssm)
+                continue
             a, f = layer.attn, layer.ffn
             for w in (a.wq, a.wk, a.wv, f.w_gate, f.w_up):
                 fill(w, 1.0 / math.sqrt(cfg.d_model))
@@ -109,7 +130,8 @@ def lm_prefill(model: LM, tokens: torch.Tensor,
                max_len: Optional[int] = None
                ) -> Tuple[torch.Tensor, List[Cache]]:
     """tokens (B, S) → (last-position logits (B, V) fp32, caches), one
-    cache {"k", "v"} per layer, each (B, Hkv, max_len, dh), zero past S."""
+    cache per layer: {"k", "v"} of an attention layer, each (B, Hkv,
+    max_len, dh) and zero past S; {"conv", "state"} of an SSM layer."""
     B, S = tokens.shape
     max_len = max_len or S
     if S > max_len:
@@ -126,14 +148,16 @@ def lm_prefill(model: LM, tokens: torch.Tensor,
         out[:, :, :S] = a
         return out
 
-    return logits, [{"k": pad(c["k"]), "v": pad(c["v"])} for c in caches]
+    return logits, [{name: pad(a) if name in ("k", "v") else a
+                     for name, a in c.items()} for c in caches]
 
 
 @torch.no_grad()
 def lm_decode_step(model: LM, caches: List[Cache], tokens: torch.Tensor,
                    pos: int) -> Tuple[torch.Tensor, List[Cache]]:
     """tokens (B, 1); `pos` — the current cache fill.  Returns (logits
-    (B, V) fp32, caches); the caches are updated in place."""
+    (B, V) fp32, caches): attention caches are updated in place, SSM
+    caches replaced, so use the returned list."""
     x = _embed_in(model, tokens)
     new_caches: List[Cache] = []
     for layer, kind, cache in zip(model.layers, model.cfg.layer_kinds,

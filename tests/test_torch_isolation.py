@@ -8,6 +8,8 @@ import subprocess
 import sys
 import textwrap
 
+import pytest
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 BLOCKER = """
@@ -60,14 +62,15 @@ def test_every_module_imports_without_jax_or_repro():
                        for m in sys.modules)
         print(len(names))
     """)
-    assert int(out.split()[-1]) >= 15
+    assert int(out.split()[-1]) >= 20
 
 
-def test_serve_entry_point_runs_on_cpu_without_jax():
-    out = _run("""
+@pytest.mark.parametrize("arch", ["gemma2-2b", "mamba2-1.3b"])
+def test_serve_entry_point_runs_on_cpu_without_jax(arch):
+    out = _run(f"""
         import runpy
-        sys.argv = ["serve", "--device", "cpu", "--batch", "2",
-                    "--prompt-len", "70", "--new-tokens", "3"]
+        sys.argv = ["serve", "--arch", "{arch}", "--device", "cpu",
+                    "--batch", "2", "--prompt-len", "70", "--new-tokens", "3"]
         runpy.run_module("repro_torch.launch.serve", run_name="__main__")
     """)
-    assert '"new_tokens": 6' in out
+    assert '"new_tokens": 6' in out and f'"arch": "{arch}"' in out

@@ -1,6 +1,7 @@
-"""The port's attention ops on the CPU (their plain versions) against the
-JAX Pallas kernels in interpret mode and the JAX references, on the cases
-of tests/test_kernels.py plus gemma2's head_dim 256 with softcap 50.
+"""The port's attention and SSD ops on the CPU (their plain versions)
+against the JAX Pallas kernels in interpret mode and the JAX references,
+on the cases of tests/test_kernels.py plus gemma2's head_dim 256 with
+softcap 50 and reduced mamba2's SSD shape.
 
 Inputs are drawn once in float32 with numpy and rounded to the working
 dtype by each framework (both round to nearest even, so the operands are
@@ -17,9 +18,11 @@ from repro.kernels.decode_attention import (decode_attention as j_decode,
                                             decode_attention_ref as j_dref)
 from repro.kernels.flash_attention import (attention_ref as j_fref,
                                            flash_attention as j_flash)
+from repro.kernels.ssd import ssd as j_ssd, ssd_ref as j_ssd_ref
 from repro_torch.kernels.decode_attention import (decode_attention,
                                                   decode_attention_ref)
 from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+from repro_torch.kernels.ssd import ssd, ssd_chunked_ref, ssd_ref
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
@@ -40,6 +43,12 @@ DECODE_CASES = [
     dict(B=2, Hq=8, Hkv=4, S=2048, D=64, kvlen=1500, win=256, cap=0.0),
     dict(B=1, Hq=8, Hkv=4, S=256, D=256, kvlen=200, win=64, cap=50.0,
          scale=1 / 16),
+]
+SSD_CASES = [
+    dict(B=2, H=4, G=2, S=256, P=32, N=64, chunk=64),
+    dict(B=1, H=8, G=1, S=128, P=64, N=32, chunk=32),
+    # reduced mamba2: d_inner 256 in 16 heads of 16, d_state 32, chunk 32
+    dict(B=2, H=16, G=1, S=96, P=16, N=32, chunk=32),
 ]
 
 
@@ -136,13 +145,17 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         "repro_torch.kernels.flash_attention.flash_attention")
     da = importlib.import_module(
         "repro_torch.kernels.decode_attention.decode_attention")
+    sk = importlib.import_module("repro_torch.kernels.ssd.ssd")
     q = torch.zeros(1, 2, 8, 64)
-    before = (fa.launches, da.launches)
+    before = (fa.launches, da.launches, sk.launches)
     with pytest.raises(ValueError):
         fa.flash_attention_cuda(q, q, q)
     with pytest.raises(ValueError):
         da.decode_attention_cuda(q[:, :, 0], q, q, kv_len=4)
-    assert (fa.launches, da.launches) == before
+    with pytest.raises(ValueError):
+        sk.ssd_cuda(q, q[..., 0], q[0, :, 0, 0], q[0, :, 0, 0], q, q,
+                    chunk=8)
+    assert (fa.launches, da.launches, sk.launches) == before
 
 
 def test_device_resolution_and_missing_nvcc(monkeypatch, tmp_path):
@@ -162,3 +175,62 @@ def test_device_resolution_and_missing_nvcc(monkeypatch, tmp_path):
         runtime.load("decode_attention")
     assert runtime.library_path("decode_attention").name.startswith(
         "libdecode_attention-")
+
+
+def _ssd_inputs(case, seed=7):
+    """x, dt, A, D, B, C as in tests/test_kernels.py, in float32."""
+    B, H, G, S, P, N = (case[k] for k in "BHGSPN")
+    rng = np.random.default_rng(seed)
+    arrs = [rng.standard_normal((B, H, S, P)),
+            rng.uniform(0.001, 0.1, (B, H, S)),
+            -rng.uniform(0.5, 2.0, H),
+            rng.standard_normal(H),
+            rng.standard_normal((B, G, S, N)) * 0.3,
+            rng.standard_normal((B, G, S, N)) * 0.3]
+    arrs = [a.astype(np.float32) for a in arrs]
+    return ([jnp.asarray(a) for a in arrs],
+            [torch.from_numpy(a) for a in arrs])
+
+
+@pytest.mark.parametrize("case", SSD_CASES)
+def test_ssd_plain_vs_pallas_and_ref(case):
+    """y and the final state of the port's chunked plain version against
+    the Pallas kernel (interpret mode) and the sequential JAX scan."""
+    jargs, args = _ssd_inputs(case)
+    y, state = ssd(*args, chunk=case["chunk"], return_state=True)
+    assert y.shape == args[0].shape and state.dtype == torch.float32
+    assert state.shape == (case["B"], case["H"], case["N"], case["P"])
+    jy, jstate = j_ssd(*jargs, chunk=case["chunk"], return_state=True,
+                       backend="pallas", interpret=True)
+    jref = j_ssd_ref(*jargs)
+    assert _rel_err(y, jy) < TOL["float32"]
+    assert _rel_err(state, jstate) < TOL["float32"]
+    assert _rel_err(y, jref) < TOL["float32"]
+    chunked = ssd_chunked_ref(*args, chunk=case["chunk"], return_state=True)
+    assert _rel_err(chunked[0], y) == 0.0 and _rel_err(chunked[1], state) \
+        == 0.0
+
+
+@pytest.mark.parametrize("case", SSD_CASES)
+def test_ssd_sequential_ref_vs_jax(case):
+    """The port's step-by-step recurrence against JAX's, and its final
+    state against the Pallas kernel's."""
+    jargs, args = _ssd_inputs(case, seed=8)
+    y, state = ssd_ref(*args, return_state=True)
+    assert _rel_err(y, j_ssd_ref(*jargs)) < TOL["float32"]
+    _, jstate = j_ssd(*jargs, chunk=case["chunk"], return_state=True,
+                      backend="pallas", interpret=True)
+    assert _rel_err(state, jstate) < TOL["float32"]
+    assert _rel_err(ssd_ref(*args), y) == 0.0
+
+
+def test_ssd_bad_shapes_raise():
+    """The reference's two refusals: S not a multiple of the chunk, and
+    heads not a multiple of the groups."""
+    _, (x, dt, A, D, B, C) = _ssd_inputs(SSD_CASES[0])
+    with pytest.raises(ValueError, match="chunk"):
+        ssd(x, dt, A, D, B, C, chunk=96)
+    with pytest.raises(ValueError, match="groups"):
+        ssd(x[:, :3], dt[:, :3], A[:3], D[:3], B, C, chunk=64)
+    with pytest.raises(ValueError):
+        ssd(x.to("meta"), dt, A, D, B, C, chunk=64)

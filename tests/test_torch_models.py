@@ -1,6 +1,6 @@
 """Each model module of the port against its JAX counterpart at float32 on
-reduced gemma2, with the weights carried over from `repro.models.init_lm`
-through `lm_from_numpy`.  The JAX side runs the Pallas kernels in
+reduced gemma2 and reduced mamba2, with the weights carried over from
+`repro.models.init_lm` through `lm_from_numpy`.  The JAX side runs the Pallas kernels in
 interpret mode (`RunConfig(kernels="pallas")`).
 
 Error is relative to max|reference|: 2e-5 for one module (the float32
@@ -22,12 +22,13 @@ from repro.configs.base import (ATTN_FULL, ATTN_SWA, RunConfig as JRunConfig,
 from repro.models import attention as j_attn
 from repro.models import common as j_common
 from repro.models import ffn as j_ffn
+from repro.models import ssm as j_ssm
 from repro.models import init_lm, lm_decode_step as j_lm_decode
 from repro.models import lm_prefill as j_lm_prefill
 from repro_torch.configs.base import ArchConfig, RunConfig
 from repro_torch.models import (LM, attention as t_attn, common as t_common,
                                 ffn as t_ffn, lm_decode_step, lm_from_numpy,
-                                lm_prefill)
+                                lm_prefill, ssm as t_ssm)
 
 RCFG = JRunConfig(kernels="pallas", dtype="float32", remat=False)
 MODULE_TOL = 2e-5
@@ -62,6 +63,15 @@ def _build(jcfg, seed=0):
 def reduced_lm():
     jcfg = j_reduced(j_get("gemma2-2b"))
     params, model = _build(jcfg)
+    return jcfg, params, model
+
+
+@pytest.fixture(scope="module")
+def mamba2_lm():
+    """Reduced mamba2: 2 SSM layers, d 128, 16 heads of 16, d_state 32,
+    chunk 32."""
+    jcfg = j_reduced(j_get("mamba2-1.3b"))
+    params, model = _build(jcfg, seed=2)
     return jcfg, params, model
 
 
@@ -187,10 +197,11 @@ def test_converter_rejects_missing_leaf(reduced_lm):
         lm_from_numpy(port_cfg(jcfg), tree, device="cpu")
 
 
-@pytest.mark.parametrize("which", ["reduced_lm", "stacked_lm"])
+@pytest.mark.parametrize("which", ["reduced_lm", "stacked_lm", "mamba2_lm"])
 def test_lm_prefill_and_decode(request, which):
-    """Whole-LM logits: prefill of a 90-token prompt (> window 64), then
-    four decode steps, each within 1e-4 of the reference."""
+    """Whole-LM logits: prefill of a 90-token prompt (> window 64; not a
+    multiple of mamba2's chunk 32), then four decode steps, each within
+    1e-4 of the reference."""
     jcfg, params, model = request.getfixturevalue(which)
     rng = np.random.default_rng(6)
     B, S, max_len = 2, 90, 128
@@ -201,8 +212,12 @@ def test_lm_prefill_and_decode(request, which):
                              max_len=max_len)
     assert got.dtype == torch.float32 and got.shape == (B, jcfg.vocab_size)
     assert rel_err(got, want) < LM_TOL
-    assert all(c["k"].shape == (B, jcfg.n_kv_heads, max_len,
-                                jcfg.resolved_head_dim) for c in caches)
+    for c, kind in zip(caches, port_cfg(jcfg).layer_kinds):
+        if kind == "ssm":
+            assert sorted(c) == ["conv", "state"]
+        else:
+            assert c["k"].shape == (B, jcfg.n_kv_heads, max_len,
+                                    jcfg.resolved_head_dim)
     for step in range(4):
         pos = S + step
         want, jcaches = j_lm_decode(params, jcaches,
@@ -233,6 +248,117 @@ def test_seeded_init_is_reproducible():
 def test_unported_kinds_raise():
     cfg = dataclasses.replace(
         port_cfg(j_reduced(j_get("gemma2-2b"))), layer_pattern=(
-            (("ssm",), 1), ((ATTN_FULL,), 1)))
+            (("hybrid",), 1), ((ATTN_FULL,), 1)))
     with pytest.raises(NotImplementedError):
         LM(cfg, RunConfig(dtype="float32"), device="cpu")
+
+
+def _layer(params, layer=0):
+    """One layer's tree out of the reference's stacked single-kind
+    segment."""
+    return jax.tree_util.tree_map(lambda a: a[layer],
+                                  params["segments"][0][0])
+
+
+def test_ssm_forward_and_decode(mamba2_lm):
+    """A 90-token sequence (not a multiple of the chunk 32, so the scan
+    input is padded), its decode cache, then three decode steps from it."""
+    jcfg, params, model = mamba2_lm
+    rng = np.random.default_rng(7)
+    B, S = 2, 90
+    x = randn(rng, B, S + 3, jcfg.d_model)
+    p = _layer(params, 1)["ssm"]
+    want, jcache = j_ssm.ssm_forward(p, jnp.asarray(x[:, :S]), jcfg, RCFG,
+                                     return_state=True)
+    got, cache = t_ssm.ssm_forward(model.layers[1].ssm,
+                                   torch.from_numpy(x[:, :S]),
+                                   port_cfg(jcfg), return_state=True)
+    assert rel_err(got, want) < MODULE_TOL
+    assert rel_err(cache["state"], jcache["state"]) < MODULE_TOL
+    assert rel_err(cache["conv"], jcache["conv"]) < MODULE_TOL
+    # the conv tail owns its storage: a view would keep every layer's
+    # whole (B, S, conv_dim) input alive for as long as the cache lives
+    conv = cache["conv"]
+    assert conv.untyped_storage().nbytes() == conv.numel() * 4
+    for t in range(S, S + 3):
+        want, jcache = j_ssm.ssm_decode_step(p, jnp.asarray(x[:, t:t + 1]),
+                                             jcache, jcfg, RCFG)
+        got, cache = t_ssm.ssm_decode_step(model.layers[1].ssm,
+                                           torch.from_numpy(x[:, t:t + 1]),
+                                           cache, port_cfg(jcfg))
+        assert rel_err(got, want) < MODULE_TOL, t
+        assert rel_err(cache["state"], jcache["state"]) < MODULE_TOL, t
+
+
+@pytest.mark.parametrize("S", [1, 2, 3, 40])
+@torch.no_grad()
+def test_ssm_short_prompts_and_empty_cache(mamba2_lm, S):
+    """Prompts shorter than the conv kernel (a zero-padded conv tail), and
+    a decode step from `init_ssm_cache` equal to the forward of the same
+    token."""
+    jcfg, params, model = mamba2_lm
+    cfg, p = port_cfg(jcfg), model.layers[0].ssm
+    x = randn(np.random.default_rng(8), 2, S, jcfg.d_model)
+    want, jcache = j_ssm.ssm_forward(_layer(params)["ssm"], jnp.asarray(x),
+                                     jcfg, RCFG, return_state=True)
+    got, cache = t_ssm.ssm_forward(p, torch.from_numpy(x), cfg,
+                                   return_state=True)
+    assert cache["conv"].shape == (2, cfg.ssm.conv_kernel - 1,
+                                   t_ssm.conv_dim(cfg))
+    assert rel_err(got, want) < MODULE_TOL
+    assert rel_err(cache["conv"], jcache["conv"]) < MODULE_TOL
+    empty = t_ssm.init_ssm_cache(2, cfg, torch.device("cpu"))
+    first, _ = t_ssm.ssm_decode_step(p, torch.from_numpy(x[:, :1]), empty,
+                                     cfg)
+    assert rel_err(first, got[:, :1]) < MODULE_TOL
+
+
+def test_ssm_blocks_have_no_ffn(mamba2_lm):
+    """Mamba-2 layers are norm → mixer → residual: reduced mamba2 keeps
+    the reduced d_ff 256, as the reference does, and builds no FFN."""
+    jcfg, params, model = mamba2_lm
+    assert jcfg.d_ff > 0
+    names = {n.split(".", 2)[2].split(".")[0]
+             for n, _ in model.named_parameters() if n.startswith("layers")}
+    assert names == {"ln1", "ssm"}
+    assert set(_layer(params)) == {"ln1", "ssm"}
+
+
+@pytest.mark.parametrize("leaf", ["dt_bias", "gate_norm"])
+def test_converter_rejects_missing_ssm_leaf(mamba2_lm, leaf):
+    jcfg, params, _ = mamba2_lm
+    tree = jax.tree_util.tree_map(np.asarray, params)
+    del tree["segments"][0][0]["ssm"][leaf]
+    with pytest.raises(ValueError):
+        lm_from_numpy(port_cfg(jcfg), tree, device="cpu")
+    tree = jax.tree_util.tree_map(np.asarray, params)
+    tree["segments"][0][0]["ssm"]["extra"] = np.zeros(3, np.float32)
+    with pytest.raises(ValueError, match="unported"):
+        lm_from_numpy(port_cfg(jcfg), tree, device="cpu")
+
+
+@torch.no_grad()
+def test_seeded_ssm_init_follows_the_reference_law():
+    cfg = port_cfg(j_reduced(j_get("mamba2-1.3b")))
+    a = LM(cfg, RunConfig(dtype="float32"), seed=3, device="cpu")
+    b = LM(cfg, RunConfig(dtype="float32"), seed=3, device="cpu")
+    for (name, pa), pb in zip(a.named_parameters(), b.parameters()):
+        assert torch.equal(pa, pb), name
+    d_inner, H = t_ssm.ssm_dims(cfg)[:2]
+    sc = cfg.ssm
+    for layer in a.layers:
+        p = layer.ssm
+        assert p.in_proj.shape == (cfg.d_model, 2 * d_inner + 2 *
+                                   sc.n_groups * sc.d_state + H)
+        assert torch.equal(p.A_log, torch.log(torch.arange(1., H + 1)))
+        assert torch.equal(p.D, torch.ones(H))
+        dt = torch.nn.functional.softplus(p.dt_bias)
+        assert float(dt.min()) >= sc.dt_min * 0.999
+        assert float(dt.max()) <= sc.dt_max * 1.001
+        assert not torch.any(p.conv_b) and not torch.any(p.gate_norm)
+        for w, std in ((p.in_proj, cfg.d_model ** -0.5),
+                       (p.out_proj, d_inner ** -0.5),
+                       (p.conv_w, sc.conv_kernel ** -0.5)):
+            assert float(w.abs().max()) <= 2 * std
+        assert all(t.dtype == torch.float32 for t in (
+            p.conv_w, p.conv_b, p.A_log, p.D, p.dt_bias, p.gate_norm))

@@ -1,6 +1,6 @@
-"""The slice end to end on the CPU: the port's `ServeEngine` and JAX's
+"""The slices end to end on the CPU: the port's `ServeEngine` and JAX's
 `ServeEngine` (Pallas kernels in interpret mode, float32) answer the same
-requests on reduced gemma2 with the same weights.
+requests on reduced gemma2 and on reduced mamba2 with the same weights.
 
 Greedy token streams must be equal.  Each step's top-2 logit margin is
 asserted to exceed the two frameworks' logit disagreement (1e-4 of
@@ -45,18 +45,25 @@ class RecordingEngine(ServeEngine):
 def seeded_params(jcfg, seed):
     """`init_lm`'s tree with every leaf redrawn from a seeded numpy
     stream at the reference initializer's scale (truncated normal at
-    ±2σ; σ 0.02 for the embedding, 1/sqrt(fan_in) for a kernel; norm
-    scales stay 0).  `init_lm` salts its keys with Python's `hash()`,
+    ±2σ; σ 0.02 for the embedding, 1/sqrt(fan_in) for a kernel or the SSM
+    conv; norm scales and the conv bias stay 0; the SSM's A_log and D are
+    deterministic and stay, its dt_bias is redrawn by `init_ssm`'s
+    log-uniform law).  `init_lm` salts its keys with Python's `hash()`,
     which differs between processes; these weights do not, so the token
     streams and their top-2 margins are the same in every run."""
     rng = np.random.default_rng(seed)
+    sc = jcfg.ssm
 
     def redraw(path, leaf):
         a = np.asarray(leaf)
-        if not np.any(a):
+        name = jax.tree_util.keystr(path)
+        if not np.any(a) or "A_log" in name or "['D']" in name:
             return leaf
-        std = 0.02 if "embed" in jax.tree_util.keystr(path) \
-            else 1.0 / np.sqrt(a.shape[-2])
+        if "dt_bias" in name:
+            lo, hi = np.log(sc.dt_min), np.log(sc.dt_max)
+            dt = np.exp(rng.uniform(size=a.shape) * (hi - lo) + lo)
+            return jnp.asarray((dt + np.log(-np.expm1(-dt))).astype(a.dtype))
+        std = 0.02 if "embed" in name else 1.0 / np.sqrt(a.shape[-2])
         w = np.clip(rng.standard_normal(a.shape), -2.0, 2.0) * std
         return jnp.asarray(w.astype(a.dtype))
 
@@ -64,10 +71,9 @@ def seeded_params(jcfg, seed):
         redraw, init_lm(jax.random.PRNGKey(seed), jcfg))
 
 
-@pytest.fixture(scope="module")
-def setup():
-    jcfg = j_reduced(j_get("gemma2-2b"))
-    params = seeded_params(jcfg, 0)
+def _setup(arch, seed):
+    jcfg = j_reduced(j_get(arch))
+    params = seeded_params(jcfg, seed)
     tree = jax.tree_util.tree_map(np.asarray, params)
     cfg = ArchConfig(**{f.name: getattr(jcfg, f.name)
                         for f in dataclasses.fields(jcfg)})
@@ -84,8 +90,20 @@ def setup():
     return model, prompts, j_out
 
 
-def test_greedy_streams_equal_jax(setup):
-    model, prompts, j_out = setup
+@pytest.fixture(scope="module")
+def setup():
+    return _setup("gemma2-2b", 0)
+
+
+@pytest.fixture(scope="module")
+def mamba2_setup():
+    """Seed 1: its smallest top-2 margin is 68x the disagreement bound."""
+    return _setup("mamba2-1.3b", 1)
+
+
+@pytest.mark.parametrize("which", ["setup", "mamba2_setup"])
+def test_greedy_streams_equal_jax(request, which):
+    model, prompts, j_out = request.getfixturevalue(which)
     engine = RecordingEngine(model, max_len=MAX_LEN)
     out = [r.output for r in engine.generate(
         [Request(prompt=list(p), max_new_tokens=NEW_TOKENS)
