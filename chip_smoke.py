@@ -9,8 +9,9 @@ lines tagged with its name:
 
   1. device  — the card's name and power limit from nvidia-smi; no CUDA
                device is an error;
-  2. build   — the three kernels from `src/repro_torch/csrc`, `nvcc` for
-               sm_90a, started together;
+  2. build   — the five sources under `src/repro_torch/csrc` (flash and
+               decode attention, the SSD scan, the Init and copy engines),
+               one `nvcc` each for sm_90a, started together;
   3. kernels — each CUDA kernel against its plain PyTorch version on the
                card (tolerance relative to max|plain|: 2e-2 bf16, 1e-4
                fp32), with its time from CUDA events beside the plain
@@ -22,14 +23,25 @@ lines tagged with its name:
                fp32 and bf16, on views of (B, S, ...) tensors as the SSM
                layer passes them, with four groups, and a small case also
                held against the sequential recurrence;
-  4. serve   — full-width gemma2-2b (26 layers, d 2304, vocab 256,000)
+  4. dma     — the quickstart's path through the port's descriptor
+               plane (host NumPy: a register front-end's 3-D gather, the
+               presets' 4 KiB cycles), a `plan_nd_copy` plan whose
+               `copy_2d` on the card equals `copy_2d_reference` byte for
+               byte, an engine's Init PRNG stream equal to `prng_fill` on
+               the card; then the Init and copy kernels at real sizes
+               from gemma2-2b and mamba2-1.3b (2.4 GB casts and fills, the
+               SSD input's strided view) and small edge cases in every
+               dtype, bit for bit against their plain versions; the five
+               launch counters, set to 0 first, must equal the calls
+               made; then kernel, plain and library times;
+  5. serve   — full-width gemma2-2b (26 layers, d 2304, vocab 256,000)
                and then full-width mamba2-1.3b (48 SSM layers, d 2048,
                vocab 50,280), seeded random weights, bf16, each answer
                4 left-padded requests through `ServeEngine.generate`,
                twice; the launch counters, set to 0 before each run, must
                show every attention and SSD call went through the kernels
-               and no other kernel ran;
-  5. card vs CPU — 2 gemma2 layers (SWA, FULL) and 2 mamba2 layers at
+               and no other kernel ran (no copy or Init kernel either);
+  6. card vs CPU — 2 gemma2 layers (SWA, FULL) and 2 mamba2 layers at
                full width in fp32, a 600-token prompt and 3 decode steps:
                logits of the CUDA path agree with the CPU path within 1e-4.
 
@@ -110,46 +122,65 @@ def phase_device():
     return smi
 
 
-KERNELS = {  # launch counter's module → the TPU kernel it replaces
+INIT = "src/repro/kernels/init_engine/init_engine.py"
+COPY = "src/repro/kernels/copy_engine/copy_engine.py"
+KERNELS = {  # kernel → (wrapper module, its launch counter, source in
+    #          csrc/, the TPU kernel it replaces)
     "flash_attention": ("repro_torch.kernels.flash_attention."
-                        "flash_attention",
+                        "flash_attention", "launches", "flash_attention",
                         "src/repro/kernels/flash_attention/"
                         "flash_attention.py:136"),
     "decode_attention": ("repro_torch.kernels.decode_attention."
-                         "decode_attention",
+                         "decode_attention", "launches", "decode_attention",
                          "src/repro/kernels/decode_attention/"
                          "decode_attention.py:119"),
-    "ssd": ("repro_torch.kernels.ssd.ssd",
+    "ssd": ("repro_torch.kernels.ssd.ssd", "launches", "ssd",
             "src/repro/kernels/ssd/ssd.py:112"),
+    "memset": ("repro_torch.kernels.init_engine.init_engine",
+               "memset_launches", "init_engine", f"{INIT}:73"),
+    "iota_fill": ("repro_torch.kernels.init_engine.init_engine",
+                  "iota_fill_launches", "init_engine", f"{INIT}:95"),
+    "prng_fill": ("repro_torch.kernels.init_engine.init_engine",
+                  "prng_fill_launches", "init_engine", f"{INIT}:108"),
+    "copy_2d": ("repro_torch.kernels.copy_engine.copy_engine",
+                "copy_2d_launches", "copy_engine", f"{COPY}:176"),
+    "strided_copy_nd": ("repro_torch.kernels.copy_engine.copy_engine",
+                        "strided_copy_nd_launches", "copy_engine",
+                        f"{COPY}:208"),
 }
+DMA_KERNELS = ("memset", "iota_fill", "prng_fill", "copy_2d",
+               "strided_copy_nd")
 
 
 def phase_build():
     from repro_torch.kernels import runtime
+    sources = sorted({k[2] for k in KERNELS.values()})
     t0 = time.perf_counter()
-    runtime.build(list(KERNELS))
-    for name in KERNELS:
+    runtime.build(sources)
+    for name in sources:
         runtime.load(name)
-    log(f"[build] {', '.join(n + '.cu' for n in KERNELS)} for sm_90a in "
+    log(f"[build] {', '.join(n + '.cu' for n in sources)} for sm_90a in "
         f"{time.perf_counter() - t0:.1f} s")
 
 
 def expected_launches(cfg, steps: int):
-    """Kernel launches of one prefill and `steps` decode steps of `cfg`."""
+    """Kernel launches of one prefill and `steps` decode steps of `cfg`:
+    no copy or Init kernel runs on the serving path."""
     from repro_torch.configs import SSM
     n_ssm = sum(kind == SSM for kind in cfg.layer_kinds)
     n_attn = cfg.n_layers - n_ssm
     return {"flash_attention": n_attn, "decode_attention": n_attn * steps,
-            "ssd": n_ssm}
+            "ssd": n_ssm, **{name: 0 for name in DMA_KERNELS}}
 
 
-def reset(mods):
-    for mod in mods.values():
-        mod.launches = 0
+def reset(mods, names=None):
+    for name in names or mods:
+        setattr(mods[name], KERNELS[name][1], 0)
 
 
-def read(mods):
-    return {name: mod.launches for name, mod in mods.items()}
+def read(mods, names=None):
+    return {name: getattr(mods[name], KERNELS[name][1])
+            for name in names or mods}
 
 
 def library_attention():
@@ -246,7 +277,7 @@ def phase_kernels(fa, da):
             entries["flash_attention"] = dict(
                 name="flash_attention", route="cuda",
                 source="src/repro_torch/csrc/flash_attention.cu",
-                replaces=KERNELS["flash_attention"][1],
+                replaces=KERNELS["flash_attention"][3],
                 ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=library_ms(
                     f"flash {label} S{S} {dtype}", q, k, v,
@@ -289,7 +320,7 @@ def phase_kernels(fa, da):
                     entries["decode_attention"] = dict(
                         name="decode_attention", route="cuda",
                         source="src/repro_torch/csrc/decode_attention.cu",
-                        replaces=KERNELS["decode_attention"][1],
+                        replaces=KERNELS["decode_attention"][3],
                         ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                         bound_by=b_by, library_ms=library_ms(
                             f"decode kv{n} w{w} {dtype}", q[:, :, None],
@@ -383,12 +414,307 @@ def phase_ssd_kernel(sk):
         if main:
             entry = dict(name="ssd", route="cuda",
                          source="src/repro_torch/csrc/ssd.cu",
-                         replaces=KERNELS["ssd"][1], ms=ms,
+                         replaces=KERNELS["ssd"][3], ms=ms,
                          plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                          library_ms=None)
         del args, y, state, wy, wstate
     entry["max_abs_err"] = worst
     return entry
+
+
+def dma_plane():
+    """Quickstart steps 1 and 7 through the port's descriptor plane, on
+    the host in NumPy: a 3-D strided gather programmed on a register
+    front-end, then a 4 KiB transfer on each named preset.  Returns the
+    quickstart engine."""
+    import numpy as np
+    from repro_torch.core import (BackendSpec, EngineSpec, FrontendSpec,
+                                  NdTransfer, Protocol, TensorDim,
+                                  Transfer1D, build_engine, build_frontend,
+                                  preset)
+    spec = EngineSpec(
+        name="quickstart",
+        frontend=FrontendSpec(kind="reg", word_bits=32, ndims=3),
+        backend=BackendSpec(bus_width=8,
+                            protocols=(Protocol.AXI4, Protocol.OBI)),
+        mem_spaces=((Protocol.AXI4, 1 << 16), (Protocol.OBI, 1 << 16)))
+    engine = build_engine(spec)
+    src = np.arange(4096, dtype=np.uint8)
+    engine.mem.spaces[Protocol.AXI4][:4096] = src
+    fe = build_frontend(spec, engine)
+    fe.configure(src=0, dst=0, length=64,
+                 dims=(TensorDim(src_stride=128, dst_stride=64, reps=8),),
+                 src_protocol=Protocol.AXI4, dst_protocol=Protocol.OBI)
+    tid = fe.launch()
+    want = np.concatenate([src[i * 128:i * 128 + 64] for i in range(8)])
+    if not np.array_equal(engine.mem.spaces[Protocol.OBI][:512], want):
+        raise AssertionError("register front-end gather moved wrong bytes")
+    res = engine.simulate(NdTransfer(0, 0, 64, (TensorDim(128, 64, 8),),
+                                     Protocol.AXI4, Protocol.OBI))
+    log(f"[dma] reg front-end (32-bit, 3 dims, AXI4 -> OBI) transfer "
+        f"#{tid}: 8 x 64 B at stride 128 gathered, {engine.stats.bursts} "
+        f"bursts, {res.cycles} cycles (first read request at "
+        f"{res.first_read_req}, utilization {res.utilization:.2f})")
+    for name in ("pulp_cluster", "manticore", "cheshire", "edge_ai"):
+        ps = preset(name)
+        r = build_engine(ps).simulate(Transfer1D(
+            0, 1 << 12, 4096, src_protocol=ps.backend.protocols[0],
+            dst_protocol=ps.backend.protocols[-1]))
+        log(f"[dma] preset {name}: 4 KiB in {r.cycles} cycles "
+            f"({ps.src_system.name} -> {ps.dst_system.name}, "
+            f"{ps.backend.bus_width * 8}-bit bus)")
+    return engine
+
+
+def dma_cases(dev):
+    """Real sizes from the two served models: (label, kernel, input
+    maker, kernel call, plain call, library call or None, bytes read +
+    written, flops).  Inputs are made on `dev` when asked for."""
+    import functools
+    import torch
+    from repro_torch.core import instream
+    from repro_torch.kernels.copy_engine import (copy_2d, copy_2d_ref,
+                                                 strided_copy_nd,
+                                                 strided_copy_nd_ref)
+    from repro_torch.kernels.init_engine import (iota_fill, iota_fill_ref,
+                                                 memset, memset_ref,
+                                                 prng_fill, prng_fill_ref)
+    gen = torch.Generator(dev).manual_seed(3)
+    bf16, f32, i32 = torch.bfloat16, torch.float32, torch.int32
+    up = functools.partial(instream.cast, dtype=f32)
+
+    def table():   # gemma2-2b's embedding table (256,000 x 2,304) in bf16
+        return torch.randn((256000, 2304), generator=gen, device=dev,
+                           dtype=bf16)
+
+    def ssm_x():   # mamba2-1.3b's SSD input x, viewed as ssm.py does
+        xbc = torch.randn((4, 4608, 4352), generator=gen, device=dev)
+        return xbc[..., :4096].reshape(4, 4608, 64, 64).transpose(1, 2)
+
+    kv, idx, start = (3860480, 256), (16384, 16384), 1 << 20
+    n_idx = idx[0] * idx[1]
+    return [
+        ("copy_2d cast bf16 -> f32 (256000, 2304)", "copy_2d", table,
+         lambda x: copy_2d(x, up, f32), lambda x: copy_2d_ref(x, up, f32),
+         lambda x: x.to(f32), 256000 * 2304 * (2 + 4), 0),
+        ("copy_2d bf16 (256000, 2304)", "copy_2d", table,
+         lambda x: copy_2d(x), lambda x: copy_2d_ref(x),
+         lambda x: x.clone(), 256000 * 2304 * 4, 0),
+        ("strided_copy_nd f32 (4, 64, 4608, 64) of (4, 4608, 4352)",
+         "strided_copy_nd", ssm_x, strided_copy_nd, strided_copy_nd_ref,
+         lambda x: x.contiguous(), 2 * 4 * 64 * 4608 * 64 * 4, 0),
+        ("memset 0 bf16 (3860480, 256)", "memset", lambda: None,
+         lambda _: memset(kv, 0, bf16, dev),
+         lambda _: memset_ref(kv, 0, bf16, dev),
+         lambda _: torch.zeros(kv, dtype=bf16, device=dev),
+         kv[0] * kv[1] * 2, 0),
+        ("iota_fill int32 (16384, 16384)", "iota_fill", lambda: None,
+         lambda _: iota_fill(idx, start, i32, dev),
+         lambda _: iota_fill_ref(idx, start, i32, dev),
+         lambda _: torch.arange(start, start + n_idx, dtype=i32,
+                                device=dev).view(idx), n_idx * 4, 0),
+        ("prng_fill f32 (256000, 2304)", "prng_fill", lambda: None,
+         lambda _: prng_fill((256000, 2304), 7, f32, dev),
+         lambda _: prng_fill_ref((256000, 2304), 7, f32, dev), None,
+         256000 * 2304 * 4, 0),
+    ]
+
+
+def dma_edge_cases(dev):
+    """Small cases, (label, kernel, kernel call, plain call): every dtype
+    the Pallas kernels take at (8, 128), (100, 300) and (256, 512); views
+    one element past an aligned base, transposed 5-D views, expanded
+    (stride 0) views, a 1-D input; the fused transforms."""
+    import functools
+    import torch
+    from repro_torch.core import instream
+    from repro_torch.kernels.copy_engine import (copy_2d, copy_2d_ref,
+                                                 strided_copy_nd,
+                                                 strided_copy_nd_ref)
+    from repro_torch.kernels.init_engine import (iota_fill, iota_fill_ref,
+                                                 memset, memset_ref,
+                                                 prng_fill, prng_fill_ref)
+    gen = torch.Generator(dev).manual_seed(4)
+    every = (torch.float32, torch.bfloat16, torch.float16, torch.int8,
+             torch.uint8, torch.bool, torch.int16, torch.uint16,
+             torch.int32, torch.uint32)
+    floats = (torch.float32, torch.bfloat16, torch.float16)
+
+    def rand(shape, dtype):
+        x = torch.randn(shape, generator=gen, device=dev) * 100
+        return x.to(dtype) if dtype in floats else \
+            x.to(torch.int64).to(dtype)
+
+    cases = []
+    for shape in ((8, 128), (100, 300), (256, 512)):
+        for dt in every:
+            for v in (2.5, 300, -1):
+                cases.append((f"memset {v} {dt} {shape}", "memset",
+                              functools.partial(memset, shape, v, dt, dev),
+                              functools.partial(memset_ref, shape, v, dt,
+                                                dev)))
+            for st in (3, (1 << 24) + (1 << 16) + 1, (1 << 31) - 100):
+                cases.append((f"iota {st} {dt} {shape}", "iota_fill",
+                              functools.partial(iota_fill, shape, st, dt,
+                                                dev),
+                              functools.partial(iota_fill_ref, shape, st,
+                                                dt, dev)))
+            x = rand((shape[0], shape[1] + 1), dt)
+            for label, v in (("dense", x[:, :shape[1]].contiguous()),
+                             ("offset 1", x.reshape(-1)[1:1 + shape[0] *
+                                                        shape[1]]
+                              .view(shape)),
+                             ("row view", x[:, 1:])):
+                cases.append((f"copy_2d {label} {dt} {shape}", "copy_2d",
+                              functools.partial(copy_2d, v),
+                              functools.partial(copy_2d_ref, v)))
+            cases.append((f"strided {dt} {shape} transposed",
+                          "strided_copy_nd",
+                          functools.partial(strided_copy_nd, x.t()),
+                          functools.partial(strided_copy_nd_ref, x.t())))
+        for dt in (torch.uint32, torch.float32, torch.bfloat16, torch.int8):
+            cases.append((f"prng {dt} {shape}", "prng_fill",
+                          functools.partial(prng_fill, shape, 11, dt, dev),
+                          functools.partial(prng_fill_ref, shape, 11, dt,
+                                            dev)))
+        for dt in floats:
+            x = rand((shape[0], shape[1] + 1), dt)[:, 1:]
+            for t, out in ((functools.partial(instream.scale, factor=3.0),
+                            None), (functools.partial(instream.scale,
+                                                      factor=0.1), None),
+                           (instream.zero, None),
+                           (functools.partial(instream.cast, dtype=dt),
+                            dt)):
+                for v in (x, x.contiguous(), x.t()):
+                    cases.append((f"copy_2d {t} {dt} {shape}", "copy_2d",
+                                  functools.partial(copy_2d, v, t, out),
+                                  functools.partial(copy_2d_ref, v, t, out)))
+            for to in floats:
+                cast = functools.partial(instream.cast, dtype=to)
+                cases.append((f"copy_2d cast {dt} -> {to} {shape}",
+                              "copy_2d",
+                              functools.partial(copy_2d, x, cast, to),
+                              functools.partial(copy_2d_ref, x, cast, to)))
+    base = rand((4, 6, 5, 8, 12), torch.float32)
+    shifted = rand((11521,), torch.bfloat16)[1:].view(4, 6, 5, 8, 12)
+    for label, v in (
+            ("5-D transposed", base.permute(4, 2, 0, 3, 1)),
+            ("5-D bf16 offset 1", shifted),
+            ("5-D bf16 offset 1 transposed", shifted.permute(3, 1, 4, 0, 2)),
+            ("expanded (stride 0)", base[0, 0, 0, 0, :1].expand(300, 257)),
+            ("expanded rows", base[0, 0, :1].expand(7, 8, 12)),
+            ("int8 5-D sliced", base.to(torch.int8)[:, 1:, :, ::2, 3:]),
+            ("1-D", base.reshape(-1)[5:901]),
+            ("0-D", base[1, 2, 3, 4, 5])):
+        cases.append((f"strided {label}", "strided_copy_nd",
+                      functools.partial(strided_copy_nd, v),
+                      functools.partial(strided_copy_nd_ref, v)))
+    return cases
+
+
+def bits_equal(got, want) -> bool:
+    import torch
+    torch.cuda.synchronize()
+    if got.shape != want.shape or got.dtype != want.dtype:
+        return False
+    return bool(torch.equal(got.contiguous().view(torch.uint8),
+                            want.contiguous().view(torch.uint8)))
+
+
+def phase_dma(mods):
+    """The quickstart's path through the port on the card: the descriptor
+    plane on the host, its plan driving `copy_2d`, the Init stream against
+    `prng_fill`, then the real-size and edge cases, each kernel bit for
+    bit against its plain version.  The five counters, set to 0 first,
+    must equal the calls made; timing follows.  Returns JSON entries."""
+    import numpy as np
+    import torch
+    from repro_torch.core import (BackendOptions, InitPattern, Protocol,
+                                  Transfer1D, plan_nd_copy)
+    from repro_torch.kernels.copy_engine import (copy_2d, copy_2d_reference,
+                                                 estimate_plan_cycles)
+    from repro_torch.kernels.init_engine import prng_fill
+    reset(mods, DMA_KERNELS)
+    calls = dict.fromkeys(DMA_KERNELS, 0)
+    engine = dma_plane()
+
+    # the plan → the kernel, against the functional fabric
+    plan = plan_nd_copy((512, 1024), 4)
+    x = np.random.default_rng(0).standard_normal((512, 1024)) \
+        .astype(np.float32)
+    want = copy_2d_reference(x, plan)
+    got = copy_2d(torch.from_numpy(x).cuda())
+    calls["copy_2d"] += 1
+    if not np.array_equal(got.cpu().numpy().view(np.uint8),
+                          want.view(np.uint8)):
+        raise AssertionError("copy_2d on the card != copy_2d_reference")
+    log(f"[dma] plan (512, 1024) f32: tile {plan.tile}, grid {plan.grid}, "
+        f"{plan.n_buffers} buffers; copy_2d on the card == the plan's "
+        f"descriptors through the functional back-end, byte for byte; "
+        f"estimate {estimate_plan_cycles(plan).cycles} cycles")
+
+    # Init on both fabrics
+    engine.submit(Transfer1D(0, 0, 4096, Protocol.INIT, Protocol.OBI,
+                             options=BackendOptions(
+                                 init_pattern=InitPattern.PSEUDORANDOM,
+                                 init_value=42)))
+    words = prng_fill((8, 128), 42, torch.uint32)
+    calls["prng_fill"] += 1
+    if not np.array_equal(words.view(torch.uint8).reshape(-1).cpu().numpy(),
+                          engine.mem.spaces[Protocol.OBI][:4096]):
+        raise AssertionError("prng_fill on the card != the engine's Init "
+                             "stream")
+    log("[dma] Init PSEUDORANDOM 4096 B, value 42: engine bytes == "
+        "prng_fill((8, 128), 42, uint32) on the card")
+
+    # real sizes, then edge cases: kernel == plain, bit for bit
+    real = []
+    dev = torch.device("cuda")
+    for label, name, make, kern, plain, lib, nbytes, flops in dma_cases(dev):
+        x = make()
+        got = kern(x)
+        calls[name] += 1
+        if not bits_equal(got, plain(x)):
+            raise AssertionError(f"{label}: kernel != plain version")
+        del got
+        real.append((label, name, make, kern, plain, lib, nbytes, flops))
+        torch.cuda.empty_cache()
+    edge = dma_edge_cases(dev)
+    for label, name, kern, plain in edge:
+        got = kern()
+        calls[name] += 1
+        if not bits_equal(got, plain()):
+            raise AssertionError(f"{label}: kernel != plain version")
+    counts = read(mods, DMA_KERNELS)
+    if counts != calls:
+        raise AssertionError(f"dma launches {counts}, calls made {calls}")
+    log(f"[dma] {len(real)} real-size and {len(edge)} small cases bit for "
+        f"bit against the plain versions; launches "
+        + ", ".join(f"{k} {v}" for k, v in counts.items()) +
+        " (= the calls made)")
+
+    # timing, after the count: CUDA events, after warm-up
+    entries = {}
+    for label, name, make, kern, plain, lib, nbytes, flops in real:
+        x = make()
+        ms = time_ms(lambda: kern(x))
+        plain_ms = time_ms(lambda: plain(x), iters=3, warmup=1)
+        lib_ms = None if lib is None else time_ms(lambda: lib(x))
+        b_ms, b_by = bound(flops, nbytes, "float32")
+        log(f"[dma] {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"library {'null' if lib_ms is None else f'{lib_ms:.4f} ms'}, "
+            f"bound {b_ms:.4f} ms ({b_by}, {nbytes / 1e9:.3f} GB), "
+            f"{nbytes / ms / 1e6:.0f} GB/s")
+        if name not in entries:
+            entries[name] = dict(
+                name=name, route="cuda",
+                source=f"src/repro_torch/csrc/{KERNELS[name][2]}.cu",
+                replaces=KERNELS[name][3], launches=counts[name],
+                max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms)
+        del x
+        torch.cuda.empty_cache()
+    return entries
 
 
 def phase_serve(arch, mods):
@@ -531,10 +857,11 @@ def main() -> int:
     from repro_torch.configs import ATTN_FULL, ATTN_SWA, get
     smi = phase_device()
     phase_build()
-    mods = {name: importlib.import_module(mod)
-            for name, (mod, _) in KERNELS.items()}
+    mods = {name: importlib.import_module(k[0])
+            for name, k in KERNELS.items()}
     entries = phase_kernels(mods["flash_attention"], mods["decode_attention"])
     entries["ssd"] = phase_ssd_kernel(mods["ssd"])
+    entries.update(phase_dma(mods))
     gemma = phase_serve("gemma2-2b", mods)
     mamba = phase_serve("mamba2-1.3b", mods)
     entries["flash_attention"]["launches"] = gemma["flash_attention"]

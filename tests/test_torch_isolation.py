@@ -62,7 +62,7 @@ def test_every_module_imports_without_jax_or_repro():
                        for m in sys.modules)
         print(len(names))
     """)
-    assert int(out.split()[-1]) >= 20
+    assert int(out.split()[-1]) >= 52
 
 
 @pytest.mark.parametrize("arch", ["gemma2-2b", "mamba2-1.3b"])
@@ -74,3 +74,40 @@ def test_serve_entry_point_runs_on_cpu_without_jax(arch):
         runpy.run_module("repro_torch.launch.serve", run_name="__main__")
     """)
     assert '"new_tokens": 6' in out and f'"arch": "{arch}"' in out
+
+
+def test_descriptor_plane_runs_without_jax():
+    """The smoke test's host step of its dma phase (the port's NumPy
+    descriptor plane: a register front-end gather, the presets' cycles)
+    and the plain copy and Init ops run where JAX cannot be imported."""
+    out = _run("""
+        import importlib.util
+        import numpy as np
+        import torch
+        spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                      "chip_smoke.py")
+        smoke = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(smoke)
+        sys.path.insert(0, "src")
+        engine = smoke.dma_plane()
+        from repro_torch.core import (BackendOptions, InitPattern, Protocol,
+                                      Transfer1D)
+        from repro_torch.kernels.copy_engine import (copy_2d,
+                                                     copy_2d_reference)
+        from repro_torch.kernels.init_engine import prng_fill
+        engine.submit(Transfer1D(0, 0, 4096, Protocol.INIT, Protocol.OBI,
+                                 options=BackendOptions(
+                                     init_pattern=InitPattern.PSEUDORANDOM,
+                                     init_value=42)))
+        words = prng_fill((8, 128), 42, torch.uint32, device="cpu")
+        assert np.array_equal(words.view(torch.uint8).reshape(-1).numpy(),
+                              engine.mem.spaces[Protocol.OBI][:4096])
+        x = np.arange(512 * 1024, dtype=np.float32).reshape(512, 1024)
+        assert np.array_equal(copy_2d(torch.from_numpy(x)).numpy(),
+                              copy_2d_reference(x))
+        assert not any(m.split(".")[0] in ("jax", "repro")
+                       for m in sys.modules)
+        print("plane ok")
+    """)
+    assert "plane ok" in out and "[dma] preset edge_ai" in out
+

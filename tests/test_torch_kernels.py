@@ -1,7 +1,11 @@
 """The port's attention and SSD ops on the CPU (their plain versions)
 against the JAX Pallas kernels in interpret mode and the JAX references,
 on the cases of tests/test_kernels.py plus gemma2's head_dim 256 with
-softcap 50 and reduced mamba2's SSD shape.
+softcap 50 and reduced mamba2's SSD shape; and the copy and Init engines'
+plain versions, which must equal the Pallas kernels bit for bit (the
+transform v·3 + 1, whose multiply-add XLA may fuse, within the float32
+rule below), on the cases of tests/test_kernels.py plus torch views and
+Init edge cases.
 
 Inputs are drawn once in float32 with numpy and rounded to the working
 dtype by each framework (both round to nearest even, so the operands are
@@ -9,11 +13,18 @@ identical).  Error is relative to max|reference|: 2e-5 for float32 and
 2e-2 for bfloat16, the rule of tests/test_kernels.py.
 """
 
+import functools
+import importlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import repro.core as J
+import repro_torch.core as T
+from repro.kernels import copy_engine as jce
+from repro.kernels import init_engine as jie
 from repro.kernels.decode_attention import (decode_attention as j_decode,
                                             decode_attention_ref as j_dref)
 from repro.kernels.flash_attention import (attention_ref as j_fref,
@@ -22,7 +33,12 @@ from repro.kernels.ssd import ssd as j_ssd, ssd_ref as j_ssd_ref
 from repro_torch.kernels.decode_attention import (decode_attention,
                                                   decode_attention_ref)
 from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+from repro_torch.kernels import copy_engine as tce
+from repro_torch.kernels import init_engine as tie
 from repro_torch.kernels.ssd import ssd, ssd_chunked_ref, ssd_ref
+
+CE = importlib.import_module("repro_torch.kernels.copy_engine.copy_engine")
+IE = importlib.import_module("repro_torch.kernels.init_engine.init_engine")
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
@@ -234,3 +250,173 @@ def test_ssd_bad_shapes_raise():
         ssd(x[:, :3], dt[:, :3], A[:3], D[:3], B, C, chunk=64)
     with pytest.raises(ValueError):
         ssd(x.to("meta"), dt, A, D, B, C, chunk=64)
+
+
+# --------------------------------------------------------------------------
+# The copy and Init engines: plain versions bit for bit against Pallas
+# --------------------------------------------------------------------------
+
+DMA_JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16,
+           "uint32": jnp.uint32, "int8": jnp.int8, "int32": jnp.int32,
+           "float16": jnp.float16}
+DMA_TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "uint32": torch.uint32, "int8": torch.int8, "int32": torch.int32,
+           "float16": torch.float16}
+
+
+def _bits(a) -> np.ndarray:
+    if isinstance(a, torch.Tensor):
+        return a.contiguous().reshape(-1).view(torch.uint8).numpy()
+    return np.ascontiguousarray(np.asarray(a)).reshape(-1).view(np.uint8)
+
+
+def same_bits(jax_out, torch_out) -> None:
+    assert tuple(np.asarray(jax_out).shape) == tuple(torch_out.shape)
+    assert np.array_equal(_bits(jax_out), _bits(torch_out))
+
+
+
+INIT_SHAPES = [(8, 128), (100, 300), (256, 512)]
+
+
+@pytest.mark.parametrize("dtype", ["uint32", "float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("shape", INIT_SHAPES)
+def test_init_generators_match_pallas(shape, dtype):
+    j, t = DMA_JDT[dtype], DMA_TDT[dtype]
+    same_bits(jie.memset(shape, 7, j, backend="pallas", interpret=True),
+              tie.memset(shape, 7, t, device="cpu"))
+    same_bits(jie.iota_fill(shape, 3, j, backend="pallas", interpret=True),
+              tie.iota_fill(shape, 3, t, device="cpu"))
+    same_bits(jie.prng_fill(shape, 11, j, backend="pallas", interpret=True),
+              tie.prng_fill(shape, 11, t, device="cpu"))
+
+
+@pytest.mark.parametrize("value,dtype", [(2.5, "int32"), (-2.5, "int32"),
+                                         (300, "int8"), (-1, "uint32"),
+                                         (1e10, "bfloat16"),
+                                         (1e10, "float16"), (0.1, "float32")])
+def test_memset_casts_as_jnp_full(value, dtype):
+    same_bits(jie.memset((8, 128), value, DMA_JDT[dtype], backend="pallas",
+                         interpret=True),
+              tie.memset((8, 128), value, DMA_TDT[dtype], device="cpu"))
+
+
+@pytest.mark.parametrize("start", [(1 << 24) + 1, (1 << 24) + (1 << 16) + 1,
+                                   (1 << 30) + 12345, (1 << 31) - 500, -7])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int32", "int8",
+                                   "float16"])
+def test_iota_large_start_and_wrap(start, dtype):
+    same_bits(jie.iota_fill((8, 128), start, DMA_JDT[dtype], backend="pallas",
+                            interpret=True),
+              tie.iota_fill((8, 128), start, DMA_TDT[dtype], device="cpu"))
+
+
+@pytest.mark.parametrize("seed", [0, 42, (1 << 32) - 3])
+def test_prng_matches_init_stream(seed):
+    """The plain PRNG == the engine's Init byte stream, in both packages."""
+    words = tie.prng_fill((8, 128), seed, torch.uint32, device="cpu")
+    for C in (J, T):
+        rtl = C.init_stream(C.InitPattern.PSEUDORANDOM, seed, 0, 8 * 128 * 4)
+        assert np.array_equal(_bits(words), rtl)
+    assert np.array_equal(
+        T.splitmix32(np.arange(5000, dtype=np.uint32)),
+        J.splitmix32(np.arange(5000, dtype=np.uint32)))
+
+
+def test_init_ops_default_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: None resolves to it")
+    for op in (tie.memset, tie.iota_fill, tie.prng_fill):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            op((8, 128))
+
+
+
+def _dma_pair(shape, dtype, seed=42):
+    a = np.random.default_rng(seed).standard_normal(shape) \
+        .astype(np.float32)
+    return (jnp.asarray(a, DMA_JDT[dtype]),
+            torch.from_numpy(a).to(DMA_TDT[dtype]))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(8, 128), (100, 300), (512, 1024)])
+def test_copy_2d_matches_pallas(shape, dtype):
+    jx, tx = _dma_pair(shape, dtype)
+    y = tce.copy_2d(tx)
+    same_bits(jce.copy_2d(jx, backend="pallas", interpret=True), y)
+    assert y.data_ptr() != tx.data_ptr()
+
+
+@pytest.mark.parametrize("case", ["scale3", "cast_bf16", "cast_f32",
+                                  "zero", "identity"])
+def test_copy_2d_fused_transforms_match_pallas(case):
+    src = "bfloat16" if case == "cast_f32" else "float32"
+    jx, tx = _dma_pair((64, 256), src)
+    jt, tt, out = {
+        "scale3": (functools.partial(J.instream.scale, factor=3.0),
+                   functools.partial(T.instream.scale, factor=3.0), None),
+        "cast_bf16": (J.instream.cast, T.instream.cast, "bfloat16"),
+        "cast_f32": (functools.partial(J.instream.cast, dtype=jnp.float32),
+                     functools.partial(T.instream.cast, dtype=torch.float32),
+                     "float32"),
+        "zero": (J.instream.zero, T.instream.zero, None),
+        "identity": (J.instream.identity, T.instream.identity, None),
+    }[case]
+    want = jce.copy_2d(jx, transform=jt, out_dtype=out and DMA_JDT[out],
+                       backend="pallas", interpret=True)
+    same_bits(want, tce.copy_2d(tx, tt, out and DMA_TDT[out]))
+    # the kernel route accepts the same call
+    assert CE.check_copy_2d(tx, tt, out and DMA_TDT[out])[1] == \
+        (DMA_TDT[out] if out else tx.dtype)
+
+
+def test_copy_2d_any_callable_on_cpu():
+    jx, tx = _dma_pair((64, 256), "float32")
+
+    def t(v):
+        return v * 3.0 + 1.0
+    want = np.asarray(jce.copy_2d(jx, transform=t, backend="pallas",
+                                  interpret=True))
+    got = tce.copy_2d(tx, t).numpy()
+    err = np.abs(got - want).max() / np.abs(want).max()
+    assert err < 2e-5
+
+
+@pytest.mark.parametrize("shape", [(3, 2, 64, 256), (5,), (2, 3, 4, 8, 16),
+                                   ()])
+def test_strided_copy_nd_matches_pallas(shape):
+    jx, tx = _dma_pair(shape, "float32")
+    got = tce.strided_copy_nd(tx)
+    same_bits(jce.strided_copy_nd(jx, backend="pallas", interpret=True), got)
+    assert got.is_contiguous() and got.ndim == max(2, len(shape))
+
+
+@pytest.mark.parametrize("view", ["transpose5d", "expand", "offset1",
+                                  "slice_rows", "ssm_heads", "bf16_step"])
+def test_strided_copy_nd_of_torch_views(view):
+    """Views JAX cannot express: the plain version's gather over the
+    storage equals torch's own materialisation, and the kernel's host
+    geometry (merged dims, widened unit) addresses the same bytes."""
+    base = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (4, 6, 5, 8, 12)).astype(np.float32))
+    x = {"transpose5d": base.permute(4, 2, 0, 3, 1),
+         "expand": base[0, 0, 0, :1].expand(7, 12),
+         "offset1": base.reshape(-1)[1:1001].reshape(10, 100),
+         "slice_rows": base[:, 1:4, :, :, 4:],
+         "ssm_heads": base.reshape(4, 6 * 5, 96)[..., :64]
+         .reshape(4, 30, 4, 16).transpose(1, 2),
+         "bf16_step": base.to(torch.bfloat16)[..., ::2]}[view]
+    got = tce.strided_copy_nd(x)
+    assert torch.equal(got, x.contiguous()) and got.is_contiguous()
+    # replay the kernel's gather on the host from its geometry
+    shape, strides, unit = CE.gather_geometry(x)
+    store = np.frombuffer(bytes(x.untyped_storage()), np.uint8)
+    start = x.data_ptr() - x.untyped_storage().data_ptr()
+    units = store[start % unit:].view(f"V{unit}")
+    idx = np.full((), start // unit, np.int64)
+    for d, (n, s) in enumerate(zip(shape, strides)):
+        view_shape = [1] * len(shape)
+        view_shape[d] = n
+        idx = idx + np.arange(n).reshape(view_shape) * s
+    assert units[idx].tobytes() == _bits(got).tobytes()

@@ -8,17 +8,28 @@ imports only torch and repro_torch (the machine with the card has no JAX).
 
 Error is relative to max|plain|: 2e-2 for bfloat16; 1e-4 for float32,
 since the kernel sums up to 4,608 keys in another order than the plain
-version (both in fp32, TF32 off).
+version (both in fp32, TF32 off).  The copy and Init kernels move or make
+bytes with at most one rounding, so they must equal their plain versions
+bit for bit.
 """
 
+import functools
 import importlib
 
 import pytest
 import torch
 
+from repro_torch.core import instream
+from repro_torch.kernels.copy_engine import (copy_2d, copy_2d_ref,
+                                             strided_copy_nd,
+                                             strided_copy_nd_ref)
+
 from repro_torch.kernels.decode_attention import (decode_attention,
                                                   decode_attention_ref)
 from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+from repro_torch.kernels.init_engine import (iota_fill, iota_fill_ref,
+                                             memset, memset_ref, prng_fill,
+                                             prng_fill_ref)
 from repro_torch.kernels.ssd import ssd, ssd_chunked_ref, ssd_ref
 
 pytestmark = pytest.mark.cuda
@@ -264,3 +275,182 @@ def test_ssd_unsupported_shapes_raise(cuda):
     big = dict(B=1, H=1, G=1, S=256, P=256, N=256, chunk=256)
     with pytest.raises(RuntimeError):     # tiles over 227 KB of smem
         ssd(*_ssd_inputs(big, torch.float32, cuda, 15), chunk=256)
+
+
+# --------------------------------------------------------------------------
+# The copy and Init engines: kernel == plain version, bit for bit
+# --------------------------------------------------------------------------
+
+EVERY_DTYPE = [torch.float32, torch.bfloat16, torch.float16, torch.int8,
+               torch.uint8, torch.bool, torch.int16, torch.uint16,
+               torch.int32, torch.uint32]
+FLOATS = (torch.float32, torch.bfloat16, torch.float16)
+SHAPES = [(8, 128), (100, 300), (3, 5), (256, 512)]
+CE = importlib.import_module("repro_torch.kernels.copy_engine.copy_engine")
+IE = importlib.import_module("repro_torch.kernels.init_engine.init_engine")
+
+
+def _bits_equal(got, want) -> bool:
+    torch.cuda.synchronize()
+    return got.shape == want.shape and got.dtype == want.dtype and \
+        bool(torch.equal(got.contiguous().view(torch.uint8),
+                         want.contiguous().view(torch.uint8)))
+
+
+def _any(shape, dtype, dev, seed):
+    x = _randn(shape, torch.float32, dev, seed) * 100
+    return x.to(dtype) if dtype in FLOATS else x.to(torch.int64).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", EVERY_DTYPE)
+@pytest.mark.parametrize("shape", SHAPES)
+def test_memset_kernel_vs_plain(cuda, shape, dtype):
+    for value in (2.5, 300, -1, 0):
+        before = IE.memset_launches
+        got = memset(shape, value, dtype, cuda)
+        assert IE.memset_launches == before + 1
+        assert _bits_equal(got, memset_ref(shape, value, dtype, cuda))
+
+
+@pytest.mark.parametrize("dtype", EVERY_DTYPE)
+@pytest.mark.parametrize("shape", SHAPES)
+def test_iota_kernel_vs_plain(cuda, shape, dtype):
+    for start in (3, (1 << 24) + (1 << 16) + 1, (1 << 31) - 700, -9):
+        assert _bits_equal(iota_fill(shape, start, dtype, cuda),
+                           iota_fill_ref(shape, start, dtype, cuda))
+
+
+@pytest.mark.parametrize("dtype", [torch.uint32, torch.float32,
+                                   torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("shape", SHAPES + [(256000, 2304)])
+def test_prng_kernel_vs_plain(cuda, shape, dtype):
+    """The last shape writes 2.36 GB in f32: byte offsets above 2^31."""
+    for seed in (11, (1 << 32) - 1):
+        assert _bits_equal(prng_fill(shape, seed, dtype, cuda),
+                           prng_fill_ref(shape, seed, dtype, cuda))
+
+
+def _copy_views(shape, dtype, dev, seed):
+    x = _any((shape[0], shape[1] + 1), dtype, dev, seed)
+    n = shape[0] * shape[1]
+    return {"dense": x[:, 1:].contiguous(),
+            "offset 1": x.reshape(-1)[1:1 + n].view(shape),
+            "row tail view": x[:, 1:],
+            "transposed": x[:, 1:].contiguous().t()}
+
+
+@pytest.mark.parametrize("dtype", EVERY_DTYPE)
+@pytest.mark.parametrize("shape", SHAPES)
+def test_copy_2d_kernel_vs_plain(cuda, shape, dtype):
+    transforms = [(None, None), (instream.identity, None),
+                  (instream.zero, None)]
+    if dtype in FLOATS:
+        transforms += [(functools.partial(instream.scale, factor=f), None)
+                       for f in (3.0, 0.1, -2)]
+        transforms += [(functools.partial(instream.cast, dtype=to), to)
+                       for to in FLOATS]
+    for label, x in _copy_views(shape, dtype, cuda, 20).items():
+        for t, out in transforms:
+            got = copy_2d(x, t, out)
+            assert got.is_contiguous(), label
+            assert _bits_equal(got, copy_2d_ref(x, t, out)), (label, t)
+
+
+def test_copy_2d_cast_above_2_31_bytes(cuda):
+    """gemma2-2b's embedding table upcast, 2.36 GB written."""
+    x = _randn((256000, 2304), torch.bfloat16, cuda, 21)
+    up = functools.partial(instream.cast, dtype=torch.float32)
+    assert _bits_equal(copy_2d(x, up, torch.float32),
+                       copy_2d_ref(x, up, torch.float32))
+    assert _bits_equal(copy_2d(x), copy_2d_ref(x))
+
+
+def _strided_views(dev):
+    base = _any((4, 6, 5, 8, 12), torch.float32, dev, 22)
+    shifted = _any((11521,), torch.bfloat16, dev, 23)[1:] \
+        .view(4, 6, 5, 8, 12)
+    xbc = _randn((2, 256, 4352), torch.float32, dev, 24)
+    return {
+        "5-D transposed": base.permute(4, 2, 0, 3, 1),
+        "5-D offset 1": shifted,
+        "5-D offset 1 transposed": shifted.permute(3, 1, 4, 0, 2),
+        "expanded": base[0, 0, 0, 0, :1].expand(300, 257),
+        "expanded rows": base[0, 0, :1].expand(7, 8, 12),
+        "int8 sliced": base.to(torch.int8)[:, 1:, :, ::2, 3:],
+        "uint16 step": base.to(torch.int64).to(torch.uint16)[..., ::3],
+        "ssm heads": xbc[..., :4096].reshape(2, 256, 64, 64)
+        .transpose(1, 2),
+        "1-D": base.reshape(-1)[5:901],
+        "0-D": base[1, 2, 3, 4, 5],
+        "8 dims": _randn((2,) * 9, torch.float32, dev, 25)
+        .permute(8, 6, 4, 2, 0, 1, 3, 5, 7)[..., 0],
+    }
+
+
+@pytest.mark.parametrize("view", ["5-D transposed", "5-D offset 1",
+                                  "5-D offset 1 transposed", "expanded",
+                                  "expanded rows", "int8 sliced",
+                                  "uint16 step", "ssm heads", "1-D", "0-D",
+                                  "8 dims"])
+def test_strided_copy_nd_kernel_vs_plain(cuda, view):
+    x = _strided_views(cuda)[view]
+    before = CE.strided_copy_nd_launches
+    got = strided_copy_nd(x)
+    assert CE.strided_copy_nd_launches == before + 1
+    assert got.is_contiguous()
+    assert _bits_equal(got, strided_copy_nd_ref(x))
+
+
+def test_strided_copy_nd_above_2_31_elements(cuda):
+    """A stride-0 view of 2^31 + 2^24 one-byte elements: no wider unit,
+    so the kernel takes its 64-bit index path."""
+    rows = _any((2 ** 15 + 2 ** 8, 1), torch.int8, cuda, 26)
+    x = rows.expand(rows.shape[0], 2 ** 16)
+    got = strided_copy_nd(x)
+    assert CE.gather_geometry(x)[2] == 1 and x.numel() > 2 ** 31
+    assert _bits_equal(got, strided_copy_nd_ref(x))
+
+
+def test_copy_and_init_refusals_on_card(cuda):
+    x = torch.zeros(8, 128, device=cuda)
+    before = (CE.copy_2d_launches, CE.strided_copy_nd_launches)
+    with pytest.raises(NotImplementedError, match="fuses only"):
+        copy_2d(x, lambda v: v + 1)
+    with pytest.raises(NotImplementedError):
+        copy_2d(x.to(torch.int32), functools.partial(instream.scale,
+                                                     factor=2))
+    with pytest.raises(ValueError, match="Invalid dtype for `swap`"):
+        copy_2d(x, out_dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="Invalid dtype for `swap`"):
+        copy_2d(x, instream.cast)
+    with pytest.raises(ValueError, match="unsupported itemsize 8"):
+        copy_2d(x.double())
+    with pytest.raises(ValueError, match="unsupported itemsize 8"):
+        strided_copy_nd(x.to(torch.int64))
+    with pytest.raises(ValueError, match="2-D"):
+        copy_2d(x[0])
+    assert (CE.copy_2d_launches, CE.strided_copy_nd_launches) == before
+    with pytest.raises(NotImplementedError, match="prng fill"):
+        prng_fill((8, 128), 1, torch.float16, cuda)
+    with pytest.raises(ValueError, match="unsupported itemsize 8"):
+        memset((8, 128), 1, torch.int64, cuda)
+    assert copy_2d(x, instream.cast, torch.bfloat16).dtype == torch.bfloat16
+
+
+def test_copy_and_init_never_reach_the_plain_version(cuda, monkeypatch):
+    cops = importlib.import_module("repro_torch.kernels.copy_engine.ops")
+    iops = importlib.import_module("repro_torch.kernels.init_engine.ops")
+
+    def refuse(*a, **k):
+        raise AssertionError("plain version called on the card")
+
+    for mod in (cops, iops):
+        monkeypatch.setattr(mod, "ref", type("Refuse", (), {
+            "__getattr__": lambda self, name: refuse})())
+    x = _randn((8, 128), torch.float32, cuda, 27)
+    copy_2d(x, functools.partial(instream.scale, factor=2.0))
+    strided_copy_nd(x.t())
+    memset((8, 128), 1.0, torch.float32, cuda)
+    iota_fill((8, 128), 0, torch.int32, cuda)
+    prng_fill((8, 128), 0, torch.float32)
+
