@@ -9,9 +9,9 @@ lines tagged with its name:
 
   1. device  — the card's name and power limit from nvidia-smi; no CUDA
                device is an error;
-  2. build   — the five sources under `src/repro_torch/csrc` (flash and
-               decode attention, the SSD scan, the Init and copy engines),
-               one `nvcc` each for sm_90a, started together;
+  2. build   — the six sources under `src/repro_torch/csrc` (flash and
+               decode attention, the SSD scan, the Init and copy engines,
+               the matmul), one `nvcc` each for sm_90a, started together;
   3. kernels — each CUDA kernel against its plain PyTorch version on the
                card (tolerance relative to max|plain|: 2e-2 bf16, 1e-4
                fp32), with its time from CUDA events beside the plain
@@ -34,14 +34,27 @@ lines tagged with its name:
                dtype, bit for bit against their plain versions; the five
                launch counters, set to 0 first, must equal the calls
                made; then kernel, plain and library times;
-  5. serve   — full-width gemma2-2b (26 layers, d 2304, vocab 256,000)
+  5. matmul  — the blocked matmul through `repro_torch.kernels.matmul_dma.
+               matmul`, the entry point a user calls, at the served
+               models' real GEMM shapes (gemma2-2b's FFN gate with its
+               tanh-gelu and its FFN down, mamba2-1.3b's in_proj, over a
+               4 x 4,608-token prefill; gemma2-2b's decode unembed into
+               fp32 through `table.t()`; mamba2-1.3b's out_proj in fp32),
+               then small edge cases on every route (ragged M, N and K,
+               M = 1, transposed and sliced views, mixed types, each fused
+               epilogue), each against `matmul_ref` (relative to
+               max|plain|: 2e-2 for a bf16 output, 1e-4 for fp32); the
+               launch counter, set to 0 first, must equal the calls made;
+               then kernel, plain and `torch.matmul` (cuBLAS, TF32 off,
+               then the same epilogue) times;
+  6. serve   — full-width gemma2-2b (26 layers, d 2304, vocab 256,000)
                and then full-width mamba2-1.3b (48 SSM layers, d 2048,
                vocab 50,280), seeded random weights, bf16, each answer
                4 left-padded requests through `ServeEngine.generate`,
                twice; the launch counters, set to 0 before each run, must
                show every attention and SSD call went through the kernels
-               and no other kernel ran (no copy or Init kernel either);
-  6. card vs CPU — 2 gemma2 layers (SWA, FULL) and 2 mamba2 layers at
+               and no other kernel ran (no copy, Init or matmul kernel);
+  7. card vs CPU — 2 gemma2 layers (SWA, FULL) and 2 mamba2 layers at
                full width in fp32, a 600-token prompt and 3 decode steps:
                logits of the CUDA path agree with the CPU path within 1e-4.
 
@@ -124,6 +137,7 @@ def phase_device():
 
 INIT = "src/repro/kernels/init_engine/init_engine.py"
 COPY = "src/repro/kernels/copy_engine/copy_engine.py"
+MATMUL = "src/repro/kernels/matmul_dma/matmul_dma.py"
 KERNELS = {  # kernel → (wrapper module, its launch counter, source in
     #          csrc/, the TPU kernel it replaces)
     "flash_attention": ("repro_torch.kernels.flash_attention."
@@ -147,6 +161,8 @@ KERNELS = {  # kernel → (wrapper module, its launch counter, source in
     "strided_copy_nd": ("repro_torch.kernels.copy_engine.copy_engine",
                         "strided_copy_nd_launches", "copy_engine",
                         f"{COPY}:208"),
+    "matmul_dma": ("repro_torch.kernels.matmul_dma.matmul_dma", "launches",
+                   "matmul_dma", f"{MATMUL}:87"),
 }
 DMA_KERNELS = ("memset", "iota_fill", "prng_fill", "copy_2d",
                "strided_copy_nd")
@@ -165,12 +181,13 @@ def phase_build():
 
 def expected_launches(cfg, steps: int):
     """Kernel launches of one prefill and `steps` decode steps of `cfg`:
-    no copy or Init kernel runs on the serving path."""
+    no copy, Init or matmul kernel runs on the serving path."""
     from repro_torch.configs import SSM
     n_ssm = sum(kind == SSM for kind in cfg.layer_kinds)
     n_attn = cfg.n_layers - n_ssm
     return {"flash_attention": n_attn, "decode_attention": n_attn * steps,
-            "ssd": n_ssm, **{name: 0 for name in DMA_KERNELS}}
+            "ssd": n_ssm, "matmul_dma": 0,
+            **{name: 0 for name in DMA_KERNELS}}
 
 
 def reset(mods, names=None):
@@ -717,6 +734,200 @@ def phase_dma(mods):
     return entries
 
 
+def matmul_cases(dev):
+    """Real sizes from the served models' weights ((K, N) in the port:
+    `models/ffn.py`, `models/ssm.py`), unreduced: (label, input maker →
+    (x, w), out dtype, epilogue).  x ~ N(0, 1), w ~ N(0, 1/K), so outputs
+    are O(1)."""
+    import functools
+    import torch
+    import torch.nn.functional as F
+    gen = torch.Generator(dev).manual_seed(5)
+    bf16, f32 = torch.bfloat16, torch.float32
+    T = 4 * 4608                 # the §4 traffic's prefill tokens
+
+    def make(M, K, N, dtype):
+        def inputs():
+            x = torch.randn((M, K), generator=gen, device=dev).to(dtype)
+            w = (torch.randn((K, N), generator=gen, device=dev)
+                 * K ** -0.5).to(dtype)
+            return x, w
+        return inputs
+
+    def unembed():   # gemma2-2b's tied table, read as table.t()
+        x = torch.randn((4, 2304), generator=gen, device=dev).to(bf16)
+        table = (torch.randn((256000, 2304), generator=gen, device=dev)
+                 * 2304 ** -0.5).to(bf16)
+        return x, table.t()
+
+    return [
+        ("gemma2-2b FFN gate + tanh-gelu (18432, 2304) @ (2304, 9216) bf16",
+         make(T, 2304, 9216, bf16), None,
+         functools.partial(F.gelu, approximate="tanh")),
+        ("gemma2-2b FFN down (18432, 9216) @ (9216, 2304) bf16",
+         make(T, 9216, 2304, bf16), None, None),
+        ("mamba2-1.3b in_proj (18432, 2048) @ (2048, 8512) bf16",
+         make(T, 2048, 8512, bf16), None, None),
+        ("gemma2-2b decode unembed (4, 2304) @ table.t() (2304, 256000) "
+         "bf16 -> f32", unembed, f32, None),
+        ("mamba2-1.3b out_proj (18432, 4096) @ (4096, 2048) f32",
+         make(T, 4096, 2048, f32), None, None),
+    ]
+
+
+def matmul_edge_cases(dev):
+    """Small cases on every route, (label, x, w, out dtype, epilogue): the
+    four tile layouts of the bf16 kernel and the fp32 kernel's operand
+    types; ragged M, N and K (the shapes where the Pallas kernel gives
+    NaN among them), M = 1, transposed, sliced and stepped views, each
+    fused epilogue, into bf16 and fp32."""
+    import functools
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core import instream
+    gen = torch.Generator(dev).manual_seed(6)
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def randn(shape, dtype, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev)
+                * scale).to(dtype)
+
+    cases = []
+    pairs = ((bf16, bf16), (f32, f32), (bf16, f32), (f32, bf16))
+    for M, K, N in ((300, 700, 300), (64, 576, 64), (100, 200, 90),
+                    (1, 2304, 9216), (1, 300, 257), (129, 33, 130)):
+        for a, b in pairs:
+            x, w = randn((M, K), a), randn((K, N), b, K ** -0.5)
+            for out in (None, f32):
+                cases.append((f"({M}, {K}) {a} @ ({K}, {N}) {b} -> {out}",
+                              x, w, out, None))
+    for dt in (bf16, f32):
+        big = randn((300, 520), dt)
+        x, w = big[:, :256], big[:256, 3:259] * 0.1
+        for label, xv, wv in (
+                ("x.t()", x.t()[:, :200], w[:200]), ("w.t()", x, w.t()),
+                ("x.t() @ w.t()", x.t()[:, :256], w.t()),
+                ("x offset 1", big[1:, 1:257], w),
+                ("w stepped", x, big[7:263, ::2]),
+                ("both stepped", big[::2, :256],
+                 big[:256, :300].t()[:256, ::3])):
+            for out in (None, f32):
+                cases.append((f"{label} {dt} -> {out}", xv, wv, out, None))
+        x, w = randn((257, 1000), dt), randn((1000, 383), dt, 0.05)
+        for name, epi in (("relu", torch.relu), ("F.relu", F.relu),
+                          ("silu", F.silu),
+                          ("tanh-gelu", functools.partial(
+                              F.gelu, approximate="tanh")),
+                          ("scale", instream.scale),
+                          ("scale -0.3", functools.partial(instream.scale,
+                                                           factor=-0.3))):
+            for out in (None, f32):
+                cases.append((f"{name} {dt} -> {out}", x, w, out, epi))
+    return cases
+
+
+def library_matmul(x, w, out, epi):
+    """One PyTorch call for the same function, then the same epilogue:
+    `torch.matmul` (cuBLAS; TF32 off), or `torch.mm(..., out_dtype=)`
+    where bf16 operands give an fp32 output.  Only timed here: the port
+    never calls it."""
+    import torch
+
+    def call():
+        y = torch.matmul(x, w) if out in (None, x.dtype) else \
+            torch.mm(x, w, out_dtype=out)
+        return y if epi is None else epi(y)
+    return call
+
+
+def phase_matmul(mods):
+    """The matmul kernel against `matmul_ref` on the card, at real sizes
+    and on edge cases; the counter, set to 0 first, must equal the calls
+    made; then kernel, plain and library times.  Returns the JSON entry
+    (its times those of the first real-size case)."""
+    import torch
+    from repro_torch.kernels.matmul_dma import matmul, matmul_ref
+    dev = torch.device("cuda")
+    reset(mods, ["matmul_dma"])
+    calls, worst = 0, 0.0
+
+    def compare(label, got, want, tol_dtype):
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        rel = err / max(float(want.float().abs().max()), 1e-6)
+        if got.shape != want.shape or got.dtype != want.dtype or not (
+                math.isfinite(rel) and rel < TOL[tol_dtype]):
+            raise AssertionError(f"matmul {label}: rel err {rel:.3e} (tol "
+                                 f"{TOL[tol_dtype]:.0e}), {got.dtype} "
+                                 f"{tuple(got.shape)} vs {want.dtype} "
+                                 f"{tuple(want.shape)}")
+        return err, rel
+
+    def out_name(x, out):
+        return str(out or x.dtype).replace("torch.", "")
+
+    real = matmul_cases(dev)
+    for label, make, out, epi in real:
+        x, w = make()
+        got = matmul(x, w, out, epi)
+        calls += 1
+        err, rel = compare(label, got, matmul_ref(x, w, out, epi),
+                           out_name(x, out))
+        worst = max(worst, err)
+        log(f"[matmul] {label}: rel err {rel:.2e} (tol "
+            f"{TOL[out_name(x, out)]:.0e})")
+        del x, w, got
+        torch.cuda.empty_cache()
+    edge = matmul_edge_cases(dev)
+    for label, x, w, out, epi in edge:
+        got = matmul(x, w, out, epi)
+        calls += 1
+        err, _ = compare(label, got, matmul_ref(x, w, out, epi),
+                         out_name(x, out))
+        worst = max(worst, err)
+    del edge
+    count = read(mods, ["matmul_dma"])["matmul_dma"]
+    if count != calls:
+        raise AssertionError(f"matmul launches {count}, calls made {calls}")
+    log(f"[matmul] {len(real)} real-size and {calls - len(real)} small cases "
+        f"within tolerance of matmul_ref; launches {count} (= the calls "
+        f"made); max abs err {worst:.3e}")
+
+    # timing, after the count: CUDA events, after warm-up
+    entry = None
+    for label, make, out, epi in real:
+        x, w = make()
+        M, K = x.shape
+        N = w.shape[1]
+        lib = library_matmul(x, w, out, epi)
+        compare(f"library {label}", lib(), matmul_ref(x, w, out, epi),
+                out_name(x, out))
+        ms = time_ms(lambda: matmul(x, w, out, epi), iters=20)
+        plain_ms = time_ms(lambda: matmul_ref(x, w, out, epi), iters=5,
+                           warmup=1)
+        lib_ms = time_ms(lib, iters=20)
+        flops = 2 * M * N * K
+        nbytes = (x.numel() * x.element_size() + w.numel() * w.element_size()
+                  + M * N * (4 if out_name(x, out) == "float32" else 2))
+        kind = "bfloat16" if x.dtype == w.dtype == torch.bfloat16 \
+            else "float32"
+        b_ms, b_by = bound(flops, nbytes, kind)
+        log(f"[matmul] {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"torch.matmul {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
+            f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e9:.3f} GB) | kernel "
+            f"{flops / ms / 1e9:.1f} TFLOP/s, {nbytes / ms / 1e6:.0f} GB/s, "
+            f"{100 * b_ms / ms:.1f}% of bound, {ms / lib_ms:.2f}x library")
+        if entry is None:
+            entry = dict(name="matmul_dma", route="cuda",
+                         source="src/repro_torch/csrc/matmul_dma.cu",
+                         replaces=KERNELS["matmul_dma"][3], launches=count,
+                         max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+        del x, w
+        torch.cuda.empty_cache()
+    return entry
+
+
 def phase_serve(arch, mods):
     """Full-width `arch` answers the traffic twice; returns the launches
     of the first run."""
@@ -862,6 +1073,7 @@ def main() -> int:
     entries = phase_kernels(mods["flash_attention"], mods["decode_attention"])
     entries["ssd"] = phase_ssd_kernel(mods["ssd"])
     entries.update(phase_dma(mods))
+    entries["matmul_dma"] = phase_matmul(mods)
     gemma = phase_serve("gemma2-2b", mods)
     mamba = phase_serve("mamba2-1.3b", mods)
     entries["flash_attention"]["launches"] = gemma["flash_attention"]

@@ -18,6 +18,8 @@ Kernels:
                      them the reference's descriptor plan of a copy
                      (`plan_descriptor_batch`, `estimate_plan_cycles`,
                      `copy_2d_reference`) on `repro_torch.core`
+  matmul_dma       — x @ w with fp32 sums and a fused epilogue (relu,
+                     silu, tanh-gelu, scale), bf16 on the tensor cores
 """
 
 from . import runtime

@@ -420,3 +420,179 @@ def test_strided_copy_nd_of_torch_views(view):
         view_shape[d] = n
         idx = idx + np.arange(n).reshape(view_shape) * s
     assert units[idx].tobytes() == _bits(got).tobytes()
+
+
+# --------------------------------------------------------------------------
+# The blocked matmul: the plain version against the Pallas kernel
+# --------------------------------------------------------------------------
+
+MM = importlib.import_module("repro_torch.kernels.matmul_dma.matmul_dma")
+
+
+def _mm_pair(M, K, N, x_dtype, w_dtype=None, seed=42):
+    """x (M, K), w (K, N) drawn in float32 with numpy, as each package
+    rounds them."""
+    rng = np.random.default_rng(seed)
+    x, w = (rng.standard_normal(s).astype(np.float32)
+            for s in ((M, K), (K, N)))
+    w_dtype = w_dtype or x_dtype
+    return ((jnp.asarray(x, JDT[x_dtype]), jnp.asarray(w, JDT[w_dtype])),
+            (torch.from_numpy(x).to(TDT[x_dtype]),
+             torch.from_numpy(w).to(TDT[w_dtype])))
+
+
+@pytest.mark.parametrize("mkn", [(128, 128, 128), (200, 300, 150),
+                                 (512, 1024, 256), (64, 2048, 64)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_matmul_matches_pallas(mkn, dtype):
+    from repro.kernels.matmul_dma import matmul as j_mm, matmul_ref as j_ref
+    from repro_torch.kernels.matmul_dma import matmul
+    M, K, N = mkn
+    (jx, jw), (tx, tw) = _mm_pair(M, K, N, dtype)
+    got = matmul(tx, tw)
+    assert got.dtype == TDT[dtype] and tuple(got.shape) == (M, N)
+    assert _rel_err(got, j_mm(jx, jw, backend="pallas",
+                              interpret=True)) < TOL[dtype]
+    assert _rel_err(got, j_ref(jx, jw)) < TOL[dtype]
+
+
+@pytest.mark.parametrize("epi", ["relu", "silu", "gelu_tanh", "scale"])
+def test_matmul_epilogue_matches_pallas(epi):
+    """The fusable epilogues, each as JAX writes it and as torch does:
+    equal on the CPU, and the kernel route takes the torch one."""
+    import jax
+    import torch.nn.functional as F
+    from repro.kernels.matmul_dma import matmul as j_mm
+    from repro_torch.kernels.matmul_dma import matmul
+    j_epi, t_epi = {
+        "relu": (jax.nn.relu, torch.relu),
+        "silu": (jax.nn.silu, F.silu),
+        "gelu_tanh": (functools.partial(jax.nn.gelu, approximate=True),
+                      functools.partial(F.gelu, approximate="tanh")),
+        "scale": (functools.partial(J.instream.scale, factor=0.5),
+                  functools.partial(T.instream.scale, factor=0.5)),
+    }[epi]
+    (jx, jw), (tx, tw) = _mm_pair(128, 256, 128, "float32")
+    want = j_mm(jx, jw, epilogue=j_epi, backend="pallas", interpret=True)
+    assert _rel_err(matmul(tx, tw, epilogue=t_epi), want) < TOL["float32"]
+    assert MM.check_matmul(tx, tw, None, t_epi)[1] == MM.FUSABLE[epi]
+
+
+def test_matmul_any_callable_on_cpu():
+    from repro.kernels.matmul_dma import matmul as j_mm
+    from repro_torch.kernels.matmul_dma import matmul
+
+    def t(v):
+        return v * 3.0 + 1.0
+    (jx, jw), (tx, tw) = _mm_pair(64, 96, 80, "float32")
+    want = j_mm(jx, jw, epilogue=t, backend="pallas", interpret=True)
+    assert _rel_err(matmul(tx, tw, epilogue=t), want) < TOL["float32"]
+
+
+@pytest.mark.parametrize("x_dtype,w_dtype", [("bfloat16", "float32"),
+                                             ("float32", "bfloat16")])
+def test_matmul_mixed_operands_match_pallas(x_dtype, w_dtype):
+    """Pallas promotes a mixed product to fp32 and returns x's dtype."""
+    from repro.kernels.matmul_dma import matmul as j_mm
+    from repro_torch.kernels.matmul_dma import matmul
+    (jx, jw), (tx, tw) = _mm_pair(200, 300, 150, x_dtype, w_dtype)
+    want = j_mm(jx, jw, backend="pallas", interpret=True)
+    got = matmul(tx, tw)
+    assert got.dtype == TDT[x_dtype] and str(want.dtype) == x_dtype
+    assert _rel_err(got, want) < TOL[x_dtype]
+    assert MM.check_matmul(tx, tw)[0] == TDT[x_dtype]
+
+
+def test_matmul_f32_output_from_bf16_operands():
+    from repro.kernels.matmul_dma import matmul as j_mm
+    from repro_torch.kernels.matmul_dma import matmul
+    (jx, jw), (tx, tw) = _mm_pair(64, 2048, 64, "bfloat16")
+    want = j_mm(jx, jw, out_dtype=jnp.float32, backend="pallas",
+                interpret=True)
+    got = matmul(tx, tw, out_dtype=torch.float32)
+    assert got.dtype == torch.float32
+    assert _rel_err(got, want) < TOL["float32"]
+
+
+@pytest.mark.parametrize("mkn", [(300, 700, 300), (64, 576, 64),
+                                 (100, 200, 90)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_matmul_ragged_k_equals_ref(mkn, dtype):
+    # matmul_pallas gives all NaN here: it sums the padded tail of a ragged
+    # last k block (ROADMAP queue 3); the port computes the true product.
+    from repro.kernels.matmul_dma import matmul_ref as j_ref
+    from repro_torch.kernels.matmul_dma import matmul
+    M, K, N = mkn
+    (jx, jw), (tx, tw) = _mm_pair(M, K, N, dtype)
+    got = matmul(tx, tw)
+    assert bool(torch.isfinite(got).all())
+    assert _rel_err(got, j_ref(jx, jw)) < TOL[dtype]
+
+
+def test_matmul_contraction_mismatch_raises_in_both():
+    from repro.kernels.matmul_dma import matmul as j_mm
+    from repro_torch.kernels.matmul_dma import matmul
+    (jx, _), (tx, _) = _mm_pair(8, 16, 4, "float32")
+    (_, jw), (_, tw) = _mm_pair(8, 12, 4, "float32")
+    with pytest.raises(ValueError, match="contraction mismatch"):
+        j_mm(jx, jw, backend="pallas", interpret=True)
+    with pytest.raises(ValueError, match="contraction mismatch"):
+        matmul(tx, tw)
+    with pytest.raises(ValueError, match="contraction mismatch"):
+        MM.check_matmul(tx, tw)
+    with pytest.raises(ValueError, match="2-D"):
+        matmul(tx[0], tw)
+    with pytest.raises(ValueError):
+        matmul(tx.to("meta"), tw.to("meta"))
+
+
+def test_matmul_card_refusals_on_cpu_tensors():
+    """The kernel route's host check, called on CPU tensors: what the
+    card would refuse before any launch, which the CPU route takes."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.matmul_dma import matmul, matmul_ref
+    x, w = torch.ones(4, 8), torch.ones(8, 3)
+    for epi in (lambda v: v + 1, F.gelu, F.elu,
+                functools.partial(F.gelu, approximate="none"),
+                functools.partial(T.instream.scale, factor=True),
+                functools.partial(F.relu, inplace=True)):
+        with pytest.raises(ValueError, match="fuses only"):
+            MM.check_matmul(x, w, None, epi)
+        assert torch.equal(matmul(x, w, epilogue=epi),
+                           matmul_ref(x, w, epilogue=epi))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        MM.check_matmul(x.int(), w.int())
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        MM.check_matmul(x, w.half())
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        MM.check_matmul(x, w, torch.float16)
+    assert matmul(x.int(), w.int()).dtype == torch.int32
+    with pytest.raises(ValueError, match="two devices"):
+        MM.check_matmul(x, w.to("meta"))
+    assert MM.check_matmul(x, w, torch.bfloat16, T.instream.scale) == \
+        (torch.bfloat16, MM.FUSABLE["scale"], 1.0)
+    before = MM.launches
+    with pytest.raises(ValueError, match="CUDA device"):
+        MM.matmul_cuda(x, w)
+    assert MM.launches == before
+
+
+def test_matmul_tile_geometry_of_views():
+    """The layout and load width the kernel's tile loads take, for the
+    views the served models pass."""
+    bf = torch.zeros(64, 2304 + 8, dtype=torch.bfloat16)
+    x = bf[:, :2304]                       # rows 2,312 apart: still 16 B
+    table = torch.zeros(1000, 2304, dtype=torch.bfloat16)
+    w = torch.zeros(2304, 512, dtype=torch.bfloat16)
+    assert MM.tile_geometry(x, w) == (True, True, False, True)
+    # the decode unembed: w = table.t() is k-major
+    assert MM.tile_geometry(x, table.t()) == (True, True, True, True)
+    # transposed x: m-major; a base one element off: no 16-byte loads
+    assert MM.tile_geometry(w.t(), w)[:2] == (False, True)
+    assert MM.tile_geometry(bf[:, 1:2305], w)[:2] == (True, False)
+    # odd row pitch, stepped slices and fp32: element loads
+    assert MM.tile_geometry(torch.zeros(8, 33, dtype=torch.bfloat16)[:, :32],
+                            w)[1] is False
+    assert MM.tile_geometry(bf[:, ::2], w)[:2] == (True, False)
+    assert MM.tile_geometry(x.float(), w.float()) == (True, False, False,
+                                                      False)

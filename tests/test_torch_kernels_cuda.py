@@ -454,3 +454,113 @@ def test_copy_and_init_never_reach_the_plain_version(cuda, monkeypatch):
     iota_fill((8, 128), 0, torch.int32, cuda)
     prng_fill((8, 128), 0, torch.float32)
 
+
+
+# --------------------------------------------------------------------------
+# The blocked matmul: fp32 sums, so 1e-4 for a float32 output and 2e-2 for
+# a bfloat16 one (the output's rounding)
+# --------------------------------------------------------------------------
+
+MM = importlib.import_module("repro_torch.kernels.matmul_dma.matmul_dma")
+MM_SHAPES = [(1, 1, 1), (1, 300, 257), (100, 200, 90), (129, 33, 130),
+             (300, 700, 300), (64, 576, 64), (1100, 512, 300),
+             (257, 1000, 383)]
+MM_DTYPES = [(torch.bfloat16, torch.bfloat16), (torch.float32,
+                                                torch.float32),
+             (torch.bfloat16, torch.float32), (torch.float32,
+                                               torch.bfloat16)]
+
+
+def _mm_check(x, w, out_dtype=None, epilogue=None):
+    from repro_torch.kernels.matmul_dma import matmul, matmul_ref
+    before = MM.launches
+    got = matmul(x, w, out_dtype, epilogue)
+    want = matmul_ref(x, w, out_dtype, epilogue)
+    assert MM.launches == before + 1
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert bool(torch.isfinite(got).all())
+    assert _rel_err(got, want) < TOL[want.dtype]
+
+
+@pytest.mark.parametrize("dtypes", MM_DTYPES)
+@pytest.mark.parametrize("mkn", MM_SHAPES)
+def test_matmul_kernel_vs_plain(cuda, mkn, dtypes):
+    """Ragged M, N and K in every dtype pair, with x's dtype and with a
+    float32 output; (300, 700, 300) and (64, 576, 64) are the shapes where
+    the Pallas kernel gives NaN (K ragged across tiles)."""
+    M, K, N = mkn
+    x = _randn((M, K), dtypes[0], cuda, 30)
+    w = _randn((K, N), dtypes[1], cuda, 31)
+    _mm_check(x, w)
+    _mm_check(x, w, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_matmul_kernel_reads_views(cuda, dtype):
+    """Transposed, sliced, stepped and offset views of both operands."""
+    big = _randn((300, 520), dtype, cuda, 32)
+    x, w = big[:, :256], big[:256, 3:259]
+    for xv, wv in ((x, w), (x.t()[:, :200], w[:200]), (x, w.t()),
+                   (x.t(), w.t()), (big[1:, 1:257], w), (x, big[7:263, ::2]),
+                   (big[::2, :256], big[:256, :300].t()[:, ::3])):
+        xv, wv = xv[:, :wv.shape[0]], wv[:xv.shape[1]]
+        _mm_check(xv, wv)
+        _mm_check(xv, wv, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_matmul_kernel_fused_epilogues(cuda, dtype):
+    import torch.nn.functional as F
+    x = _randn((300, 700), dtype, cuda, 33)
+    w = _randn((700, 260), dtype, cuda, 34) * 0.05
+    for epi in (None, torch.relu, F.relu, F.silu,
+                functools.partial(F.gelu, approximate="tanh"),
+                instream.scale, functools.partial(instream.scale,
+                                                  factor=-0.3)):
+        _mm_check(x, w, None, epi)
+        _mm_check(x, w, torch.float32, epi)
+
+
+def test_matmul_kernel_decode_unembed(cuda):
+    """gemma2's decode unembed at a cut vocabulary: x (4, 2,304) bf16 @
+    table.t() into fp32, the table read k-major through its strides."""
+    x = _randn((4, 2304), torch.bfloat16, cuda, 35)
+    table = _randn((5003, 2304), torch.bfloat16, cuda, 36)
+    _mm_check(x, table.t(), torch.float32)
+    assert MM.tile_geometry(x, table.t()) == (True, True, True, True)
+
+
+def test_matmul_refusals_raise_before_launch(cuda):
+    from repro_torch.kernels.matmul_dma import matmul
+    x, w = torch.ones(4, 8, device=cuda), torch.ones(8, 3, device=cuda)
+    before = MM.launches
+    with pytest.raises(ValueError, match="fuses only"):
+        matmul(x, w, epilogue=lambda v: v + 1)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        matmul(x.int(), w.int())
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        matmul(x, w, torch.float16)
+    with pytest.raises(ValueError, match="contraction mismatch"):
+        matmul(x, w.t())
+    with pytest.raises(ValueError, match="2-D"):
+        matmul(x[0], w)
+    with pytest.raises(ValueError):
+        matmul(x, w.cpu())
+    assert MM.launches == before
+    assert matmul(x[:0], w).shape == (0, 3) and MM.launches == before
+    assert torch.equal(matmul(x[:, :0], w[:0]), torch.zeros(4, 3,
+                                                            device=cuda))
+
+
+def test_matmul_never_reaches_the_plain_version(cuda, monkeypatch):
+    from repro_torch.kernels.matmul_dma import matmul
+    mops = importlib.import_module("repro_torch.kernels.matmul_dma.ops")
+
+    def refuse(*a, **k):
+        raise AssertionError("plain version called on the card")
+
+    monkeypatch.setattr(mops, "ref", type("Refuse", (), {
+        "__getattr__": lambda self, name: refuse})())
+    x = _randn((64, 96), torch.bfloat16, cuda, 37)
+    assert matmul(x, x.t()).shape == (64, 64)
+    assert matmul(x.float(), x.t(), torch.float32).dtype == torch.float32
