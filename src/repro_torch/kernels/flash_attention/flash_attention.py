@@ -55,7 +55,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"head_dim {D} not in {HEAD_DIMS}")
     code = runtime.dtype_code(q)
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    # the bf16 kernel reads through TMA, which needs 16-byte-aligned bases
+    q, k, v = runtime.aligned16(q), runtime.aligned16(k), runtime.aligned16(v)
     out = torch.empty_like(q)
     lib = _lib()
     stream = torch.cuda.current_stream(q.device).cuda_stream

@@ -3,7 +3,8 @@
 Each kernel is one source under `repro_torch/csrc/` with a plain C
 interface.  At first use it is compiled with `nvcc` for `sm_90a` into a
 shared library under `build/repro_torch/` at the root of the checkout,
-named by a hash of its source so an edited source is rebuilt, and loaded
+named by a hash of its source and of every header beside it
+(`csrc/*.cuh`), so an edited source or header is rebuilt, and loaded
 with `ctypes`.  A failed build, load or launch raises; nothing falls back
 to another implementation.
 """
@@ -39,21 +40,24 @@ def resolve_device(device: Union[str, torch.device, None] = None
     return dev
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
+def cuda_tool(name: str) -> str:
+    """Path of a CUDA toolkit program (`nvcc`, `cuobjdump`)."""
+    found = shutil.which(name)
     if found:
         return found
     home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    cand = Path(home) / "bin" / "nvcc"
+    cand = Path(home) / "bin" / name
     if cand.exists():
         return str(cand)
-    raise RuntimeError("nvcc not found on PATH or under CUDA_HOME")
+    raise RuntimeError(f"{name} not found on PATH or under CUDA_HOME")
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode())
+        digest.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def build(names: Iterable[str]) -> None:
@@ -68,7 +72,7 @@ def build(names: Iterable[str]) -> None:
                 continue
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+            cmd = [cuda_tool("nvcc"), *NVCC_FLAGS, "-o", str(tmp),
                    str(CSRC / f"{name}.cu")]
             jobs.append((name, tmp, out, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,

@@ -193,6 +193,23 @@ def test_device_resolution_and_missing_nvcc(monkeypatch, tmp_path):
         "libdecode_attention-")
 
 
+def test_library_path_covers_headers(monkeypatch, tmp_path):
+    """A library is named by its source and every `csrc/*.cuh` header, so
+    an edited header (hopper.cuh) never loads a library built before."""
+    from repro_torch.kernels import runtime
+    monkeypatch.setattr(runtime, "CSRC", tmp_path)
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    first = runtime.library_path("k")
+    assert runtime.library_path("k") == first
+    assert first.name.startswith("libk-")
+    (tmp_path / "h.cuh").write_text("// two\n")
+    second = runtime.library_path("k")
+    assert second != first
+    (tmp_path / "new.cuh").write_text("")
+    assert runtime.library_path("k") not in (first, second)
+
+
 def _ssd_inputs(case, seed=7):
     """x, dt, A, D, B, C as in tests/test_kernels.py, in float32."""
     B, H, G, S, P, N = (case[k] for k in "BHGSPN")
