@@ -59,6 +59,13 @@ DECODE_CASES = [
     dict(B=2, Hq=8, Hkv=4, S=2048, D=64, kvlen=1500, win=256, cap=0.0),
     dict(B=1, Hq=8, Hkv=4, S=256, D=256, kvlen=200, win=64, cap=50.0,
          scale=1 / 16),
+    # the groups of the configs still to port: 5 (hymba-1.5b, qwen2.5-32b),
+    # 6 (internlm2-20b, internvl2-26b) and 16 (chatglm3-6b)
+    # (caches a multiple of the Pallas kernel's 256-key block: see
+    # test_decode_ragged_cache_equals_ref)
+    dict(B=2, Hq=10, Hkv=2, S=512, D=64, kvlen=301, win=0, cap=0.0),
+    dict(B=1, Hq=12, Hkv=2, S=512, D=128, kvlen=512, win=0, cap=30.0),
+    dict(B=2, Hq=16, Hkv=1, S=768, D=128, kvlen=555, win=200, cap=50.0),
 ]
 SSD_CASES = [
     dict(B=2, H=4, G=2, S=256, P=32, N=64, chunk=64),
@@ -122,6 +129,19 @@ def test_decode_plain_vs_pallas_and_ref(case, dtype):
                                          **kw), out) == 0.0
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_ragged_cache_equals_ref(dtype):
+    # decode_attention_pallas gives NaN here: a cache of 384 rows in
+    # 256-key blocks reads a padded tail, and p = 0 times its NaN rows is
+    # NaN (ROADMAP queue 3); the port visits only live keys and equals the
+    # reference's plain version.
+    (jq, jk, jv), (q, k, v) = _inputs(
+        [(2, 10, 64), (2, 2, 384, 64), (2, 2, 384, 64)], dtype)
+    out = decode_attention(q, k, v, kv_len=301)
+    assert bool(torch.isfinite(out).all())
+    assert _rel_err(out, j_dref(jq, jk, jv, kv_len=301)) < TOL[dtype]
+
+
 @pytest.mark.parametrize("kvlen", [17, 100, 256])
 def test_decode_kv_len_tensor(kvlen):
     """kv_len may be a 0-d int32 tensor (decode loops never read it on
@@ -134,6 +154,36 @@ def test_decode_kv_len_tensor(kvlen):
                       backend="pallas", interpret=True)
     assert _rel_err(out, pallas) < TOL["float32"]
     assert _rel_err(out, decode_attention(q, k, v, kv_len=kvlen)) == 0.0
+
+
+def test_decode_groups_cover_the_configs():
+    """The card's decode kernel takes the GQA group and head_dim of every
+    attention config of the repository."""
+    from repro.configs import REGISTRY
+    DA = importlib.import_module(
+        "repro_torch.kernels.decode_attention.decode_attention")
+    for name, cfg in REGISTRY.items():
+        if cfg.n_heads:
+            assert cfg.n_heads // cfg.n_kv_heads in DA.GROUPS, name
+            assert cfg.resolved_head_dim in DA.HEAD_DIMS, name
+
+
+def test_decode_splits_fill_the_card():
+    """Key splits from the cache's capacity and the SM count: between 1
+    and the capacity, at least MIN_KEYS_PER_SPLIT keys a split of a full
+    cache, and about two blocks an SM at gemma2-2b's decode shape."""
+    DA = importlib.import_module(
+        "repro_torch.kernels.decode_attention.decode_attention")
+    for S in range(1, 4641):
+        for blocks in (1, 3, 16, 40, 132, 264, 1000):
+            n = DA.num_splits(blocks, S, 132)
+            assert 1 <= n <= min(S, DA.MAX_SPLITS)
+            assert n == 1 or S // n >= DA.MIN_KEYS_PER_SPLIT
+            assert blocks * n <= max(blocks, DA.BLOCKS_PER_SM * 132)
+    assert DA.num_splits(16, 4640, 132) == 16     # B 4 x Hkv 4: 256 blocks
+    assert DA.num_splits(16, 20, 132) == 1
+    assert [DA.heads_per_block(g) for g in DA.GROUPS] == \
+        [1, 2, 4, 5, 6, 8, 8]
 
 
 def test_group_mismatch_raises():

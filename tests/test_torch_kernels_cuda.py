@@ -97,6 +97,19 @@ DECODE_CASES = [
     # gemma2 main path: a cache of max_len 4,640
     dict(B=4, Hq=8, Hkv=4, S=4640, D=256, kvlen=n, win=w, cap=50.0)
     for n in (1, 17, 4097, 4608) for w in (4096, 0)
+] + [
+    # GQA groups 5, 6 and 16 at each head_dim: kv_len 1, kv_len below the
+    # key splits (64 at B·Hkv 1 over S 2,048; 16 over S 512; 33 at B 2,
+    # Hkv 2, G 16 over S 4,640), windows that cut, a full cache
+    dict(B=2, Hq=10, Hkv=2, S=700, D=64, kvlen=1, win=0, cap=0.0),
+    dict(B=1, Hq=5, Hkv=1, S=2048, D=128, kvlen=5, win=0, cap=30.0),
+    dict(B=2, Hq=5, Hkv=1, S=1000, D=256, kvlen=999, win=300, cap=50.0),
+    dict(B=1, Hq=12, Hkv=2, S=4096, D=64, kvlen=4000, win=1000, cap=0.0),
+    dict(B=3, Hq=12, Hkv=2, S=777, D=128, kvlen=1, win=16, cap=50.0),
+    dict(B=1, Hq=6, Hkv=1, S=512, D=256, kvlen=9, win=0, cap=0.0),
+    dict(B=1, Hq=16, Hkv=1, S=3000, D=64, kvlen=3000, win=0, cap=0.0),
+    dict(B=2, Hq=32, Hkv=2, S=4640, D=128, kvlen=10, win=0, cap=50.0),
+    dict(B=1, Hq=16, Hkv=1, S=1500, D=256, kvlen=1400, win=500, cap=50.0),
 ]
 
 SSD_CASES = [
@@ -180,6 +193,25 @@ def test_decode_kernel_vs_plain(cuda, case, dtype):
     assert torch.equal(out, out_dev)
 
 
+def test_decode_split_counters_return_to_zero(cuda):
+    """The last block of each (b, kv head) returns its counter to 0, so a
+    run of split calls on one stream gives the same output every time."""
+    q = _randn((2, 16, 128), torch.bfloat16, cuda, 17)
+    k = _randn((2, 1, 4640, 128), torch.bfloat16, cuda, 18)
+    v = _randn((2, 1, 4640, 128), torch.bfloat16, cuda, 19)
+    assert DA.num_splits(4, 4640, torch.cuda.get_device_properties(
+        cuda).multi_processor_count) > 1
+    outs = [decode_attention(q, k, v, kv_len=n) for n in (4000, 4000, 77,
+                                                          4000)]
+    torch.cuda.synchronize()
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    counters, _ = DA._WORK[(cuda.index or 0, stream)]
+    assert int(counters.abs().sum()) == 0
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[3])
+    want = decode_attention_ref(q, k, v, kv_len=77)
+    assert _rel_err(outs[2], want) < TOL[torch.bfloat16]
+
+
 def test_decode_unaligned_and_strided_inputs(cuda):
     """A cache slice that is not 16-byte aligned, and a strided q."""
     q = _randn((2, 4, 2, 128), torch.bfloat16, cuda, 7)[:, :, 1]
@@ -220,6 +252,11 @@ def test_unsupported_shapes_raise(cuda):
         flash_attention(h, h, h)
     with pytest.raises(ValueError):
         decode_attention(q[:, :, 0], q, q, kv_len=3)
+    g3 = torch.zeros(1, 3, 64, device=cuda)      # GQA group 3: no config
+    before = DA.launches
+    with pytest.raises(ValueError, match="group"):
+        decode_attention(g3, q[:, :1, :, :64], q[:, :1, :, :64], kv_len=3)
+    assert DA.launches == before
 
 
 def _ssd_inputs(case, dtype, dev, seed):
