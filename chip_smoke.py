@@ -12,8 +12,8 @@ lines tagged with its name:
   2. build   — the six sources under `src/repro_torch/csrc` (flash and
                decode attention, the SSD scan, the Init and copy engines,
                the matmul), one `nvcc` each for sm_90a, started together;
-               the flash library's SASS (`cuobjdump -sass`) must hold
-               wgmma (`HGMMA`) and TMA loads (`UTMALDG`);
+               the flash and matmul libraries' SASS (`cuobjdump -sass`)
+               must hold wgmma (`HGMMA`) and TMA loads (`UTMALDG`);
   3. kernels — each CUDA kernel against its plain PyTorch version on the
                card (tolerance relative to max|plain|: 2e-2 bf16, 1e-4
                fp32; for flash attention, each output row's error against
@@ -26,7 +26,12 @@ lines tagged with its name:
                softcap as its score_mod, the case's causal and
                sliding-window mask as its block mask) timed as a
                yardstick for every case, and each flash case's TFLOP/s,
-               share of its bound and factor against it; the SSD scan at
+               share of its bound and factor against it; decode timed by
+               its device time (torch.profiler: the split kernel is
+               faster than its launch), at the main shape in 5 rounds in
+               turns with `flex_attention`, median and spread, and at the
+               GQA groups 5, 6 and 16 of the configs still to port; the
+               SSD scan at
                mamba2-1.3b's prefill shape in fp32 and bf16, on views of
                (B, S, ...) tensors as the SSM layer passes them, with four
                groups, and a small case also held against the sequential
@@ -52,9 +57,13 @@ lines tagged with its name:
                M = 1, transposed and sliced views, mixed types, each fused
                epilogue), each against `matmul_ref` (relative to
                max|plain|: 2e-2 for a bf16 output, 1e-4 for fp32); the
-               launch counter, set to 0 first, must equal the calls made;
-               then kernel, plain and `torch.matmul` (cuBLAS, TF32 off,
-               then the same epilogue) times;
+               launch counter, set to 0 first, must equal the calls made,
+               and each real size must take its route (the bf16 ones the
+               wgmma routes, by the per-route counter); then the chosen
+               route, the mma_sync route and `torch.matmul` (cuBLAS, TF32
+               off, then the same epilogue) in turns, and the plain
+               version; then both wgmma routes at M 1 to 128 (the small-M
+               threshold);
   6. serve   — full-width gemma2-2b (26 layers, d 2304, vocab 256,000)
                and then full-width mamba2-1.3b (48 SSM layers, d 2048,
                vocab 50,280), seeded random weights, bf16, each answer
@@ -111,6 +120,40 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean milliseconds of device time per call: the time of the kernels
+    the call launches, from torch.profiler, without the host's time to
+    launch them, which CUDA events around back-to-back calls show once a
+    call's kernels take less time than its launch."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+    if total <= 0:
+        raise RuntimeError("the profiler recorded no device time")
+    return total / 1e3 / iters
+
+
+def in_turns(fns, rounds: int = 5):
+    """Device ms of each callable, timed in turns (the order reversed every
+    other round): {name: (median, min, max)}."""
+    import statistics
+    times = {name: [] for name in fns}
+    for r in range(rounds):
+        for name in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
+            times[name].append(device_ms(fns[name]))
+    return {name: (statistics.median(t), min(t), max(t))
+            for name, t in times.items()}
 
 
 def bound(flops: float, nbytes: float, dtype: str):
@@ -188,18 +231,19 @@ def phase_build():
         runtime.load(name)
     log(f"[build] {', '.join(n + '.cu' for n in sources)} for sm_90a in "
         f"{time.perf_counter() - t0:.1f} s")
-    # the bf16 flash route must run on wgmma fed by TMA
-    sass = subprocess.run(
-        [runtime.cuda_tool("cuobjdump"), "-sass",
-         str(runtime.library_path("flash_attention"))],
-        capture_output=True, text=True, timeout=300, check=True).stdout
-    counts = {op: sum(op in line for line in sass.splitlines())
-              for op in ("HGMMA", "UTMALDG")}
-    log(f"[build] flash_attention SASS: " +
-        ", ".join(f"{n} {op}" for op, n in counts.items()))
-    if not all(counts.values()):
-        raise AssertionError(f"flash_attention SASS lacks wgmma or TMA: "
-                             f"{counts}")
+    # flash's bf16 route and matmul's wgmma routes must run on wgmma fed
+    # by TMA
+    for name in ("flash_attention", "matmul_dma"):
+        sass = subprocess.run(
+            [runtime.cuda_tool("cuobjdump"), "-sass",
+             str(runtime.library_path(name))],
+            capture_output=True, text=True, timeout=300, check=True).stdout
+        counts = {op: sum(op in line for line in sass.splitlines())
+                  for op in ("HGMMA", "UTMALDG")}
+        log(f"[build] {name} SASS: " +
+            ", ".join(f"{n} {op}" for op, n in counts.items()))
+        if not all(counts.values()):
+            raise AssertionError(f"{name} SASS lacks wgmma or TMA: {counts}")
 
 
 def expected_launches(cfg, steps: int):
@@ -283,8 +327,9 @@ def phase_kernels(fa, da):
     def softcap_mod(score, b, h, q_idx, kv_idx):
         return cap * torch.tanh(score / cap)
 
-    def library_ms(label, q, k, v, mask_mod, want, dtype, rows=False):
-        """Check flex_attention against the plain version, then time it."""
+    def library_call(label, q, k, v, mask_mod, want, dtype, rows=False):
+        """flex_attention, checked against the plain version; None where
+        this torch has none."""
         if library is None:
             return None
         flex, create_block_mask = library
@@ -297,10 +342,17 @@ def phase_kernels(fa, da):
         got = call()
         _, rel = compare(f"flex_attention {label}", got, want, dtype, rows)
         rms = f", row rms err {row_rms(got, want):.2e}" if rows else ""
-        del got
-        ms = time_ms(call)
         log(f"[kernels] library flex_attention {label}: rel err {rel:.2e}"
-            f"{rms}, {ms:.4f} ms")
+            f"{rms}")
+        return call
+
+    def library_ms(label, q, k, v, mask_mod, want, dtype, rows=False):
+        """Check flex_attention against the plain version, then time it."""
+        call = library_call(label, q, k, v, mask_mod, want, dtype, rows)
+        if call is None:
+            return None
+        ms = time_ms(call)
+        log(f"[kernels] library flex_attention {label}: {ms:.4f} ms")
         return ms
 
     def flash_mask(causal, window):
@@ -364,6 +416,10 @@ def phase_kernels(fa, da):
         del q, k, v, want
     entries["flash_attention"]["max_abs_err"] = worst
 
+    # Decode: the split kernel takes less device time than the host needs
+    # to launch it, so its time is device time from the profiler (CUDA
+    # events around back-to-back calls, launch included, are logged too);
+    # at the main shape it is timed in turns with flex_attention.
     worst = 0.0
     for dtype in ("bfloat16", "float32"):
         q = randn((B, Hq, D), dtype)
@@ -381,8 +437,12 @@ def phase_kernels(fa, da):
                     da.decode_attention_cuda(q, k, v, kv_len=kv_len, **kw),
                     want, dtype)
                 worst = max(worst, abs_err)
-                ms = time_ms(lambda: da.decode_attention_cuda(
-                    q, k, v, kv_len=kv_len, **kw), iters=50)
+
+                def kern():
+                    return da.decode_attention_cuda(q, k, v, kv_len=kv_len,
+                                                    **kw)
+                ms, call_ms = device_ms(kern, iters=50), time_ms(kern,
+                                                                 iters=50)
                 plain_ms = time_ms(lambda: decode_attention_ref(
                     q, k, v, kv_len=n, **kw))
                 live = n - (max(0, n - w) if w else 0)
@@ -391,20 +451,62 @@ def phase_kernels(fa, da):
                 b_ms, b_by = bound(4 * B * Hq * live * D, nbytes, dtype)
                 log(f"[kernels] decode B{B} Hq{Hq} Hkv{Hkv} S{MAX_LEN} "
                     f"D{D} kv_len {n} w{w} {dtype}: rel err {rel:.2e} (tol "
-                    f"{TOL[dtype]:.0e}) | kernel {ms:.4f} ms, plain "
-                    f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
-                    f"{nbytes / ms / 1e6:.0f} GB/s")
+                    f"{TOL[dtype]:.0e}) | kernel {ms:.4f} ms device "
+                    f"({call_ms:.4f} ms a call with its launch), plain "
+                    f"{plain_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}), "
+                    f"{100 * b_ms / ms:.1f}% of bound")
                 if dtype == "bfloat16" and n == 4608 and w == 0:
+                    flex = library_call(
+                        f"decode kv{n} w{w} {dtype}", q[:, :, None], k, v,
+                        lambda b, h, q_idx, kv_idx: kv_idx < n,
+                        want[:, :, None], dtype)
+                    turns = in_turns({"kernel": kern, **(
+                        {} if flex is None else {"flex_attention": flex})})
+                    k_ms = turns["kernel"][0]
+                    factor = "" if flex is None else (
+                        f"; kernel / flex_attention "
+                        f"{k_ms / turns['flex_attention'][0]:.2f}x")
+                    log(f"[kernels] decode main shape in turns, device ms "
+                        f"median (min-max) over 5 rounds: " + ", ".join(
+                            f"{name} {md:.4f} ({lo:.4f}-{hi:.4f})"
+                            for name, (md, lo, hi) in turns.items()) +
+                        f"{factor}; {100 * b_ms / k_ms:.1f}% of bound")
                     entries["decode_attention"] = dict(
                         name="decode_attention", route="cuda",
                         source="src/repro_torch/csrc/decode_attention.cu",
                         replaces=KERNELS["decode_attention"][3],
-                        ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                        bound_by=b_by, library_ms=library_ms(
-                            f"decode kv{n} w{w} {dtype}", q[:, :, None],
-                            k, v, lambda b, h, q_idx, kv_idx: kv_idx < n,
-                            want[:, :, None], dtype))
+                        ms=turns["kernel"][0], plain_ms=plain_ms,
+                        bound_ms=b_ms, bound_by=b_by,
+                        library_ms=None if flex is None
+                        else turns["flex_attention"][0])
         del q, k, v
+    # the GQA groups of the configs still to port, at their head_dim over
+    # a 4,640-row cache: hymba-1.5b (25 / 5, D 64), qwen2.5-32b (40 / 8,
+    # D 128), internlm2-20b (48 / 8, D 128), chatglm3-6b (32 / 2, D 128),
+    # and G 16 at D 256
+    for hq, hkv, d, w in ((25, 5, 64, 1024), (40, 8, 128, 0), (48, 8, 128, 0),
+                          (32, 2, 128, 0), (16, 1, 256, 4096)):
+        for dtype in ("bfloat16", "float32"):
+            q = randn((B, hq, d), dtype)
+            k, v = randn((B, hkv, MAX_LEN, d), dtype), \
+                randn((B, hkv, MAX_LEN, d), dtype)
+            kw = dict(kv_len=4608, window=w, softcap=cap, scale=d ** -0.5)
+            abs_err, rel = compare(
+                f"decode G{hq // hkv} D{d} {dtype}",
+                da.decode_attention_cuda(q, k, v, **kw),
+                decode_attention_ref(q, k, v, **kw), dtype)
+            worst = max(worst, abs_err)
+            ms = device_ms(lambda: da.decode_attention_cuda(q, k, v, **kw))
+            live = min(4608, w) if w else 4608
+            nbytes = (2 * B * hkv * live * d + 2 * q.numel()) \
+                * q.element_size()
+            b_ms, _ = bound(4 * B * hq * live * d, nbytes, dtype)
+            log(f"[kernels] decode G{hq // hkv} B{B} Hq{hq} Hkv{hkv} "
+                f"S{MAX_LEN} D{d} kv_len 4608 w{w} {dtype}: rel err "
+                f"{rel:.2e} (tol {TOL[dtype]:.0e}) | kernel {ms:.4f} ms "
+                f"device, bound {b_ms:.5f} ms, {100 * b_ms / ms:.1f}% of "
+                f"bound")
+            del q, k, v
     entries["decode_attention"]["max_abs_err"] = worst
     return entries
 
@@ -798,8 +900,8 @@ def phase_dma(mods):
 def matmul_cases(dev):
     """Real sizes from the served models' weights ((K, N) in the port:
     `models/ffn.py`, `models/ssm.py`), unreduced: (label, input maker →
-    (x, w), out dtype, epilogue).  x ~ N(0, 1), w ~ N(0, 1/K), so outputs
-    are O(1)."""
+    (x, w), out dtype, epilogue, the route the case must take).  x ~ N(0,
+    1), w ~ N(0, 1/K), so outputs are O(1)."""
     import functools
     import torch
     import torch.nn.functional as F
@@ -824,15 +926,15 @@ def matmul_cases(dev):
     return [
         ("gemma2-2b FFN gate + tanh-gelu (18432, 2304) @ (2304, 9216) bf16",
          make(T, 2304, 9216, bf16), None,
-         functools.partial(F.gelu, approximate="tanh")),
+         functools.partial(F.gelu, approximate="tanh"), "wgmma"),
         ("gemma2-2b FFN down (18432, 9216) @ (9216, 2304) bf16",
-         make(T, 9216, 2304, bf16), None, None),
+         make(T, 9216, 2304, bf16), None, None, "wgmma"),
         ("mamba2-1.3b in_proj (18432, 2048) @ (2048, 8512) bf16",
-         make(T, 2048, 8512, bf16), None, None),
+         make(T, 2048, 8512, bf16), None, None, "wgmma"),
         ("gemma2-2b decode unembed (4, 2304) @ table.t() (2304, 256000) "
-         "bf16 -> f32", unembed, f32, None),
+         "bf16 -> f32", unembed, f32, None, "wgmma_small_m"),
         ("mamba2-1.3b out_proj (18432, 4096) @ (4096, 2048) f32",
-         make(T, 4096, 2048, f32), None, None),
+         make(T, 4096, 2048, f32), None, None, "fp32"),
     ]
 
 
@@ -904,12 +1006,18 @@ def library_matmul(x, w, out, epi):
 def phase_matmul(mods):
     """The matmul kernel against `matmul_ref` on the card, at real sizes
     and on edge cases; the counter, set to 0 first, must equal the calls
-    made; then kernel, plain and library times.  Returns the JSON entry
-    (its times those of the first real-size case)."""
+    made, and each real size must take its route (the wgmma routes for
+    bf16); then kernel, mma_sync, plain and library times, and the two
+    wgmma routes at M 1 to 128.  Returns the JSON entry (its times those
+    of the first real-size case)."""
+    import collections
     import torch
     from repro_torch.kernels.matmul_dma import matmul, matmul_ref
+    mm = mods["matmul_dma"]
     dev = torch.device("cuda")
     reset(mods, ["matmul_dma"])
+    for name in mm.launches_by_route:
+        mm.launches_by_route[name] = 0
     calls, worst = 0, 0.0
 
     def compare(label, got, want, tol_dtype):
@@ -928,63 +1036,115 @@ def phase_matmul(mods):
         return str(out or x.dtype).replace("torch.", "")
 
     real = matmul_cases(dev)
-    for label, make, out, epi in real:
+    for label, make, out, epi, route in real:
         x, w = make()
+        before = dict(mm.launches_by_route)
         got = matmul(x, w, out, epi)
         calls += 1
+        took = [r for r, n in mm.launches_by_route.items()
+                if n != before[r]]
+        if took != [route]:
+            raise AssertionError(f"matmul {label}: took route {took}, "
+                                 f"not {route}")
         err, rel = compare(label, got, matmul_ref(x, w, out, epi),
                            out_name(x, out))
         worst = max(worst, err)
-        log(f"[matmul] {label}: rel err {rel:.2e} (tol "
+        log(f"[matmul] {label}: route {route}, rel err {rel:.2e} (tol "
             f"{TOL[out_name(x, out)]:.0e})")
         del x, w, got
         torch.cuda.empty_cache()
     edge = matmul_edge_cases(dev)
+    edge_routes = collections.Counter()
     for label, x, w, out, epi in edge:
+        edge_routes[mm.route(x, w)] += 1
         got = matmul(x, w, out, epi)
         calls += 1
-        err, _ = compare(label, got, matmul_ref(x, w, out, epi),
-                         out_name(x, out))
+        err, _ = compare(f"{label} ({mm.route(x, w)})", got,
+                         matmul_ref(x, w, out, epi), out_name(x, out))
         worst = max(worst, err)
     del edge
     count = read(mods, ["matmul_dma"])["matmul_dma"]
-    if count != calls:
-        raise AssertionError(f"matmul launches {count}, calls made {calls}")
+    if count != calls or sum(mm.launches_by_route.values()) != calls:
+        raise AssertionError(f"matmul launches {count}, by route "
+                             f"{mm.launches_by_route}, calls made {calls}")
     log(f"[matmul] {len(real)} real-size and {calls - len(real)} small cases "
-        f"within tolerance of matmul_ref; launches {count} (= the calls "
-        f"made); max abs err {worst:.3e}")
+        f"(routes {dict(edge_routes)}) within tolerance of matmul_ref; "
+        f"launches {count} (= the calls made), by route "
+        f"{mm.launches_by_route}; max abs err {worst:.3e}")
 
-    # timing, after the count: CUDA events, after warm-up
+    # timing, after the count: CUDA events, after warm-up; the routes in
+    # turns, the one chosen, the mma_sync kernel that bf16 took before
+    # the wgmma routes, and the library call
+    import statistics
     entry = None
-    for label, make, out, epi in real:
+    for label, make, out, epi, route in real:
         x, w = make()
         M, K = x.shape
         N = w.shape[1]
         lib = library_matmul(x, w, out, epi)
         compare(f"library {label}", lib(), matmul_ref(x, w, out, epi),
                 out_name(x, out))
-        ms = time_ms(lambda: matmul(x, w, out, epi), iters=20)
+        fns = {r: (lambda r=r: mm.matmul_cuda(x, w, out, epi,
+                                              kernel_route=r))
+               for r in dict.fromkeys((route, "mma_sync"))
+               if r in mm.routes(x, w)}
+        fns["library"] = lib
+        times = {name: [] for name in fns}
+        for r in range(3):
+            for name in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
+                times[name].append(time_ms(fns[name], iters=20))
+        med = {name: statistics.median(t) for name, t in times.items()}
+        ms, lib_ms = med[route], med["library"]
         plain_ms = time_ms(lambda: matmul_ref(x, w, out, epi), iters=5,
                            warmup=1)
-        lib_ms = time_ms(lib, iters=20)
         flops = 2 * M * N * K
         nbytes = (x.numel() * x.element_size() + w.numel() * w.element_size()
                   + M * N * (4 if out_name(x, out) == "float32" else 2))
         kind = "bfloat16" if x.dtype == w.dtype == torch.bfloat16 \
             else "float32"
         b_ms, b_by = bound(flops, nbytes, kind)
-        log(f"[matmul] {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"torch.matmul {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
-            f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e9:.3f} GB) | kernel "
-            f"{flops / ms / 1e9:.1f} TFLOP/s, {nbytes / ms / 1e6:.0f} GB/s, "
-            f"{100 * b_ms / ms:.1f}% of bound, {ms / lib_ms:.2f}x library")
+        earlier = "" if route == "fp32" else (
+            f", mma_sync {med['mma_sync']:.4f} ms "
+            f"({100 * b_ms / med['mma_sync']:.1f}% of bound)")
+        log(f"[matmul] {label}: {route} {ms:.4f} ms{earlier}, plain "
+            f"{plain_ms:.4f} ms, torch.matmul {lib_ms:.4f} ms (medians of "
+            f"3 rounds in turns: " + ", ".join(
+                f"{n} {min(t):.4f}-{max(t):.4f}" for n, t in times.items())
+            + f"), bound {b_ms:.4f} ms ({b_by}, {flops / 1e9:.1f} GFLOP, "
+            f"{nbytes / 1e9:.3f} GB) | {route} {flops / ms / 1e9:.1f} "
+            f"TFLOP/s, {nbytes / ms / 1e6:.0f} GB/s, {100 * b_ms / ms:.1f}% "
+            f"of bound, {ms / lib_ms:.2f}x library")
         if entry is None:
             entry = dict(name="matmul_dma", route="cuda",
                          source="src/repro_torch/csrc/matmul_dma.cu",
                          replaces=KERNELS["matmul_dma"][3], launches=count,
                          max_abs_err=worst, ms=ms, plain_ms=plain_ms,
                          bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
-        del x, w
+        del x, w, fns, lib
+        torch.cuda.empty_cache()
+
+    # the small-M threshold: both wgmma routes at M 1 to 128, device time,
+    # K 2,304; N 9,216 (gemma2-2b's FFN weight, N-major) and 256,000 (its
+    # table.t(), K-major), into fp32
+    gen = torch.Generator(dev).manual_seed(7)
+    for N, k_major in ((9216, False), (256000, True)):
+        w = torch.randn((N, 2304) if k_major else (2304, N), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        w = w.t() if k_major else w
+        for M in (1, 4, 16, 64, 128):
+            x = torch.randn((M, 2304), generator=gen,
+                            device=dev).to(torch.bfloat16)
+            fns = {r: (lambda r=r: mm.matmul_cuda(
+                x, w, torch.float32, kernel_route=r))
+                for r in mm.routes(x, w) if r != "mma_sync"}
+            fns["torch.mm"] = lambda: torch.mm(x, w, out_dtype=torch.float32)
+            line = [f"{n} {device_ms(f):.4f}" for n, f in fns.items()]
+            nbytes = 2 * (x.numel() + w.numel()) + 4 * M * N
+            log(f"[matmul] small-M sweep N {N} ({'K' if k_major else 'N'}-"
+                f"major w) M {M}: device ms " + ", ".join(line) +
+                f"; bytes bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms; "
+                f"route {mm.route(x, w)}")
+        del w
         torch.cuda.empty_cache()
     return entry
 

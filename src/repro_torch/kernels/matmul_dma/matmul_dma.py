@@ -14,8 +14,12 @@ block in, see ROADMAP queue 3).
 The card fuses a fixed set of epilogues (`FUSABLE`), recognised as
 `copy_engine` recognises its in-stream transforms.  `check_matmul` holds
 the kernel route's refusals and runs on any device, so the CPU tests
-reach it; `tile_geometry` is the layout the kernel's tile loads take.
-`launches` counts the kernel launches this wrapper has made.
+reach it.  `route` picks the kernel from the operands' dtypes, shapes,
+strides and base alignment before any launch (`ROUTES`: wgmma on TMA
+tiles, its small-M form, mma.sync for bf16 views no tensor map
+describes, the fp32 CUDA-core kernel); `tile_geometry` is the layout the
+tile loads take.  `launches` counts the kernel launches this wrapper has
+made, `launches_by_route` the same by route.
 """
 
 from __future__ import annotations
@@ -31,7 +35,12 @@ from repro_torch.core import instream
 from repro_torch.kernels import runtime
 
 SOURCE = "matmul_dma"
+#: the kernel's routes, by name → its code in csrc/matmul_dma.cu
+ROUTES = {"fp32": 0, "mma_sync": 1, "wgmma": 2, "wgmma_small_m": 3}
+#: most rows of x that the small-M route takes (csrc/matmul_dma.cu)
+SMALL_M = 64
 launches = 0
+launches_by_route = dict.fromkeys(ROUTES, 0)
 
 #: the epilogues the kernel fuses, by name → its code in csrc/matmul_dma.cu
 FUSABLE = {"none": 0, "relu": 1, "silu": 2, "gelu_tanh": 3, "scale": 4}
@@ -119,26 +128,66 @@ def tile_geometry(x: torch.Tensor, w: torch.Tensor
     return (*_operand(x, 1), *_operand(w, 0))
 
 
+def _tma_ok(t: torch.Tensor, k_axis: int) -> bool:
+    """A 2-D tensor map describes the bfloat16 operand as its tile loads
+    read it: the contiguous axis of stride 1, the other a stride of a
+    multiple of 16 bytes that steps past a whole row, a 16-byte-aligned
+    base."""
+    k_major, _ = _operand(t, k_axis)
+    inner, outer = (k_axis, 1 - k_axis) if k_major else (1 - k_axis, k_axis)
+    return (t.dtype == torch.bfloat16 and t.stride(inner) == 1 and
+            t.stride(outer) % 8 == 0 and
+            t.stride(outer) >= t.shape[inner] and t.data_ptr() % 16 == 0)
+
+
+def routes(x: torch.Tensor, w: torch.Tensor) -> Tuple[str, ...]:
+    """The kernel routes that take these operands, the chosen one first:
+    fp32 unless both are bfloat16; then wgmma_small_m (M ≤ SMALL_M, x
+    k-major) and wgmma where tensor maps describe both and K > 0; mma_sync
+    for any bfloat16 pair."""
+    if not (x.dtype == w.dtype == torch.bfloat16):
+        return ("fp32",)
+    M, K = x.shape
+    if K == 0 or not (_tma_ok(x, 1) and _tma_ok(w, 0)):
+        return ("mma_sync",)
+    if M <= SMALL_M and _operand(x, 1)[0]:
+        return ("wgmma_small_m", "wgmma", "mma_sync")
+    return ("wgmma", "mma_sync")
+
+
+def route(x: torch.Tensor, w: torch.Tensor) -> str:
+    """The route `matmul_cuda` takes for these operands."""
+    return routes(x, w)[0]
+
+
 def _lib() -> ctypes.CDLL:
     lib = runtime.load(SOURCE)
     fn = lib.matmul_fwd
     if fn.argtypes is None:
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-        fn.argtypes = [P, P, P, L, L, L, P, I, I, I, I, I, I, I, I,
+        fn.argtypes = [P, P, P, L, L, L, P, I, I, I, I, I, I, I, I, I,
                        ctypes.c_float, P]
         fn.restype = I
     return lib
 
 
 def matmul_cuda(x: torch.Tensor, w: torch.Tensor, out_dtype=None,
-                epilogue: Optional[Callable] = None) -> torch.Tensor:
+                epilogue: Optional[Callable] = None,
+                kernel_route: Optional[str] = None) -> torch.Tensor:
     """`epilogue(x @ w)` into a new row-major (M, N) tensor of `out_dtype
-    or x.dtype`; x and w are views on one CUDA device."""
+    or x.dtype`; x and w are views on one CUDA device.  `kernel_route`
+    names one of `routes(x, w)` in place of `route(x, w)`, to time the
+    routes against each other; any other raises `ValueError`."""
     global launches
     if not (x.is_cuda and w.is_cuda):
         raise ValueError(f"matmul_cuda takes tensors on a CUDA device, got "
                          f"{x.device} and {w.device}")
     out, code, factor = check_matmul(x, w, out_dtype, epilogue)
+    allowed = routes(x, w)
+    chosen = kernel_route or allowed[0]
+    if chosen not in allowed:
+        raise ValueError(f"matmul route {chosen!r} does not take these "
+                         f"operands; routes {allowed}")
     (M, K), N = x.shape, w.shape[1]
     y = torch.empty((M, N), dtype=out, device=x.device)
     if y.numel() == 0:
@@ -150,9 +199,10 @@ def matmul_cuda(x: torch.Tensor, w: torch.Tensor, out_dtype=None,
         err = lib.matmul_fwd(
             x.data_ptr(), w.data_ptr(), y.data_ptr(), M, N, K, strides,
             runtime.DTYPE_CODES[x.dtype], runtime.DTYPE_CODES[w.dtype],
-            runtime.DTYPE_CODES[out], int(a_kmajor), int(a_vec),
-            int(b_kmajor), int(b_vec), code, factor,
+            runtime.DTYPE_CODES[out], ROUTES[chosen], int(a_kmajor),
+            int(a_vec), int(b_kmajor), int(b_vec), code, factor,
             torch.cuda.current_stream(x.device).cuda_stream)
-    runtime.check(lib, err, "matmul")
+    runtime.check(lib, err, f"matmul ({chosen})")
     launches += 1
+    launches_by_route[chosen] += 1
     return y

@@ -663,3 +663,40 @@ def test_matmul_tile_geometry_of_views():
     assert MM.tile_geometry(bf[:, ::2], w)[:2] == (True, False)
     assert MM.tile_geometry(x.float(), w.float()) == (True, False, False,
                                                       False)
+
+
+def test_matmul_route_of_views():
+    """The route the card takes, chosen from dtypes, shapes, strides and
+    base alignment alone: wgmma where 2-D tensor maps describe both bf16
+    operands (one stride 1, the other a multiple of 16 bytes, a 16-byte
+    base), its small-M form for M ≤ SMALL_M with x k-major, mma_sync for
+    any other bf16 view, fp32 for any fp32 operand."""
+    bf = torch.bfloat16
+    x = torch.zeros(18432, 2304 + 8, dtype=bf)[:, :2304]
+    w = torch.zeros(2304, 9216, dtype=bf)          # models/ffn.py's (K, N)
+    table = torch.zeros(1000, 2304, dtype=bf)      # the tied unembed
+    assert MM.SMALL_M == 64
+    assert MM.route(x, w) == "wgmma"
+    assert MM.route(x[:4], table.t()) == "wgmma_small_m"
+    assert MM.routes(x[:4], table.t()) == ("wgmma_small_m", "wgmma",
+                                           "mma_sync")
+    assert MM.route(x[:64], w) == "wgmma_small_m"   # at the threshold
+    assert MM.route(x[:65], w) == "wgmma"           # above it
+    assert MM.route(x[:1], w) == "wgmma_small_m"
+    # an M-major x stays on the large-M route at any M
+    assert MM.route(torch.zeros(2304, 64, dtype=bf).t(), w) == "wgmma"
+    # refusals of TMA: an unaligned base, a 66-byte pitch, a stepped
+    # inner axis, a pitch shorter than a row, K 0; fp32 anywhere
+    assert MM.route(x[:, 1:2305], w) == "mma_sync"
+    assert MM.route(x[:100, :2303], w[1:]) == "wgmma"   # base still 16 B
+    assert MM.route(torch.zeros(8, 33, dtype=bf), w[:33]) == "mma_sync"
+    assert MM.route(x[:100, :264], torch.zeros(264, 33, dtype=bf)) == \
+        "mma_sync"
+    assert MM.route(x[:100, ::2], w[:1152]) == "mma_sync"
+    assert MM.route(x[:100], w[:, ::2]) == "mma_sync"
+    assert MM.route(torch.zeros(1000, dtype=bf).as_strided(
+        (100, 64), (8, 1)), w[:64]) == "mma_sync"
+    assert MM.route(x[:100, :0], w[:0]) == "mma_sync"
+    assert MM.route(x.float(), w) == "fp32"
+    assert MM.route(x, w.float()) == "fp32"
+    assert MM.routes(x.float(), w.float()) == ("fp32",)

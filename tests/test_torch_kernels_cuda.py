@@ -603,8 +603,91 @@ def test_matmul_kernel_decode_unembed(cuda):
     table.t() into fp32, the table read k-major through its strides."""
     x = _randn((4, 2304), torch.bfloat16, cuda, 35)
     table = _randn((5003, 2304), torch.bfloat16, cuda, 36)
-    _mm_check(x, table.t(), torch.float32)
+    _mm_route_check(x, table.t(), "wgmma_small_m", torch.float32)
     assert MM.tile_geometry(x, table.t()) == (True, True, True, True)
+
+
+def _mm_route_check(x, w, route, out_dtype=None, epilogue=None):
+    """_mm_check, and the launch went to `route`."""
+    before = MM.launches_by_route[route]
+    assert MM.route(x, w) == route
+    _mm_check(x, w, out_dtype, epilogue)
+    assert MM.launches_by_route[route] == before + 1
+
+
+def _mm_weight(K, N, layout, dev, seed):
+    """w (K, N): row-major (N-major, the models' weights) or the transpose
+    of a row-major (N, K) table (K-major, the tied unembed)."""
+    if layout == "n-major":
+        return _randn((K, N), torch.bfloat16, dev, seed) * K ** -0.5
+    return (_randn((N, K), torch.bfloat16, dev, seed) * K ** -0.5).t()
+
+
+@pytest.mark.parametrize("w_layout", ["n-major", "k-major"])
+@pytest.mark.parametrize("mkn", [(1000, 600, 392), (129, 1000, 264),
+                                 (300, 72, 136)])
+def test_matmul_wgmma_route_ragged_tiles(cuda, mkn, w_layout):
+    """The wgmma route at shapes ragged against its 128 x 256 x 64 tiles
+    but legal for TMA, into bf16 and fp32, with each fused epilogue."""
+    import torch.nn.functional as F
+    M, K, N = mkn
+    x = _randn((M, K), torch.bfloat16, cuda, 40)
+    w = _mm_weight(K, N, w_layout, cuda, 41)
+    for epi in (None, torch.relu, F.relu, F.silu,
+                functools.partial(F.gelu, approximate="tanh"),
+                instream.scale, functools.partial(instream.scale,
+                                                  factor=-0.3)):
+        _mm_route_check(x, w, "wgmma", None, epi)
+        _mm_route_check(x, w, "wgmma", torch.float32, epi)
+
+
+@pytest.mark.parametrize("w_layout", ["n-major", "k-major"])
+def test_matmul_wgmma_route_transposed_x(cuda, w_layout):
+    """x M-major (a transposed view, wgmma's tnspA), at M 1,000 and at M
+    64, where an M-major x stays on the large-M route."""
+    for M in (1000, 64):
+        x = _randn((600, M), torch.bfloat16, cuda, 42).t()
+        w = _mm_weight(600, 392, w_layout, cuda, 43)
+        _mm_route_check(x, w, "wgmma")
+        _mm_route_check(x, w, "wgmma", torch.float32)
+
+
+@pytest.mark.parametrize("w_layout", ["n-major", "k-major"])
+@pytest.mark.parametrize("M", [1, 4, 16, 33, 64, 65, 128])
+def test_matmul_small_m_threshold(cuda, M, w_layout):
+    """Around the small-M threshold: M ≤ SMALL_M takes wgmma_small_m, M
+    above it wgmma; K 2,304 as the models' d_model, N 1,000 ragged
+    against both routes' tiles."""
+    import torch.nn.functional as F
+    x = _randn((M, 2304), torch.bfloat16, cuda, 44)
+    w = _mm_weight(2304, 1000, w_layout, cuda, 45)
+    route = "wgmma_small_m" if M <= MM.SMALL_M else "wgmma"
+    _mm_route_check(x, w, route)
+    _mm_route_check(x, w, route, torch.float32)
+    _mm_route_check(x, w, route, None,
+                    functools.partial(F.gelu, approximate="tanh"))
+
+
+def test_matmul_routes_agree(cuda):
+    """Every route that takes the operands gives the same product, each
+    counted on its own route; a route that does not take them raises
+    before any launch."""
+    from repro_torch.kernels.matmul_dma import matmul_ref
+    x = _randn((48, 1000), torch.bfloat16, cuda, 46)
+    w = _mm_weight(1000, 264, "n-major", cuda, 47)
+    assert MM.routes(x, w) == ("wgmma_small_m", "wgmma", "mma_sync")
+    want = matmul_ref(x, w, torch.float32)
+    for name in MM.routes(x, w):
+        before = MM.launches_by_route[name]
+        got = MM.matmul_cuda(x, w, torch.float32, kernel_route=name)
+        assert MM.launches_by_route[name] == before + 1
+        assert _rel_err(got, want) < TOL[torch.float32]
+    before = dict(MM.launches_by_route)
+    with pytest.raises(ValueError, match="route"):
+        MM.matmul_cuda(x, w, kernel_route="fp32")
+    with pytest.raises(ValueError, match="route"):
+        MM.matmul_cuda(x[:, 1:], w[1:], kernel_route="wgmma")
+    assert MM.launches_by_route == before
 
 
 def test_matmul_refusals_raise_before_launch(cuda):
