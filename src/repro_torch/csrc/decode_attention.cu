@@ -29,7 +29,9 @@
 // rows in one coalesced request, U rows of k and v per lane in flight and
 // the next U prefetched while the current ones are used.  Each lane group
 // keeps its own (m, l, acc) and a dot product is a shuffle reduction over
-// its LPR lanes.  Only live keys are visited, so no mask is needed.
+// its LPR lanes.  Only live keys are visited, so no mask is needed.  The
+// softcap's tanh and the softmax's exponentials are built from ex2 and
+// rcp, a few instructions a score.
 //
 // Merge, in the same launch (one launch a call: the decode step is
 // host-bound).  The partial softmaxes of a block are merged through shared
@@ -50,6 +52,26 @@ constexpr int THREADS = 256;
 constexpr int NW = THREADS / 32;
 constexpr int MAX_GB = 8;  // q heads a block holds in registers
 constexpr float NEG_INF = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
+
+// exp and tanh of the hot loop from ex2 and rcp (relative error about
+// 1e-7, inside the fp32 tolerance): a few instructions a score where the
+// library's expf and tanhf take tens.
+__device__ __forceinline__ float ex2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+__device__ __forceinline__ float exp_fast(float x) {
+  return ex2_approx(x * LOG2E);
+}
+__device__ __forceinline__ float tanh_fast(float x) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;\n"
+      : "=f"(r)
+      : "f"(1.f + ex2_approx(2.f * LOG2E * x)));
+  return 1.f - 2.f * r;
+}
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) {
@@ -149,6 +171,7 @@ __global__ void __launch_bounds__(THREADS)
 
   const T* kb = k + (size_t)bh * S * D;
   const T* vb = v + (size_t)bh * S * D;
+  const float inv_cap = softcap > 0.f ? 1.f / softcap : 0.f;
   const size_t q_row0 = (size_t)bh * G + (size_t)hb * GB;
 
   float qr[GB][EPL], acc[GB][EPL], m[GB], l[GB];
@@ -195,7 +218,7 @@ __global__ void __launch_bounds__(THREADS)
         for (int off = R::LPR / 2; off > 0; off >>= 1)
           part_dot += __shfl_xor_sync(0xffffffffu, part_dot, off);
         float x = part_dot * scale;  // fp32 dot, then scale, then cap
-        if (softcap > 0.f) x = softcap * tanhf(x / softcap);
+        if (softcap > 0.f) x = softcap * tanh_fast(x * inv_cap);
         s[g][u] = x;
       }
     }
@@ -206,13 +229,13 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
       for (int u = 0; u < U; ++u)
         if (base + u * RPW + grp < k1) mx = fmaxf(mx, s[g][u]);
-      const float alpha = expf(m[g] - mx);
+      const float alpha = exp_fast(m[g] - mx);
       l[g] *= alpha;
 #pragma unroll
       for (int e = 0; e < EPL; ++e) acc[g][e] *= alpha;
 #pragma unroll
       for (int u = 0; u < U; ++u) {
-        p[g][u] = base + u * RPW + grp < k1 ? expf(s[g][u] - mx) : 0.f;
+        p[g][u] = base + u * RPW + grp < k1 ? exp_fast(s[g][u] - mx) : 0.f;
         l[g] += p[g][u];
       }
       m[g] = mx;
