@@ -18,8 +18,9 @@
 //
 // Design.  The TPU kernel walks the keys of one (b, kv head) as a
 // sequential grid axis.  Here the grid is (B·Hkv·G/GB, SPLITS): each block
-// holds GB ≤ 8 q heads of one kv head in registers (G 16 is two blocks of
-// 8 that read the same keys, the second mostly from L2) and takes one
+// holds GB ≤ 8 q heads of one kv head in registers (the host's
+// `heads_per_block`; G 16 is two blocks of 8 that read the same keys, the
+// second mostly from L2) and takes one
 // SPLITS-th of the live keys [lo, kv_len), its slice computed on the card
 // from kv_len, so a decode loop's split never depends on a host read.
 // SPLITS is fixed by the host from the cache's capacity and the SM count
@@ -50,7 +51,6 @@ namespace {
 
 constexpr int THREADS = 256;
 constexpr int NW = THREADS / 32;
-constexpr int MAX_GB = 8;  // q heads a block holds in registers
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 
@@ -330,7 +330,7 @@ struct Args {
   const void *q, *k, *v;
   void* o;
   const int* kv_len_dev;
-  int kv_len_host, B, Hkv, G, S, window, splits;
+  int kv_len_host, B, Hkv, G, GB, S, window, splits;
   float scale, softcap;
   float* part;
   int* counters;
@@ -354,10 +354,11 @@ cudaError_t launch(const Args& a) {
   return cudaGetLastError();
 }
 
-// Heads a block holds: G itself up to 8, else 8 (G a multiple of 8).
+// The q heads a block holds in registers, GB, divides G.
 template <typename T, int D>
 cudaError_t dispatch_g(const Args& a) {
-  switch (a.G <= MAX_GB ? a.G : (a.G % MAX_GB == 0 ? MAX_GB : 0)) {
+  if (a.GB <= 0 || a.G % a.GB != 0) return cudaErrorInvalidValue;
+  switch (a.GB) {
     case 1: return launch<T, D, 1>(a);
     case 2: return launch<T, D, 2>(a);
     case 4: return launch<T, D, 4>(a);
@@ -389,20 +390,24 @@ const char* repro_cuda_error_string(int err) {
 // q (B, Hq, D), k/v (B, Hkv, S, D), o (B, Hq, D), all contiguous with
 // 16-byte-aligned bases.  kv_len_dev, when not null, points to one int32
 // on the card and takes the place of kv_len_host.  dtype: 0 = float32,
-// 1 = bfloat16.  splits: key slices a (b, kv head); with splits > 1,
-// `part` holds B·Hq·splits·(D + 2) floats of scratch and `counters`
-// B·Hkv·(G/GB) int32 that are 0 (and are left 0).  Returns a cudaError_t.
+// 1 = bfloat16.  heads_per_block (GB): q heads a block holds, 1, 2, 4,
+// 5, 6 or 8, dividing G = Hq / Hkv; splits: key slices a (b, kv head);
+// with splits > 1, `part` holds B·Hq·splits·(D + 2) floats of scratch and
+// `counters` B·Hkv·(G/GB) int32 that are 0 (and are left 0).  Returns a
+// cudaError_t.
 int decode_attention_fwd(const void* q, const void* k, const void* v, void* o,
                          const void* kv_len_dev, int kv_len_host, int B,
                          int Hq, int Hkv, int S, int D, int dtype, int window,
-                         float scale, float softcap, int splits, void* part,
-                         void* counters, void* stream) {
+                         float scale, float softcap, int heads_per_block,
+                         int splits, void* part, void* counters,
+                         void* stream) {
   if (B <= 0 || S <= 0 || Hkv <= 0 || Hq % Hkv != 0 || splits < 1 ||
-      splits > 65535 || (splits > 1 && (part == nullptr || counters == nullptr)))
+      splits > 65535 ||
+      (splits > 1 && (part == nullptr || counters == nullptr)))
     return cudaErrorInvalidValue;
   const Args a{q, k, v, o, static_cast<const int*>(kv_len_dev), kv_len_host,
-               B, Hkv, Hq / Hkv, S, window, splits, scale, softcap,
-               static_cast<float*>(part), static_cast<int*>(counters),
+               B, Hkv, Hq / Hkv, heads_per_block, S, window, splits, scale,
+               softcap, static_cast<float*>(part), static_cast<int*>(counters),
                static_cast<cudaStream_t>(stream)};
   if (dtype == 0) return dispatch_d<float>(a, D);
   if (dtype == 1) return dispatch_d<__nv_bfloat16>(a, D);

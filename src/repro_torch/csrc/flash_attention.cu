@@ -400,8 +400,8 @@ __global__ void __launch_bounds__(THREADS, D == 64 ? 2 : 1)
     for (int kk = 0; kk < D / 16; ++kk) {
       const uint32_t off_q = (kk / 4) * Q_BLK + (kk % 4) * 32;
       const uint32_t off_k = (kk / 4) * KV_BLK + (kk % 4) * 32;
-      wgmma_m64n64k16_ss(s, desc_sw128(q_desc_base + off_q, 16, 1024),
-                         desc_sw128(k_base + off_k, 16, 1024), 1);
+      wgmma_ss<0, 0>(s, desc_sw128(q_desc_base + off_q, 16, 1024),
+                     desc_sw128(k_base + off_k, 16, 1024), 1);
     }
     wgmma_commit();
     wgmma_wait<0>();

@@ -325,13 +325,6 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[128], uint64_t desc_a,
 }
 
 
-__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32],
-                                                   uint64_t desc_a,
-                                                   uint64_t desc_b,
-                                                   int scale_d) {
-  wgmma_ss<0, 0>(d, desc_a, desc_b, scale_d);
-}
-
 // D (64 x 64, fp32) += A (64 x 16, bf16 in registers) · B (16 x 64); B in
 // shared memory through a descriptor, MN-major (the transpose bit set).
 __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],

@@ -102,28 +102,11 @@ struct Params {
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
 
-// The epilogue on the fp32 sum, in torch's own fp32 formulas.
-__device__ __forceinline__ float epilogue(float v, int code, float factor) {
-  switch (code) {
-    case EPI_RELU:
-      return v <= 0.f ? 0.f : v;  // NaN stays NaN, as in torch.relu
-    case EPI_SILU:
-      return v / (1.f + expf(-v));
-    case EPI_GELU_TANH: {
-      const float beta = 0.7978845608028654f, kappa = 0.044715f;
-      return 0.5f * v * (1.f + tanhf(beta * (v + kappa * v * v * v)));
-    }
-    case EPI_SCALE:
-      return v * factor;
-    default:
-      return v;
-  }
-}
-
-// The same epilogues chosen at compile time, for the wgmma route's
-// unrolled stores, with tanh and the logistic from ex2 and rcp (relative
-// error about 1e-7, far inside both tolerances), so that the code of a
-// tile's 128 outputs a thread stays small.
+// The epilogue on the fp32 sum, in torch's fp32 formulas, with tanh and
+// the logistic from ex2 and rcp (relative error about 1e-7, far inside
+// both tolerances).  EPI is fixed at compile time where a kernel's stores
+// are unrolled, so that their code stays small (the wgmma route's 128
+// outputs a thread); `epilogue` picks it at run time.
 __device__ __forceinline__ float ex2_approx(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
@@ -138,7 +121,7 @@ __device__ __forceinline__ float rcp_approx(float x) {
 template <int EPI>
 __device__ __forceinline__ float epilogue_of(float v, float factor) {
   constexpr float LOG2E = 1.4426950408889634f;
-  if (EPI == EPI_RELU) return v <= 0.f ? 0.f : v;
+  if (EPI == EPI_RELU) return v <= 0.f ? 0.f : v;  // NaN stays NaN
   if (EPI == EPI_SILU) return v * rcp_approx(1.f + ex2_approx(-v * LOG2E));
   if (EPI == EPI_GELU_TANH) {
     const float beta = 0.7978845608028654f, kappa = 0.044715f;
@@ -148,6 +131,16 @@ __device__ __forceinline__ float epilogue_of(float v, float factor) {
   }
   if (EPI == EPI_SCALE) return v * factor;
   return v;
+}
+
+__device__ __forceinline__ float epilogue(float v, int code, float factor) {
+  switch (code) {
+    case EPI_RELU: return epilogue_of<EPI_RELU>(v, factor);
+    case EPI_SILU: return epilogue_of<EPI_SILU>(v, factor);
+    case EPI_GELU_TANH: return epilogue_of<EPI_GELU_TANH>(v, factor);
+    case EPI_SCALE: return epilogue_of<EPI_SCALE>(v, factor);
+    default: return v;
+  }
 }
 
 // Store out[m, n] and out[m, n + 1] (n even; m, n inside), the output

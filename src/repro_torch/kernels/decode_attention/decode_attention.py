@@ -82,7 +82,7 @@ def _lib() -> ctypes.CDLL:
     if fn.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [P, P, P, P, P, I, I, I, I, I, I, I, I,
-                       ctypes.c_float, ctypes.c_float, I, P, P, P]
+                       ctypes.c_float, ctypes.c_float, I, I, P, P, P]
         fn.restype = I
     return lib
 
@@ -123,7 +123,8 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         kv_host = int(kv_len)
     q, k, v = (runtime.aligned16(t) for t in (q, k, v))
     out = torch.empty_like(q)
-    blocks = B * Hkv * (G // heads_per_block(G))
+    per_block = heads_per_block(G)
+    blocks = B * Hkv * (G // per_block)
     splits = num_splits(blocks, S, _sm_count(q.device.index))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     part = counters = None
@@ -135,7 +136,7 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         err = lib.decode_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             kv_ptr, kv_host, B, Hq, Hkv, S, D, code, int(window),
-            float(scale), float(softcap), splits,
+            float(scale), float(softcap), per_block, splits,
             None if part is None else part.data_ptr(),
             None if counters is None else counters.data_ptr(), stream)
     runtime.check(lib, err, "decode_attention")
