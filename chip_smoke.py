@@ -480,12 +480,14 @@ def phase_kernels(fa, da):
                         library_ms=None if flex is None
                         else turns["flex_attention"][0])
         del q, k, v
-    # the GQA groups of the configs still to port, at their head_dim over
-    # a 4,640-row cache: hymba-1.5b (25 / 5, D 64), qwen2.5-32b (40 / 8,
-    # D 128), internlm2-20b (48 / 8, D 128), chatglm3-6b (32 / 2, D 128),
-    # and G 16 at D 256
-    for hq, hkv, d, w in ((25, 5, 64, 1024), (40, 8, 128, 0), (48, 8, 128, 0),
-                          (32, 2, 128, 0), (16, 1, 256, 4096)):
+    # the GQA groups of the configs still to port, each at every head_dim
+    # over a 4,640-row cache; at their own head_dim with their own heads:
+    # hymba-1.5b (25 / 5, D 64), qwen2.5-32b (40 / 8, D 128),
+    # internlm2-20b (48 / 8, D 128), chatglm3-6b (32 / 2, D 128)
+    for hq, hkv, d, w in ((25, 5, 64, 1024), (40, 8, 128, 0), (20, 4, 256, 0),
+                          (24, 4, 64, 0), (48, 8, 128, 0), (12, 2, 256, 4096),
+                          (16, 1, 64, 0), (32, 2, 128, 0),
+                          (16, 1, 256, 4096)):
         for dtype in ("bfloat16", "float32"):
             q = randn((B, hq, d), dtype)
             k, v = randn((B, hkv, MAX_LEN, d), dtype), \
