@@ -13,7 +13,8 @@ lines tagged with its name:
                decode attention, the SSD scan, the Init and copy engines,
                the matmul), one `nvcc` each for sm_90a, started together;
                the flash and matmul libraries' SASS (`cuobjdump -sass`)
-               must hold wgmma (`HGMMA`) and TMA loads (`UTMALDG`);
+               must hold wgmma (`HGMMA`) and TMA loads (`UTMALDG`), the
+               copy and Init libraries' the bulk copy (`UBLKCP`);
   3. kernels — each CUDA kernel against its plain PyTorch version on the
                card (tolerance relative to max|plain|: 2e-2 bf16, 1e-4
                fp32; for flash attention, each output row's error against
@@ -44,9 +45,14 @@ lines tagged with its name:
                the card; then the Init and copy kernels at real sizes
                from gemma2-2b and mamba2-1.3b (2.4 GB casts and fills, the
                SSD input's strided view) and small edge cases in every
-               dtype, bit for bit against their plain versions; the five
-               launch counters, set to 0 first, must equal the calls
-               made; then kernel, plain and library times;
+               dtype (the bulk routes' chunk and buffer edges among
+               them), bit for bit against their plain versions, each
+               real size's route printed and the bf16 copy and the
+               memset on route "bulk"; the five launch counters, set to
+               0 first, must equal the calls made, and the copy's and
+               memset's counters by route sum to theirs; then each
+               kernel and its library call by device time in turns (5
+               rounds, median and spread), and the plain version;
   5. matmul  — the blocked matmul through `repro_torch.kernels.matmul_dma.
                matmul`, the entry point a user calls, at the served
                models' real GEMM shapes (gemma2-2b's FFN gate with its
@@ -122,26 +128,40 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+def device_ms(fn, iters: int = 20, warmup: int = 3, tries: int = 5
+              ) -> float:
     """Mean milliseconds of device time per call: the time of the kernels
     the call launches, from torch.profiler, without the host's time to
     launch them, which CUDA events around back-to-back calls show once a
-    call's kernels take less time than its launch."""
+    call's kernels take less time than its launch.  The profiler now and
+    then drops kernel records: one of a session's 20, or all of them in a
+    session where it requests a new activity buffer (runs AI, AJ).  So
+    each kernel counts as its mean recorded time times its launches a
+    call (the nearest whole number to its records over the calls), and a
+    session with no device record is taken again, `tries` times at
+    most."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA)
-    if total <= 0:
-        raise RuntimeError("the profiler recorded no device time")
-    return total / 1e3 / iters
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        records = prof.key_averages()
+        total = sum(e.self_device_time_total / e.count *
+                    max(1, round(e.count / iters)) for e in records
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and e.count)
+        if total > 0:
+            return total / 1e3
+    seen = [(e.key[:60], e.count) for e in records if e.count]
+    raise RuntimeError(f"the profiler recorded no device time for {iters} "
+                       f"calls in {tries} sessions; the last one's records: "
+                       f"{seen}")
 
 
 def in_turns(fns, rounds: int = 5):
@@ -151,7 +171,10 @@ def in_turns(fns, rounds: int = 5):
     times = {name: [] for name in fns}
     for r in range(rounds):
         for name in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
-            times[name].append(device_ms(fns[name]))
+            try:
+                times[name].append(device_ms(fns[name]))
+            except RuntimeError as e:
+                raise RuntimeError(f"{name}, round {r}: {e}") from None
     return {name: (statistics.median(t), min(t), max(t))
             for name, t in times.items()}
 
@@ -232,18 +255,22 @@ def phase_build():
     log(f"[build] {', '.join(n + '.cu' for n in sources)} for sm_90a in "
         f"{time.perf_counter() - t0:.1f} s")
     # flash's bf16 route and matmul's wgmma routes must run on wgmma fed
-    # by TMA
-    for name in ("flash_attention", "matmul_dma"):
+    # by TMA, the copy and Init engines' bulk routes on the TMA's bulk
+    # copies
+    for name, ops in (("flash_attention", ("HGMMA", "UTMALDG")),
+                      ("matmul_dma", ("HGMMA", "UTMALDG")),
+                      ("copy_engine", ("UBLKCP",)),
+                      ("init_engine", ("UBLKCP",))):
         sass = subprocess.run(
             [runtime.cuda_tool("cuobjdump"), "-sass",
              str(runtime.library_path(name))],
             capture_output=True, text=True, timeout=300, check=True).stdout
         counts = {op: sum(op in line for line in sass.splitlines())
-                  for op in ("HGMMA", "UTMALDG")}
+                  for op in ops}
         log(f"[build] {name} SASS: " +
             ", ".join(f"{n} {op}" for op, n in counts.items()))
         if not all(counts.values()):
-            raise AssertionError(f"{name} SASS lacks wgmma or TMA: {counts}")
+            raise AssertionError(f"{name} SASS lacks one of {ops}: {counts}")
 
 
 def expected_launches(cfg, steps: int):
@@ -651,7 +678,8 @@ def dma_plane():
 def dma_cases(dev):
     """Real sizes from the two served models: (label, kernel, input
     maker, kernel call, plain call, library call or None, bytes read +
-    written, flops).  Inputs are made on `dev` when asked for."""
+    written, flops, the route the call must take or None where the kernel
+    has one).  Inputs are made on `dev` when asked for."""
     import functools
     import torch
     from repro_torch.core import instream
@@ -676,29 +704,29 @@ def dma_cases(dev):
     kv, idx, start = (3860480, 256), (16384, 16384), 1 << 20
     n_idx = idx[0] * idx[1]
     return [
-        ("copy_2d cast bf16 -> f32 (256000, 2304)", "copy_2d", table,
-         lambda x: copy_2d(x, up, f32), lambda x: copy_2d_ref(x, up, f32),
-         lambda x: x.to(f32), 256000 * 2304 * (2 + 4), 0),
         ("copy_2d bf16 (256000, 2304)", "copy_2d", table,
          lambda x: copy_2d(x), lambda x: copy_2d_ref(x),
-         lambda x: x.clone(), 256000 * 2304 * 4, 0),
+         lambda x: x.clone(), 256000 * 2304 * 4, 0, "bulk"),
+        ("copy_2d cast bf16 -> f32 (256000, 2304)", "copy_2d", table,
+         lambda x: copy_2d(x, up, f32), lambda x: copy_2d_ref(x, up, f32),
+         lambda x: x.to(f32), 256000 * 2304 * (2 + 4), 0, "convert"),
         ("strided_copy_nd f32 (4, 64, 4608, 64) of (4, 4608, 4352)",
          "strided_copy_nd", ssm_x, strided_copy_nd, strided_copy_nd_ref,
-         lambda x: x.contiguous(), 2 * 4 * 64 * 4608 * 64 * 4, 0),
+         lambda x: x.contiguous(), 2 * 4 * 64 * 4608 * 64 * 4, 0, None),
         ("memset 0 bf16 (3860480, 256)", "memset", lambda: None,
          lambda _: memset(kv, 0, bf16, dev),
          lambda _: memset_ref(kv, 0, bf16, dev),
          lambda _: torch.zeros(kv, dtype=bf16, device=dev),
-         kv[0] * kv[1] * 2, 0),
+         kv[0] * kv[1] * 2, 0, "bulk"),
         ("iota_fill int32 (16384, 16384)", "iota_fill", lambda: None,
          lambda _: iota_fill(idx, start, i32, dev),
          lambda _: iota_fill_ref(idx, start, i32, dev),
          lambda _: torch.arange(start, start + n_idx, dtype=i32,
-                                device=dev).view(idx), n_idx * 4, 0),
+                                device=dev).view(idx), n_idx * 4, 0, None),
         ("prng_fill f32 (256000, 2304)", "prng_fill", lambda: None,
          lambda _: prng_fill((256000, 2304), 7, f32, dev),
          lambda _: prng_fill_ref((256000, 2304), 7, f32, dev), None,
-         256000 * 2304 * 4, 0),
+         256000 * 2304 * 4, 0, None),
     ]
 
 
@@ -706,7 +734,8 @@ def dma_edge_cases(dev):
     """Small cases, (label, kernel, kernel call, plain call): every dtype
     the Pallas kernels take at (8, 128), (100, 300) and (256, 512); views
     one element past an aligned base, transposed 5-D views, expanded
-    (stride 0) views, a 1-D input; the fused transforms."""
+    (stride 0) views, a 1-D input; the fused transforms; the bulk routes
+    at their chunk's and buffer's edges."""
     import functools
     import torch
     from repro_torch.core import instream
@@ -777,6 +806,28 @@ def dma_edge_cases(dev):
                               "copy_2d",
                               functools.partial(copy_2d, x, cast, to),
                               functools.partial(copy_2d_ref, x, cast, to)))
+    # the bulk routes below their size threshold: a chunk or buffer ± 16
+    # bytes, ragged tails
+    ce = importlib.import_module("repro_torch.kernels.copy_engine."
+                                 "copy_engine")
+    ie = importlib.import_module("repro_torch.kernels.init_engine."
+                                 "init_engine")
+    for n in (7, 16, ce.BULK_STAGE_BYTES - 16, ce.BULK_STAGE_BYTES + 16,
+              3 * ce.BULK_STAGE_BYTES + 48):
+        x = rand((1, n), torch.int8)
+        cases.append((f"copy_2d bulk {n} B", "copy_2d",
+                      functools.partial(ce.copy_2d_cuda, x,
+                                        kernel_route="bulk"),
+                      functools.partial(copy_2d_ref, x)))
+    for n in (3, 8, ie.FILL_BUFFER_BYTES // 2 + 8,
+              3 * ie.FILL_BUFFER_BYTES // 2 + 27):
+        shape = (1, n)
+        cases.append((f"memset bulk -0.0 bf16 {shape}", "memset",
+                      functools.partial(ie.memset_cuda, shape, -0.0,
+                                        torch.bfloat16, dev,
+                                        kernel_route="bulk"),
+                      functools.partial(memset_ref, shape, -0.0,
+                                        torch.bfloat16, dev)))
     base = rand((4, 6, 5, 8, 12), torch.float32)
     shifted = rand((11521,), torch.bfloat16)[1:].view(4, 6, 5, 8, 12)
     for label, v in (
@@ -792,6 +843,12 @@ def dma_edge_cases(dev):
                       functools.partial(strided_copy_nd, v),
                       functools.partial(strided_copy_nd_ref, v)))
     return cases
+
+
+def by_route(mods):
+    """The copy_2d and memset launch counters by route, by kernel."""
+    return {"copy_2d": mods["copy_2d"].copy_2d_launches_by_route,
+            "memset": mods["memset"].memset_launches_by_route}
 
 
 def bits_equal(got, want) -> bool:
@@ -817,6 +874,8 @@ def phase_dma(mods):
                                                  estimate_plan_cycles)
     from repro_torch.kernels.init_engine import prng_fill
     reset(mods, DMA_KERNELS)
+    for routes in by_route(mods).values():
+        routes.update(dict.fromkeys(routes, 0))
     calls = dict.fromkeys(DMA_KERNELS, 0)
     engine = dma_plane()
 
@@ -849,17 +908,25 @@ def phase_dma(mods):
     log("[dma] Init PSEUDORANDOM 4096 B, value 42: engine bytes == "
         "prng_fill((8, 128), 42, uint32) on the card")
 
-    # real sizes, then edge cases: kernel == plain, bit for bit
+    # real sizes, then edge cases: kernel == plain, bit for bit; each real
+    # copy_2d and memset call on its route, by the counters by route
     real = []
     dev = torch.device("cuda")
-    for label, name, make, kern, plain, lib, nbytes, flops in dma_cases(dev):
+    for case in dma_cases(dev):
+        label, name, make, kern, plain, lib, nbytes, flops, want = case
         x = make()
+        routes = by_route(mods).get(name, {})
+        before = dict(routes)
         got = kern(x)
         calls[name] += 1
+        took = [r for r in routes if routes[r] != before[r]]
+        log(f"[dma] {label}: route {', '.join(took) or 'its one kernel'}")
+        if want is not None and took != [want]:
+            raise AssertionError(f"{label}: took routes {took}, not {want}")
         if not bits_equal(got, plain(x)):
             raise AssertionError(f"{label}: kernel != plain version")
         del got
-        real.append((label, name, make, kern, plain, lib, nbytes, flops))
+        real.append(case)
         torch.cuda.empty_cache()
     edge = dma_edge_cases(dev)
     for label, name, kern, plain in edge:
@@ -870,23 +937,36 @@ def phase_dma(mods):
     counts = read(mods, DMA_KERNELS)
     if counts != calls:
         raise AssertionError(f"dma launches {counts}, calls made {calls}")
+    for name, routes in by_route(mods).items():
+        if sum(routes.values()) != counts[name]:
+            raise AssertionError(f"{name} launches by route {routes}, "
+                                 f"launches {counts[name]}")
     log(f"[dma] {len(real)} real-size and {len(edge)} small cases bit for "
         f"bit against the plain versions; launches "
         + ", ".join(f"{k} {v}" for k, v in counts.items()) +
-        " (= the calls made)")
+        " (= the calls made); by route " +
+        "; ".join(f"{k} {v}" for k, v in by_route(mods).items()))
 
-    # timing, after the count: CUDA events, after warm-up
+    # timing, after the count: device time from the profiler, the kernel
+    # and its library call in turns
     entries = {}
-    for label, name, make, kern, plain, lib, nbytes, flops in real:
+    for label, name, make, kern, plain, lib, nbytes, flops, _ in real:
         x = make()
-        ms = time_ms(lambda: kern(x))
-        plain_ms = time_ms(lambda: plain(x), iters=3, warmup=1)
-        lib_ms = None if lib is None else time_ms(lambda: lib(x))
+        fns = {"kernel": lambda: kern(x)}
+        if lib is not None:
+            fns["library"] = lambda: lib(x)
+        turns = in_turns(fns, rounds=5)
+        ms = turns["kernel"][0]
+        lib_ms = turns["library"][0] if lib is not None else None
+        plain_ms = device_ms(lambda: plain(x), iters=3, warmup=1)
         b_ms, b_by = bound(flops, nbytes, "float32")
-        log(f"[dma] {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"library {'null' if lib_ms is None else f'{lib_ms:.4f} ms'}, "
-            f"bound {b_ms:.4f} ms ({b_by}, {nbytes / 1e9:.3f} GB), "
-            f"{nbytes / ms / 1e6:.0f} GB/s")
+        spread = ", ".join(f"{n} {m:.4f} ({lo:.4f}-{hi:.4f})"
+                           for n, (m, lo, hi) in turns.items())
+        log(f"[dma] {label}: device ms in turns, median (min-max) of 5: "
+            f"{spread}; plain {plain_ms:.4f} ms; bound {b_ms:.4f} ms "
+            f"({b_by}, {nbytes / 1e9:.3f} GB), kernel {b_ms / ms:.1%} of "
+            f"it" + (f", {ms / lib_ms:.3f}x the library"
+                     if lib_ms is not None else ""))
         if name not in entries:
             entries[name] = dict(
                 name=name, route="cuda",

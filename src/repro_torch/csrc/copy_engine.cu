@@ -1,6 +1,6 @@
-// The iDMA transport layer's copy kernels for Hopper (sm_90a): a 2-D copy
-// with a fused element transform, and the N-D strided gather that
-// materialises any view.
+// The iDMA transport layer's copy kernels for Hopper (sm_90a): a dense copy
+// on the TMA's bulk-copy engine, a 2-D copy with a fused element transform,
+// and the N-D strided gather that materialises any view.
 //
 // Replaces: src/repro/kernels/copy_engine/copy_engine.py — copy_2d_pallas
 //   (_copy_kernel, the pl.pallas_call at :176) and strided_copy_nd_pallas
@@ -10,18 +10,44 @@
 // element o in row-major order, from the input element at
 //   offset(o) = Σ_d index_d(o) · stride_d
 // over the input's shape and element strides (stride 0 for an expanded
-// dimension).  copy_gather moves the bytes unchanged; copy_convert loads
-// a float32, bfloat16 or float16 element, multiplies it by `factor` in
-// fp32 and rounds once, to nearest even, into the output's type (the
-// in-stream `cast` and `scale` transforms); copy_zero writes zeros (the
-// `zero` transform).
+// dimension).  copy_bulk and copy_gather move the bytes unchanged;
+// copy_convert loads a float32, bfloat16 or float16 element, multiplies it
+// by `factor` in fp32 and rounds once, to nearest even, into the output's
+// type (the in-stream `cast` and `scale` transforms); copy_zero writes
+// zeros (the `zero` transform).
 //
 // What bounds it on an H100: each element is read once and written once
 // with no arithmetic to speak of, so the bytes moved (3.35 TB/s).
 //
 // Design.  The TPU kernels walk legalized VMEM tiles from a TilePlan.
-// Here the host first merges dimensions that are contiguous with each
-// other and drops unit ones, so a dense input is one dimension, then
+//
+// copy_bulk takes an input that is one dense run with 16-byte-aligned
+// source and destination (the host chooses it: copy_engine.route).  It is
+// the paper's back-end on this card's own DMA engine, the TMA's non-tensor
+// bulk copies.  The run is cut in BULK_STAGE_BYTES chunks and each block
+// copies BULK_CHUNKS_PER_BLOCK consecutive ones; one thread of the block is
+// read and write manager: it keeps BULK_LEAD chunk loads in flight into a
+// ring of BULK_STAGES stages in shared memory, each completing on its
+// stage's mbarrier, stores each chunk back with one bulk store once its
+// load has landed, loads a stage again only once its store has read it
+// (wait_group.read), and leaves after every store has completed
+// (wait_group 0).  The last block's threads copy the tail under 16 bytes.
+// Nothing passes through registers.
+//
+// The shape kept, by timing (PERF.md §6, PR 17): one 16 KB chunk a block,
+// one stage, a grid as large as the chunks (73,728 blocks for gemma2-2b's
+// 1.18 GB table), and 72 KB of shared memory a block, so an SM holds 3
+// blocks.  The SM's block slots are then the ring, 48 KB in flight an SM,
+// and the hardware hands blocks out in order, so the bytes in flight sweep
+// the run front to back.  More in flight is slower (13 blocks an SM by 2%),
+// and so is a persistent grid of one block an SM, each owning one span
+// through an 8-stage ring (by 4-6%: 132 spans far apart keep 132 streams
+// open in device memory at once).  What bounds it is the bytes moved; it
+// runs at about 91% of the data sheet's 3.35 TB/s, level with the driver's
+// device-to-device copy.
+//
+// The other routes.  The host merges dimensions that are contiguous with
+// each other and drops unit ones, so a dense input is one dimension, then
 // widens the unit moved to the largest of 16, 8, 4, 2 bytes that the
 // innermost run, every other stride and the base address allow.  One
 // thread per output unit, in a grid-stride loop, so a warp's stores are
@@ -37,6 +63,27 @@
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
+
+// The bulk route's chunks and ring.  Each may be set at build time to time
+// another shape of it (tools/kernel_versus.py copy --alt-source "<this
+// file> -DBULK_CHUNKS_PER_BLOCK=546 -DBULK_STAGES=8").
+#ifndef BULK_STAGE_BYTES        // a chunk, one bulk load and one bulk store
+#define BULK_STAGE_BYTES 16384
+#endif
+#ifndef BULK_CHUNKS_PER_BLOCK   // consecutive chunks a block copies
+#define BULK_CHUNKS_PER_BLOCK 1
+#endif
+#ifndef BULK_STAGES             // the block's ring of chunk buffers
+#define BULK_STAGES 1
+#endif
+#ifndef BULK_LEAD               // chunk loads issued ahead of the store
+#define BULK_LEAD (BULK_STAGES - 1)
+#endif
+#ifndef BULK_RESERVE_BYTES      // shared memory a block takes at least, which
+#define BULK_RESERVE_BYTES 73728  // caps the blocks an SM holds: 3 at 72 KB
+#endif
 
 namespace {
 
@@ -194,9 +241,7 @@ convert_strided(const typename In::Raw* __restrict__ x,
 }
 
 int grid_for(int64_t work) {
-  int dev = 0, sms = 132;
-  if (cudaGetDevice(&dev) == cudaSuccess)
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int sms = hopper::sm_count() > 0 ? hopper::sm_count() : 132;
   const int64_t blocks = (work + THREADS - 1) / THREADS;
   const int64_t cap = (int64_t)sms * 16;
   return (int)(blocks < 1 ? 1 : (blocks < cap ? blocks : cap));
@@ -275,6 +320,89 @@ cudaError_t convert_to(int out_code, const void* src, void* dst, int64_t n,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The bulk route: one dense, 16-byte-aligned run on the TMA's bulk copies
+// ---------------------------------------------------------------------------
+
+namespace bulk {
+
+using namespace hopper;
+
+constexpr int STAGES = BULK_STAGES;
+constexpr int STAGE_BYTES = BULK_STAGE_BYTES;
+constexpr int64_t PER_BLOCK = BULK_CHUNKS_PER_BLOCK;
+constexpr int LEAD = BULK_LEAD;
+constexpr int PENDING = STAGES - 1 - LEAD;     // stores reading at a reload
+constexpr int THREADS = 32;
+constexpr int RING = STAGES * STAGE_BYTES + STAGES * 8;
+constexpr int SMEM = RING > BULK_RESERVE_BYTES ? RING : BULK_RESERVE_BYTES;
+static_assert(PER_BLOCK >= 1 && LEAD >= 0 && PENDING >= 0,
+              "BULK_LEAD is 0 to BULK_STAGES - 1");
+static_assert(STAGE_BYTES % 128 == 0 && STAGE_BYTES < (1 << 20),
+              "a stage is whole 128-byte lines under the mbarrier's limit");
+
+// `body` bytes (a multiple of 16) by bulk copies, block b taking chunks
+// b·PER_BLOCK onwards, then the tail up to `nbytes` by the last block's
+// threads.
+__global__ void __launch_bounds__(THREADS)
+copy_kernel(const uint8_t* __restrict__ src, uint8_t* __restrict__ dst,
+            int64_t body, int64_t nbytes) {
+  extern __shared__ __align__(128) uint8_t ring[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + STAGES * STAGE_BYTES);
+  if (blockIdx.x == gridDim.x - 1)
+    for (int64_t b = body + threadIdx.x; b < nbytes; b += THREADS)
+      dst[b] = src[b];
+  if (threadIdx.x != 0) return;
+  const int64_t chunks = (body + STAGE_BYTES - 1) / STAGE_BYTES;
+  const int64_t c0 = (int64_t)blockIdx.x * PER_BLOCK;
+  const int64_t n = chunks - c0 < PER_BLOCK ? chunks - c0 : PER_BLOCK;
+  for (int s = 0; s < STAGES; ++s) mbar_init(&full[s], 1);
+  mbar_fence_init();
+  // Iteration i loads chunk i and stores chunk i - LEAD.  Before the load
+  // reuses stage i % STAGES, the store of chunk i - STAGES must have read
+  // it: of the stores issued so far (up to chunk i - 1 - LEAD) the last
+  // PENDING may still be reading.
+  for (int64_t i = 0; i < n + LEAD; ++i) {
+    if (i < n) {
+      const int s = (int)(i % STAGES);
+      if (i >= STAGES) bulk_wait_read<PENDING>();
+      const int64_t off = (c0 + i) * STAGE_BYTES;
+      const uint32_t bytes =
+          (uint32_t)(body - off < STAGE_BYTES ? body - off : STAGE_BYTES);
+      mbar_arrive_expect_tx(&full[s], bytes);
+      bulk_load(ring + s * STAGE_BYTES, src + off, bytes, &full[s]);
+    }
+    if (i >= LEAD) {
+      const int64_t j = i - LEAD;
+      const int s = (int)(j % STAGES);
+      const int64_t off = (c0 + j) * STAGE_BYTES;
+      const uint32_t bytes =
+          (uint32_t)(body - off < STAGE_BYTES ? body - off : STAGE_BYTES);
+      mbar_wait(&full[s], (uint32_t)(j / STAGES) & 1u);
+      bulk_store(dst + off, ring + s * STAGE_BYTES, bytes);
+      bulk_commit();
+    }
+  }
+  bulk_wait<0>();
+}
+
+cudaError_t launch_copy(const void* src, void* dst, int64_t nbytes,
+                        cudaStream_t stream) {
+  const int64_t body = nbytes & ~int64_t(15);
+  const int64_t chunks = (body + STAGE_BYTES - 1) / STAGE_BYTES;
+  const int64_t blocks = (chunks + PER_BLOCK - 1) / PER_BLOCK;
+  if (blocks >= (int64_t(1) << 31)) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      copy_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (err != cudaSuccess) return err;
+  copy_kernel<<<(unsigned)(blocks < 1 ? 1 : blocks), THREADS, SMEM,
+                stream>>>(static_cast<const uint8_t*>(src),
+                          static_cast<uint8_t*>(dst), body, nbytes);
+  return cudaGetLastError();
+}
+
+}  // namespace bulk
+
 }  // namespace
 
 extern "C" {
@@ -286,6 +414,18 @@ const char* repro_cuda_error_string(int err) {
 // Each writes a contiguous output on `stream` and returns a cudaError_t.
 // shape and strides are outermost first, at most 8 dimensions, strides
 // non-negative.
+
+// Copies `nbytes` bytes from src to dst, both 16-byte aligned and not
+// overlapping, on the bulk route.
+int copy_bulk(const void* src, void* dst, int64_t nbytes, void* stream) {
+  if (nbytes < 0) return cudaErrorInvalidValue;
+  if (nbytes == 0) return cudaSuccess;
+  if (reinterpret_cast<uintptr_t>(src) % 16 ||
+      reinterpret_cast<uintptr_t>(dst) % 16)
+    return cudaErrorMisalignedAddress;
+  return bulk::launch_copy(src, dst, nbytes,
+                           static_cast<cudaStream_t>(stream));
+}
 
 // Moves units of `unit` bytes (1, 2, 4, 8 or 16); shape and strides count
 // units; src and dst are aligned to the unit.

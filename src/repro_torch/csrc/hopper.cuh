@@ -3,7 +3,9 @@
 // wait, the 2-D and 3-D TMA tile loads, the register budget of a
 // warpgroup (setmaxnreg), the wgmma shared-memory descriptor for the
 // 128-byte swizzle, wgmma fence / commit / wait and the wgmma shapes used,
-// and the host-side tensor map.
+// and the host-side tensor map; and, for the copy and Init engines, the
+// TMA's non-tensor bulk copies (load, store, bulk groups, proxy fence) and
+// the cached SM count.
 //
 // Layout convention.  A TMA box whose inner extent is 64 bf16 (128 bytes)
 // lands in shared memory with the 128-byte swizzle: row r of the box is
@@ -115,6 +117,61 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1)
       : "memory");
+}
+
+// ---- non-tensor bulk copies (the TMA as a DMA engine) ----
+//
+// One thread moves a run of bytes between global and shared memory.  A
+// load's completion is counted on an mbarrier (its bytes announced by
+// mbar_arrive_expect_tx); stores are tracked in bulk groups of the issuing
+// thread (commit, then wait).
+
+// Global → shared.  Both addresses 16-byte aligned, `bytes` a multiple of
+// 16; the bytes announced for one mbarrier phase stay under 2^20.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Shared → global, into this thread's open bulk group.  Both addresses
+// 16-byte aligned, `bytes` a multiple of 16.
+__device__ __forceinline__ void bulk_store(void* dst, const void* src,
+                                           uint32_t bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+          reinterpret_cast<uint64_t>(dst)),
+      "r"(smem_u32(src)), "r"(bytes)
+      : "memory");
+}
+
+// Closes the open bulk group (no alignment rule: it moves nothing).
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Until at most N of this thread's bulk groups still read their shared
+// source (N an immediate; then that shared memory may be written again).
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// Until at most N of this thread's bulk groups are incomplete: with N = 0
+// every store is visible in global memory (N an immediate).
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Orders this thread's plain shared-memory writes before the async proxy
+// (a bulk store) reads them; barrier the block after it.  No alignment
+// rule: it moves nothing.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // ---- register budget of a warpgroup (every warp of it executes these) ----
@@ -436,6 +493,21 @@ __device__ __forceinline__ void wgmma_m64n256k16_rs(float (&d)[128],
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
         "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// ---- host ----
+
+// The current device's SM count, read once a device and cached (0 on an
+// error).
+inline int sm_count() {
+  static int cached[64] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
+  if (cached[dev] == 0 &&
+      cudaDeviceGetAttribute(&cached[dev], cudaDevAttrMultiProcessorCount,
+                             dev) != cudaSuccess)
+    cached[dev] = 0;
+  return cached[dev];
 }
 
 // ---- host: tensor maps ----

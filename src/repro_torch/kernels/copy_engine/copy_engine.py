@@ -9,14 +9,17 @@ is the reference's, in NumPy: `plan_nd_copy` gives the `TilePlan`,
 `plan_descriptor_batch` its HBM→VMEM descriptor stream,
 `estimate_plan_cycles` costs it on the cycle model and
 `copy_2d_reference` runs it through the functional back-end, byte for
-byte.  The kernels are free of the TPU tile geometry: a grid-stride walk
-of the output, the view's strides for the read and an in-stream transform
-(`cast`, `scale`, `zero`) fused into the store.
+byte.  The kernels are free of the TPU tile geometry.  A dense copy
+takes the card's own DMA engine, the TMA's bulk copies (route "bulk");
+any other view a grid-stride walk of the output with the view's strides
+for the read ("gather"), and an in-stream transform (`cast`, `scale`,
+`zero`) its own kernel fused into the store ("convert", "zero").
 
 `check_copy_2d` and `check_strided_copy_nd` hold the Pallas kernels'
-host-side refusals and run on any device, so the CPU tests reach them.
-`copy_2d_launches` and `strided_copy_nd_launches` count this module's
-kernel launches.
+host-side refusals, and `routes` chooses `copy_2d`'s kernel; they run on
+any device, so the CPU tests reach them.  `copy_2d_launches` and
+`strided_copy_nd_launches` count this module's kernel launches,
+`copy_2d_launches_by_route` the first by route.
 """
 
 from __future__ import annotations
@@ -39,8 +42,15 @@ from repro_torch.core.spec import (VMEM_ENDPOINT, BackendSpec, EngineSpec,
 from repro_torch.kernels import runtime
 
 SOURCE = "copy_engine"
+#: copy_2d's kernel routes (`routes`)
+ROUTES = ("bulk", "gather", "convert", "zero")
 copy_2d_launches = 0
+copy_2d_launches_by_route = dict.fromkeys(ROUTES, 0)
 strided_copy_nd_launches = 0
+#: fewest bytes a dense copy takes the bulk route for
+BULK_MIN_BYTES = 1 << 24
+#: the bulk route's chunk, `BULK_STAGE_BYTES` of csrc/copy_engine.cu
+BULK_STAGE_BYTES = 16384
 
 
 #: VMEM as a transport-layer endpoint for plan estimates: on-chip, deep
@@ -262,15 +272,43 @@ def gather_geometry(x: torch.Tensor) -> Tuple[List[int], List[int], int]:
     return shape, strides, e
 
 
+def routes(x: torch.Tensor, op: str = "copy",
+           address: Optional[int] = None) -> Tuple[str, ...]:
+    """The kernel routes that take `copy_2d`'s op ("copy", "zero" or
+    "convert", from `check_copy_2d`) on x, the chosen one first.  A copy
+    whose collapsed view is one dense run at a 16-byte-aligned base
+    (`address`, x.data_ptr() unless given) takes "bulk" from
+    `BULK_MIN_BYTES` on and may below; any other copy "gather"; a
+    transform its own kernel.  The output is a fresh tensor, 16-byte
+    aligned."""
+    if op != "copy":
+        return (op,)
+    shape, strides = collapse(x.shape, x.stride())
+    nbytes = x.numel() * x.element_size()
+    base = x.data_ptr() if address is None else address
+    if nbytes == 0 or len(shape) != 1 or strides[0] != 1 or base % 16:
+        return ("gather",)
+    return ("bulk", "gather") if nbytes >= BULK_MIN_BYTES else \
+        ("gather", "bulk")
+
+
+def route(x: torch.Tensor, op: str = "copy",
+          address: Optional[int] = None) -> str:
+    """The route `copy_2d_cuda` takes for x and op."""
+    return routes(x, op, address)[0]
+
+
 def _lib() -> ctypes.CDLL:
     lib = runtime.load(SOURCE)
     if lib.copy_gather.argtypes is None:
         P, I, L, F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
                       ctypes.c_float)
+        lib.copy_bulk.argtypes = [P, P, L, P]
         lib.copy_gather.argtypes = [P, P, I, P, P, I, P]
         lib.copy_zero.argtypes = [P, L, P]
         lib.copy_convert.argtypes = [P, P, I, P, P, I, I, F, P]
-        for fn in (lib.copy_gather, lib.copy_zero, lib.copy_convert):
+        for fn in (lib.copy_bulk, lib.copy_gather, lib.copy_zero,
+                   lib.copy_convert):
             fn.restype = I
     return lib
 
@@ -292,21 +330,32 @@ def _on_card(x: torch.Tensor, what: str) -> None:
 
 
 def copy_2d_cuda(x: torch.Tensor, transform: Optional[Callable] = None,
-                 out_dtype=None) -> torch.Tensor:
+                 out_dtype=None, kernel_route: Optional[str] = None
+                 ) -> torch.Tensor:
     """`transform(x)` into a new row-major (rows, cols) tensor of
-    `out_dtype or x.dtype`; x is any 2-D view on the card."""
+    `out_dtype or x.dtype`; x is any 2-D view on the card.
+    `kernel_route` names one of `routes(x, op)` in place of the chosen
+    one, to test and time the routes; any other raises `ValueError`."""
     global copy_2d_launches
     _on_card(x, "copy_2d_cuda")
     op, out, factor = check_copy_2d(x, transform, out_dtype)
+    allowed = routes(x, op)
+    chosen = kernel_route or allowed[0]
+    if chosen not in allowed:
+        raise ValueError(f"copy_2d route {chosen!r} does not take this "
+                         f"input; routes {allowed}")
     y = torch.empty(tuple(x.shape), dtype=out, device=x.device)
     if y.numel() == 0:
         return y
     lib = _lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        if op == "copy":
+        if chosen == "bulk":
+            err = lib.copy_bulk(x.data_ptr(), y.data_ptr(),
+                                y.numel() * y.element_size(), stream)
+        elif chosen == "gather":
             err = _gather(lib, x, y, stream)
-        elif op == "zero":
+        elif chosen == "zero":
             err = lib.copy_zero(y.data_ptr(), y.numel() * y.element_size(),
                                 stream)
         else:
@@ -315,8 +364,9 @@ def copy_2d_cuda(x: torch.Tensor, transform: Optional[Callable] = None,
                                    _int64s(shape), _int64s(strides),
                                    FLOAT_CODES[x.dtype], FLOAT_CODES[out],
                                    factor, stream)
-    runtime.check(lib, err, "copy_2d")
+    runtime.check(lib, err, f"copy_2d ({chosen})")
     copy_2d_launches += 1
+    copy_2d_launches_by_route[chosen] += 1
     return y
 
 

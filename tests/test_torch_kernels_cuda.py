@@ -32,6 +32,7 @@ from repro_torch.kernels.flash_attention import attention_ref, flash_attention
 from repro_torch.kernels.init_engine import (iota_fill, iota_fill_ref,
                                              memset, memset_ref, prng_fill,
                                              prng_fill_ref)
+from repro_torch.kernels import runtime
 from repro_torch.kernels.ssd import ssd, ssd_chunked_ref, ssd_ref
 
 pytestmark = pytest.mark.cuda
@@ -442,6 +443,131 @@ def test_copy_2d_cast_above_2_31_bytes(cuda):
     assert _bits_equal(copy_2d(x), copy_2d_ref(x))
 
 
+# The bulk routes (the TMA's bulk copies): byte counts around a chunk and a
+# block's span (forced onto the route below its size threshold), every
+# dtype on the route chosen, views it must refuse, sizes past 2^31 bytes
+
+SB = CE.BULK_STAGE_BYTES
+FB = IE.FILL_BUFFER_BYTES
+# ≥ 16 and 64 MiB (the two routes' thresholds) in every dtype, ragged
+# 16-byte tails
+ROWS, COLS = 4097, 4099
+FILL_ROWS, FILL_COLS = 8193, 8195
+
+
+def _route_count(counts, route, before):
+    """One launch more than `before`, on `route`."""
+    return counts[route] == before[route] + 1 and \
+        sum(counts.values()) == sum(before.values()) + 1
+
+
+@pytest.mark.parametrize("nbytes", [7, 16, SB - 16, SB + 16, 3 * SB + 48,
+                                    16 * 1000 + 7, 2000 * SB + 48])
+def test_copy_bulk_byte_counts(cuda, nbytes):
+    """One chunk or less, a chunk ± 16 bytes, ragged tails, and a copy
+    whose blocks each take more chunks than the ring has stages."""
+    x = _any((1, nbytes), torch.int8, cuda, 30)
+    before = dict(CE.copy_2d_launches_by_route)
+    got = CE.copy_2d_cuda(x, kernel_route="bulk")
+    assert _route_count(CE.copy_2d_launches_by_route, "bulk", before)
+    assert _bits_equal(got, copy_2d_ref(x))
+
+
+def test_copy_bulk_zero_bytes_writes_nothing(cuda):
+    x = torch.ones(64, dtype=torch.uint8, device=cuda)
+    y = torch.zeros(64, dtype=torch.uint8, device=cuda)
+    lib = CE._lib()
+    err = lib.copy_bulk(x.data_ptr(), y.data_ptr(), 0,
+                        torch.cuda.current_stream().cuda_stream)
+    assert err == 0 and int(y.sum()) == 0
+
+
+@pytest.mark.parametrize("dtype", EVERY_DTYPE)
+def test_copy_bulk_every_dtype(cuda, dtype):
+    x = _any((ROWS, COLS), dtype, cuda, 31)
+    assert CE.route(x) == "bulk"
+    before = dict(CE.copy_2d_launches_by_route)
+    got = copy_2d(x)
+    assert _route_count(CE.copy_2d_launches_by_route, "bulk", before)
+    assert _bits_equal(got, copy_2d_ref(x))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
+                                   torch.int8])
+def test_copy_bulk_refuses_a_view_at_element_offset_1(cuda, dtype):
+    x = _any((ROWS * COLS + 1,), dtype, cuda, 32)[1:].view(ROWS, COLS)
+    assert CE.routes(x) == ("gather",)
+    with pytest.raises(ValueError, match="does not take"):
+        CE.copy_2d_cuda(x, kernel_route="bulk")
+    before = dict(CE.copy_2d_launches_by_route)
+    got = copy_2d(x)
+    assert _route_count(CE.copy_2d_launches_by_route, "gather", before)
+    assert _bits_equal(got, copy_2d_ref(x))
+
+
+def test_copy_bulk_above_2_31_bytes(cuda):
+    """2,147,581,953 bytes: chunk offsets past 2^31 and a 1-byte tail."""
+    x = _any((65537, 32769), torch.int8, cuda, 33)
+    before = dict(CE.copy_2d_launches_by_route)
+    got = copy_2d(x)
+    assert _route_count(CE.copy_2d_launches_by_route, "bulk", before)
+    assert _bits_equal(got, copy_2d_ref(x))
+
+
+def test_bulk_entries_refuse_unaligned_addresses(cuda):
+    """The C entries return an error, and the wrapper's check raises."""
+    x = torch.zeros(1024, dtype=torch.uint8, device=cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+    clib, ilib = CE._lib(), IE._lib()
+    for err in (clib.copy_bulk(x.data_ptr() + 1, x.data_ptr() + 512, 64,
+                               stream),
+                clib.copy_bulk(x.data_ptr(), x.data_ptr() + 520, 64, stream),
+                ilib.init_memset_bulk(x.data_ptr() + 4, 64, 0, stream)):
+        assert err != 0
+        with pytest.raises(RuntimeError, match="launch failed"):
+            runtime.check(clib, err, "bulk")
+
+
+MEMSET_PATTERNS = [(torch.bfloat16, -0.0), (torch.int8, 300),
+                   (torch.float32, 2.5)]
+MEMSET_BYTES = [16, FB - 16, FB + 16, 3 * FB + 48, 1056 * FB + 48,
+                16 * 1000 + 6, 16 * 1000 + 7, 6]
+
+
+@pytest.mark.parametrize("dtype,value,nbytes", [
+    (dt, v, n) for dt, v in MEMSET_PATTERNS for n in MEMSET_BYTES
+    if n % torch.empty((), dtype=dt).element_size() == 0])
+def test_memset_bulk_around_a_block_span(cuda, dtype, value, nbytes):
+    """Patterns whose bytes differ (bf16 −0.0 is 00 80, f32 2.5 00 00 20
+    40), a buffer ± 16 bytes, ragged tails, and blocks that each store
+    several buffers."""
+    shape = (1, nbytes // torch.empty((), dtype=dtype).element_size())
+    before = dict(IE.memset_launches_by_route)
+    got = IE.memset_cuda(shape, value, dtype, cuda, kernel_route="bulk")
+    assert _route_count(IE.memset_launches_by_route, "bulk", before)
+    assert _bits_equal(got, memset_ref(shape, value, dtype, cuda))
+
+
+@pytest.mark.parametrize("dtype", EVERY_DTYPE)
+def test_memset_bulk_every_dtype(cuda, dtype):
+    shape = (FILL_ROWS, FILL_COLS)
+    for value in (2.5, 300, -1, -0.0):
+        before = dict(IE.memset_launches_by_route)
+        got = memset(shape, value, dtype, cuda)
+        assert _route_count(IE.memset_launches_by_route, "bulk", before)
+        assert _bits_equal(got, memset_ref(shape, value, dtype, cuda))
+
+
+def test_memset_bulk_above_2_31_bytes(cuda):
+    """2,147,614,722 bytes of bf16 −0.0: offsets past 2^31, a 2-byte
+    tail."""
+    shape = (32769, 32769)
+    before = dict(IE.memset_launches_by_route)
+    got = memset(shape, -0.0, torch.bfloat16, cuda)
+    assert _route_count(IE.memset_launches_by_route, "bulk", before)
+    assert _bits_equal(got, memset_ref(shape, -0.0, torch.bfloat16, cuda))
+
+
 def _strided_views(dev):
     base = _any((4, 6, 5, 8, 12), torch.float32, dev, 22)
     shifted = _any((11521,), torch.bfloat16, dev, 23)[1:] \
@@ -528,6 +654,9 @@ def test_copy_and_init_never_reach_the_plain_version(cuda, monkeypatch):
     copy_2d(x, functools.partial(instream.scale, factor=2.0))
     strided_copy_nd(x.t())
     memset((8, 128), 1.0, torch.float32, cuda)
+    # the bulk routes
+    copy_2d(_randn((2048, 2048), torch.float32, cuda, 28))
+    memset((4096, 4096), 1.0, torch.float32, cuda)
     iota_fill((8, 128), 0, torch.int32, cuda)
     prng_fill((8, 128), 0, torch.float32)
 

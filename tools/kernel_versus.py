@@ -1,8 +1,10 @@
 """Time a port kernel against another build of its source, in turns, on the
-card (CUDA events around back-to-back calls, after warm-up).
+card.
 
     python3 tools/kernel_versus.py matmul [--alt-source PATH]
     python3 tools/kernel_versus.py decode --alt-source PATH
+    python3 tools/kernel_versus.py copy [--alt-source "PATH [-DNAME=V ...]"]...
+    python3 tools/kernel_versus.py memset [--alt-source "PATH [-D...]"]...
 
 matmul: the served models' bf16 GEMM shapes (gemma2-2b's FFN gate with its
 tanh-gelu and its FFN down, mamba2-1.3b's in_proj, over 4 x 4,608 prefill
@@ -14,9 +16,27 @@ cache, D 256, bf16, softcap 50) at kv_len 4,608, 4,097, 17 and 1, this
 build against --alt-source, a build of `csrc/decode_attention.cu` with the
 C entry of the port's first slices (one block per (b, kv head), no key
 splits: `git show 5a2c425:src/repro_torch/csrc/decode_attention.cu`), 5
-rounds.  Every output is checked against the plain version first.  Prints
-the card's name and power limit, then one line per shape: median (min-max)
-ms of each version.
+rounds.  Both by CUDA events around back-to-back calls, after warm-up.
+
+copy and memset: `chip_smoke.py`'s dma phase at its real sizes, and the
+bulk routes at 1, 8, 32 and 128 MiB (their size threshold), by device time
+(`torch.profiler`), 5 rounds in turns.  copy: the bf16 copy of gemma2-2b's
+embedding table (256,000 x 2,304) on routes bulk and gather and
+`x.clone()`, its cast to fp32 and `x.to(float32)`, mamba2-1.3b's SSD input
+view through `strided_copy_nd` and `x.contiguous()`.  memset: a
+(3,860,480, 256) bf16 zero fill on routes bulk and fill and `torch.zeros`,
+the (16,384, 16,384) int32 iota and `torch.arange`, the (256,000, 2,304)
+f32 prng.  First the kernels that `x.clone()` (copy) and `torch.zeros`
+(memset) run, by name, from the profiler.  Each --alt-source (repeatable)
+is a source built with its -D flags in the port's source in place, on
+every route whose C entry it exports: the parent's `copy_engine.cu` or
+`init_engine.cu`, this checkout's with another shape of its bulk kernel
+(-DBULK_RESERVE_BYTES=0), or `tools/dma_variants.cu`, the register-copy
+variants of the bulk routes.
+
+Every output is checked against the plain version first.  Prints the
+card's name and power limit, then one line per shape: median (min-max) ms
+of each version.
 """
 
 from __future__ import annotations
@@ -24,7 +44,9 @@ from __future__ import annotations
 import argparse
 import ctypes
 import functools
+import hashlib
 import importlib
+import shlex
 import statistics
 import subprocess
 import sys
@@ -32,6 +54,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT))
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -64,18 +87,29 @@ def rel_err(got, want) -> float:
                  want.float().abs().max())
 
 
-def build(source: str, name: str) -> ctypes.CDLL:
-    """nvcc `source` as the port's runtime builds a kernel, headers from
-    csrc/ and from the source's own directory."""
+def build(specs, name: str) -> list:
+    """nvcc each of `specs` (a source, then any -D flags) as the port's
+    runtime builds a kernel, headers from csrc/ and from the source's own
+    directory, all at once; their libraries in order."""
     from repro_torch.kernels import runtime
-    out = runtime.BUILD_DIR / f"lib{name}-versus.so"
-    out.parent.mkdir(parents=True, exist_ok=True)
-    subprocess.run([runtime.cuda_tool("nvcc"), *runtime.NVCC_FLAGS,
-                    f"-I{runtime.CSRC}", "-o", str(out), source], check=True)
-    lib = ctypes.CDLL(str(out))
-    lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.repro_cuda_error_string.restype = ctypes.c_char_p
-    return lib
+    runtime.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = []
+    for spec in specs:
+        source, *flags = shlex.split(spec)
+        tag = hashlib.sha1(spec.encode()).hexdigest()[:10]
+        out = runtime.BUILD_DIR / f"lib{name}-versus-{tag}.so"
+        jobs.append((out, subprocess.Popen(
+            [runtime.cuda_tool("nvcc"), *runtime.NVCC_FLAGS, *flags,
+             f"-I{runtime.CSRC}", "-o", str(out), source])))
+    libs = []
+    for out, proc in jobs:
+        if proc.wait() != 0:
+            raise RuntimeError(f"nvcc failed for {out.name}")
+        lib = ctypes.CDLL(str(out))
+        lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.repro_cuda_error_string.restype = ctypes.c_char_p
+        libs.append(lib)
+    return libs
 
 
 def matmul(alt_source) -> None:
@@ -88,7 +122,7 @@ def matmul(alt_source) -> None:
     ours = mm._lib
     alt = None
     if alt_source:
-        alt = build(alt_source, "matmul_dma")
+        alt = build([alt_source], "matmul_dma")[0]
         alt.matmul_fwd.argtypes = ours().matmul_fwd.argtypes
         alt.matmul_fwd.restype = ctypes.c_int
 
@@ -131,7 +165,7 @@ def decode(alt_source) -> None:
     from repro_torch.kernels.decode_attention import decode_attention_ref
     da = importlib.import_module(
         "repro_torch.kernels.decode_attention.decode_attention")
-    alt = build(alt_source, "decode_attention")
+    alt = build([alt_source], "decode_attention")[0]
     P, I = ctypes.c_void_p, ctypes.c_int
     alt.decode_attention_fwd.argtypes = [P, P, P, P, P, I, I, I, I, I, I, I,
                                          I, ctypes.c_float, ctypes.c_float, P]
@@ -165,13 +199,163 @@ def decode(alt_source) -> None:
               + in_turns(fns, 5), flush=True)
 
 
+def versus(module: str, cases, alts, entries) -> None:
+    """Each case (label, input, call(x, route), plain(x), library call or
+    None, routes) on every route of this build, of each alternative build
+    whose C entry for that route it exports (`entries`: route → entry
+    name), and the library call; outputs checked bit for bit, then device
+    time in turns."""
+    import torch
+    from chip_smoke import in_turns
+    mod = importlib.import_module(module)
+    ours = mod._lib
+    libs = dict(zip(alts, build(alts, module.rsplit(".", 1)[1])))
+    for lib in libs.values():
+        for entry in set(entries.values()):
+            if hasattr(lib, entry):
+                getattr(lib, entry).argtypes = getattr(ours(),
+                                                       entry).argtypes
+                getattr(lib, entry).restype = ctypes.c_int
+
+    def on(lib, fn):
+        def call():
+            mod._lib = lambda: lib
+            try:
+                return fn()
+            finally:
+                mod._lib = ours
+        return call
+
+    for label, x, kern, plain, library, routes in cases:
+        fns = {f"this {r}": functools.partial(kern, x, r) for r in routes}
+        for spec, lib in libs.items():
+            fns.update({f"{spec} {r}": on(lib, functools.partial(kern, x, r))
+                        for r in routes if hasattr(lib, entries[r])})
+        want = plain(x)
+        for name, fn in fns.items():
+            got = fn()
+            torch.cuda.synchronize()
+            if not torch.equal(got.view(torch.uint8), want.view(torch.uint8)):
+                raise AssertionError(f"{label}: {name} != plain version")
+            del got
+        del want
+        if library is not None:
+            fns["library"] = functools.partial(library, x)
+        turns = in_turns(fns, rounds=5)
+        print(f"{label}: device ms, median (min-max) of 5 in turns | " +
+              " | ".join(f"{n} {m:.4f} ({lo:.4f}-{hi:.4f})"
+                         for n, (m, lo, hi) in turns.items()), flush=True)
+        torch.cuda.empty_cache()
+
+
+def copy(alts) -> None:
+    import torch
+    from repro_torch.core import instream
+    from repro_torch.kernels.copy_engine import (copy_2d_ref,
+                                                 strided_copy_nd_ref)
+    ce = importlib.import_module("repro_torch.kernels.copy_engine."
+                                 "copy_engine")
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(3)
+    bf16, f32 = torch.bfloat16, torch.float32
+    table = torch.randn((256000, 2304), generator=gen, device=dev,
+                        dtype=bf16)
+    ssm = torch.randn((4, 4608, 4352), generator=gen, device=dev)[
+        ..., :4096].reshape(4, 4608, 64, 64).transpose(1, 2)
+    up = functools.partial(instream.cast, dtype=f32)
+    library_kernels("x.clone() of (256000, 2304) bf16", table.clone)
+
+    def dense(n):   # the table's first n bf16 values, as (n / 1024, 1024)
+        return table.view(-1)[:n].view(-1, 1024)
+
+    def cp(x, r):
+        return ce.copy_2d_cuda(x, kernel_route=r)
+
+    def clone(x):
+        return x.clone()
+
+    cases = [("copy bf16 (256000, 2304)", table, cp, copy_2d_ref, clone,
+              ("bulk", "gather"))]
+    cases += [(f"copy bf16 {tuple(dense(n).shape)}", dense(n), cp,
+               copy_2d_ref, clone, ("bulk", "gather"))
+              for n in (1 << 19, 1 << 22, 1 << 24, 1 << 26)]
+    cases += [
+        ("cast bf16 -> f32 (256000, 2304)", table,
+         lambda x, r: ce.copy_2d_cuda(x, up, f32, kernel_route=r),
+         lambda x: copy_2d_ref(x, up, f32), lambda x: x.to(f32),
+         ("convert",)),
+        ("strided_copy_nd f32 (4, 64, 4608, 64) of (4, 4608, 4352)", ssm,
+         lambda x, r: ce.strided_copy_nd_cuda(x), strided_copy_nd_ref,
+         lambda x: x.contiguous(), ("gather",))]
+    versus("repro_torch.kernels.copy_engine.copy_engine", cases, alts,
+           {"bulk": "copy_bulk", "gather": "copy_gather",
+            "convert": "copy_convert"})
+
+
+def library_kernels(label: str, fn) -> None:
+    """The device kernels (or driver copies and sets) a library call runs,
+    by name, with their device time, from the profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            fn()
+        torch.cuda.synchronize()
+    runs = [f"{e.key} x{e.count}, {e.self_device_time_total / 1e3 / 5:.4f} "
+            f"ms a call" for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    print(f"{label} runs on the card: " + ("; ".join(runs) or "nothing"),
+          flush=True)
+
+
+def memset(alts) -> None:
+    import torch
+    from repro_torch.kernels.init_engine import (iota_fill_ref, memset_ref,
+                                                 prng_fill_ref)
+    ie = importlib.import_module("repro_torch.kernels.init_engine."
+                                 "init_engine")
+    dev = torch.device("cuda")
+    bf16, f32, i32 = torch.bfloat16, torch.float32, torch.int32
+    kv, idx, start = (3860480, 256), (16384, 16384), 1 << 20
+    library_kernels("torch.zeros(3860480, 256, bf16)",
+                    lambda: torch.zeros(kv, dtype=bf16, device=dev))
+
+    def zeros(shape):
+        return (shape,
+                lambda s, r: ie.memset_cuda(s, 0, bf16, dev, kernel_route=r),
+                lambda s: memset_ref(s, 0, bf16, dev),
+                lambda s: torch.zeros(s, dtype=bf16, device=dev),
+                ("bulk", "fill"))
+
+    cases = [(f"memset 0 bf16 {s}", *zeros(s))
+             for s in (kv, (2048, 256), (16384, 256), (65536, 256),
+                       (262144, 256))]
+    cases += [
+        ("iota_fill int32 (16384, 16384)", idx,
+         lambda s, r: ie.iota_fill_cuda(s, start, i32, dev),
+         lambda s: iota_fill_ref(s, start, i32, dev),
+         lambda s: torch.arange(start, start + s[0] * s[1], dtype=i32,
+                                device=dev).view(s), ("iota",)),
+        ("prng_fill f32 (256000, 2304)", (256000, 2304),
+         lambda s, r: ie.prng_fill_cuda(s, 7, f32, dev),
+         lambda s: prng_fill_ref(s, 7, f32, dev), None, ("prng",))]
+    versus("repro_torch.kernels.init_engine.init_engine", cases, alts,
+           {"bulk": "init_memset_bulk", "fill": "init_memset",
+            "iota": "init_iota", "prng": "init_prng"})
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("kernel", choices=("matmul", "decode"))
-    ap.add_argument("--alt-source")
+    ap.add_argument("kernel", choices=("matmul", "decode", "copy", "memset"))
+    ap.add_argument("--alt-source", action="append", default=[])
     args = ap.parse_args()
     if args.kernel == "decode" and not args.alt_source:
         ap.error("decode needs --alt-source")
+    if args.kernel in ("matmul", "decode") and len(args.alt_source) > 1:
+        ap.error(f"{args.kernel} takes one --alt-source")
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("kernel_versus.py times kernels on the card")
@@ -179,7 +363,11 @@ def main() -> None:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
-    (matmul if args.kernel == "matmul" else decode)(args.alt_source)
+    if args.kernel in ("matmul", "decode"):
+        alt = args.alt_source[0] if args.alt_source else None
+        (matmul if args.kernel == "matmul" else decode)(alt)
+    else:
+        (copy if args.kernel == "copy" else memset)(args.alt_source)
 
 
 if __name__ == "__main__":
