@@ -14,7 +14,7 @@ lines tagged with its name:
                the matmul), one `nvcc` each for sm_90a, started together;
                the flash and matmul libraries' SASS (`cuobjdump -sass`)
                must hold wgmma (`HGMMA`) and TMA loads (`UTMALDG`), the
-               copy and Init libraries' the bulk copy (`UBLKCP`);
+               copy library's the bulk copy (`UBLKCP`);
   3. kernels — each CUDA kernel against its plain PyTorch version on the
                card (tolerance relative to max|plain|: 2e-2 bf16, 1e-4
                fp32; for flash attention, each output row's error against
@@ -45,14 +45,14 @@ lines tagged with its name:
                the card; then the Init and copy kernels at real sizes
                from gemma2-2b and mamba2-1.3b (2.4 GB casts and fills, the
                SSD input's strided view) and small edge cases in every
-               dtype (the bulk routes' chunk and buffer edges among
-               them), bit for bit against their plain versions, each
-               real size's route printed and the bf16 copy and the
-               memset on route "bulk"; the five launch counters, set to
-               0 first, must equal the calls made, and the copy's and
-               memset's counters by route sum to theirs; then each
-               kernel and its library call by device time in turns (5
-               rounds, median and spread), and the plain version;
+               dtype (the bulk copy's chunk edges and memset's block
+               edges among them), bit for bit against their plain
+               versions, each real copy's route printed and the bf16
+               copy on route "bulk"; the five launch counters, set to 0
+               first, must equal the calls made, and the copy's counters
+               by route sum to its own; then each kernel and its library
+               call by device time in turns (5 rounds, median and
+               spread), and the plain version;
   5. matmul  — the blocked matmul through `repro_torch.kernels.matmul_dma.
                matmul`, the entry point a user calls, at the served
                models' real GEMM shapes (gemma2-2b's FFN gate with its
@@ -137,8 +137,9 @@ def device_ms(fn, iters: int = 20, warmup: int = 3, tries: int = 5
     then drops kernel records: one of a session's 20, or all of them in a
     session where it requests a new activity buffer (runs AI, AJ).  So
     each kernel counts as its mean recorded time times its launches a
-    call (the nearest whole number to its records over the calls), and a
-    session with no device record is taken again, `tries` times at
+    call: the nearest whole number to its records over the calls, or
+    that ratio itself where it rounds to 0 (a kernel some calls launch).
+    A session with no device record is taken again, `tries` times at
     most."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -153,7 +154,8 @@ def device_ms(fn, iters: int = 20, warmup: int = 3, tries: int = 5
             torch.cuda.synchronize()
         records = prof.key_averages()
         total = sum(e.self_device_time_total / e.count *
-                    max(1, round(e.count / iters)) for e in records
+                    (round(e.count / iters) or e.count / iters)
+                    for e in records
                     if e.device_type == torch.autograd.DeviceType.CUDA
                     and e.count)
         if total > 0:
@@ -255,12 +257,10 @@ def phase_build():
     log(f"[build] {', '.join(n + '.cu' for n in sources)} for sm_90a in "
         f"{time.perf_counter() - t0:.1f} s")
     # flash's bf16 route and matmul's wgmma routes must run on wgmma fed
-    # by TMA, the copy and Init engines' bulk routes on the TMA's bulk
-    # copies
+    # by TMA, the copy engine's bulk route on the TMA's bulk copies
     for name, ops in (("flash_attention", ("HGMMA", "UTMALDG")),
                       ("matmul_dma", ("HGMMA", "UTMALDG")),
-                      ("copy_engine", ("UBLKCP",)),
-                      ("init_engine", ("UBLKCP",))):
+                      ("copy_engine", ("UBLKCP",))):
         sass = subprocess.run(
             [runtime.cuda_tool("cuobjdump"), "-sass",
              str(runtime.library_path(name))],
@@ -704,12 +704,12 @@ def dma_cases(dev):
     kv, idx, start = (3860480, 256), (16384, 16384), 1 << 20
     n_idx = idx[0] * idx[1]
     return [
-        ("copy_2d bf16 (256000, 2304)", "copy_2d", table,
-         lambda x: copy_2d(x), lambda x: copy_2d_ref(x),
-         lambda x: x.clone(), 256000 * 2304 * 4, 0, "bulk"),
         ("copy_2d cast bf16 -> f32 (256000, 2304)", "copy_2d", table,
          lambda x: copy_2d(x, up, f32), lambda x: copy_2d_ref(x, up, f32),
          lambda x: x.to(f32), 256000 * 2304 * (2 + 4), 0, "convert"),
+        ("copy_2d bf16 (256000, 2304)", "copy_2d", table,
+         lambda x: copy_2d(x), lambda x: copy_2d_ref(x),
+         lambda x: x.clone(), 256000 * 2304 * 4, 0, "bulk"),
         ("strided_copy_nd f32 (4, 64, 4608, 64) of (4, 4608, 4352)",
          "strided_copy_nd", ssm_x, strided_copy_nd, strided_copy_nd_ref,
          lambda x: x.contiguous(), 2 * 4 * 64 * 4608 * 64 * 4, 0, None),
@@ -717,7 +717,7 @@ def dma_cases(dev):
          lambda _: memset(kv, 0, bf16, dev),
          lambda _: memset_ref(kv, 0, bf16, dev),
          lambda _: torch.zeros(kv, dtype=bf16, device=dev),
-         kv[0] * kv[1] * 2, 0, "bulk"),
+         kv[0] * kv[1] * 2, 0, None),
         ("iota_fill int32 (16384, 16384)", "iota_fill", lambda: None,
          lambda _: iota_fill(idx, start, i32, dev),
          lambda _: iota_fill_ref(idx, start, i32, dev),
@@ -734,8 +734,8 @@ def dma_edge_cases(dev):
     """Small cases, (label, kernel, kernel call, plain call): every dtype
     the Pallas kernels take at (8, 128), (100, 300) and (256, 512); views
     one element past an aligned base, transposed 5-D views, expanded
-    (stride 0) views, a 1-D input; the fused transforms; the bulk routes
-    at their chunk's and buffer's edges."""
+    (stride 0) views, a 1-D input; the fused transforms; the bulk copy at
+    its chunk's edges, memset at a block's."""
     import functools
     import torch
     from repro_torch.core import instream
@@ -806,26 +806,22 @@ def dma_edge_cases(dev):
                               "copy_2d",
                               functools.partial(copy_2d, x, cast, to),
                               functools.partial(copy_2d_ref, x, cast, to)))
-    # the bulk routes below their size threshold: a chunk or buffer ± 16
-    # bytes, ragged tails
+    # the bulk copy below its size threshold, and memset: a chunk or a
+    # block's span (256 threads x 16 bytes) ± 16 bytes, ragged tails
     ce = importlib.import_module("repro_torch.kernels.copy_engine."
                                  "copy_engine")
-    ie = importlib.import_module("repro_torch.kernels.init_engine."
-                                 "init_engine")
-    for n in (7, 16, ce.BULK_STAGE_BYTES - 16, ce.BULK_STAGE_BYTES + 16,
-              3 * ce.BULK_STAGE_BYTES + 48):
+    for n in (7, 16, ce.BULK_CHUNK_BYTES - 16, ce.BULK_CHUNK_BYTES + 16,
+              3 * ce.BULK_CHUNK_BYTES + 48):
         x = rand((1, n), torch.int8)
         cases.append((f"copy_2d bulk {n} B", "copy_2d",
                       functools.partial(ce.copy_2d_cuda, x,
                                         kernel_route="bulk"),
                       functools.partial(copy_2d_ref, x)))
-    for n in (3, 8, ie.FILL_BUFFER_BYTES // 2 + 8,
-              3 * ie.FILL_BUFFER_BYTES // 2 + 27):
+    for n in (3, 8, 2048 - 8, 2048 + 8, 3 * 2048 + 27):
         shape = (1, n)
-        cases.append((f"memset bulk -0.0 bf16 {shape}", "memset",
-                      functools.partial(ie.memset_cuda, shape, -0.0,
-                                        torch.bfloat16, dev,
-                                        kernel_route="bulk"),
+        cases.append((f"memset -0.0 bf16 {shape}", "memset",
+                      functools.partial(memset, shape, -0.0,
+                                        torch.bfloat16, dev),
                       functools.partial(memset_ref, shape, -0.0,
                                         torch.bfloat16, dev)))
     base = rand((4, 6, 5, 8, 12), torch.float32)
@@ -846,9 +842,8 @@ def dma_edge_cases(dev):
 
 
 def by_route(mods):
-    """The copy_2d and memset launch counters by route, by kernel."""
-    return {"copy_2d": mods["copy_2d"].copy_2d_launches_by_route,
-            "memset": mods["memset"].memset_launches_by_route}
+    """The launch counters by route, by kernel: copy_2d's."""
+    return {"copy_2d": mods["copy_2d"].copy_2d_launches_by_route}
 
 
 def bits_equal(got, want) -> bool:
@@ -909,7 +904,7 @@ def phase_dma(mods):
         "prng_fill((8, 128), 42, uint32) on the card")
 
     # real sizes, then edge cases: kernel == plain, bit for bit; each real
-    # copy_2d and memset call on its route, by the counters by route
+    # copy_2d call on its route, by the counters by route
     real = []
     dev = torch.device("cuda")
     for case in dma_cases(dev):
@@ -937,7 +932,8 @@ def phase_dma(mods):
     counts = read(mods, DMA_KERNELS)
     if counts != calls:
         raise AssertionError(f"dma launches {counts}, calls made {calls}")
-    for name, routes in by_route(mods).items():
+    route_counts = {k: dict(v) for k, v in by_route(mods).items()}
+    for name, routes in route_counts.items():
         if sum(routes.values()) != counts[name]:
             raise AssertionError(f"{name} launches by route {routes}, "
                                  f"launches {counts[name]}")
@@ -945,12 +941,14 @@ def phase_dma(mods):
         f"bit against the plain versions; launches "
         + ", ".join(f"{k} {v}" for k, v in counts.items()) +
         " (= the calls made); by route " +
-        "; ".join(f"{k} {v}" for k, v in by_route(mods).items()))
+        "; ".join(f"{k} {v}" for k, v in route_counts.items()))
 
     # timing, after the count: device time from the profiler, the kernel
-    # and its library call in turns
+    # and its library call in turns; an entry for each kernel's first
+    # case, and one for the bf16 copy's bulk route ("copy_2d bulk", its
+    # launches those of that route)
     entries = {}
-    for label, name, make, kern, plain, lib, nbytes, flops, _ in real:
+    for label, name, make, kern, plain, lib, nbytes, flops, want in real:
         x = make()
         fns = {"kernel": lambda: kern(x)}
         if lib is not None:
@@ -967,11 +965,14 @@ def phase_dma(mods):
             f"({b_by}, {nbytes / 1e9:.3f} GB), kernel {b_ms / ms:.1%} of "
             f"it" + (f", {ms / lib_ms:.3f}x the library"
                      if lib_ms is not None else ""))
-        if name not in entries:
-            entries[name] = dict(
-                name=name, route="cuda",
+        key = name if name not in entries else f"{name} {want}"
+        if key not in entries:
+            entries[key] = dict(
+                name=key, route="cuda",
                 source=f"src/repro_torch/csrc/{KERNELS[name][2]}.cu",
-                replaces=KERNELS[name][3], launches=counts[name],
+                replaces=KERNELS[name][3],
+                launches=counts[name] if key == name else
+                route_counts[name][want],
                 max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=lib_ms)
         del x

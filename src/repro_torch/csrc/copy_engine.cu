@@ -24,26 +24,21 @@
 // copy_bulk takes an input that is one dense run with 16-byte-aligned
 // source and destination (the host chooses it: copy_engine.route).  It is
 // the paper's back-end on this card's own DMA engine, the TMA's non-tensor
-// bulk copies.  The run is cut in BULK_STAGE_BYTES chunks and each block
-// copies BULK_CHUNKS_PER_BLOCK consecutive ones; one thread of the block is
-// read and write manager: it keeps BULK_LEAD chunk loads in flight into a
-// ring of BULK_STAGES stages in shared memory, each completing on its
-// stage's mbarrier, stores each chunk back with one bulk store once its
-// load has landed, loads a stage again only once its store has read it
-// (wait_group.read), and leaves after every store has completed
+// bulk copies.  The run is cut in 16 KB chunks, one a block, the grid as
+// large as the chunks (73,728 blocks for gemma2-2b's 1.18 GB table).  One
+// thread of the block is read and write manager: it loads its chunk into
+// shared memory with one bulk load that completes on an mbarrier, stores
+// it back with one bulk store, and leaves once the store has completed
 // (wait_group 0).  The last block's threads copy the tail under 16 bytes.
-// Nothing passes through registers.
-//
-// The shape kept, by timing (PERF.md §6, PR 17): one 16 KB chunk a block,
-// one stage, a grid as large as the chunks (73,728 blocks for gemma2-2b's
-// 1.18 GB table), and 72 KB of shared memory a block, so an SM holds 3
-// blocks.  The SM's block slots are then the ring, 48 KB in flight an SM,
-// and the hardware hands blocks out in order, so the bytes in flight sweep
-// the run front to back.  More in flight is slower (13 blocks an SM by 2%),
-// and so is a persistent grid of one block an SM, each owning one span
-// through an 8-stage ring (by 4-6%: 132 spans far apart keep 132 streams
-// open in device memory at once).  What bounds it is the bytes moved; it
-// runs at about 91% of the data sheet's 3.35 TB/s, level with the driver's
+// Nothing passes through registers.  A block reserves 72 KB of shared
+// memory, so an SM holds 3 blocks: 48 KB in flight an SM, and the hardware
+// hands blocks out in order, so the bytes in flight sweep the run front to
+// back.  Timed in turns (PERF.md §6, PR 17): more blocks an SM are slower
+// (13 by 2%), and so is a persistent grid of one block an SM, each owning
+// one span through a ring of stages (by 4-6%), and a register copy at the
+// same 3 blocks an SM with 8 16-byte loads a thread in flight (by 0.3%;
+// tools/dma_variants.cu).  What bounds it is the bytes moved; it runs at
+// about 91% of the data sheet's 3.35 TB/s, level with the driver's
 // device-to-device copy.
 //
 // The other routes.  The host merges dimensions that are contiguous with
@@ -65,25 +60,6 @@
 #include <stdint.h>
 
 #include "hopper.cuh"
-
-// The bulk route's chunks and ring.  Each may be set at build time to time
-// another shape of it (tools/kernel_versus.py copy --alt-source "<this
-// file> -DBULK_CHUNKS_PER_BLOCK=546 -DBULK_STAGES=8").
-#ifndef BULK_STAGE_BYTES        // a chunk, one bulk load and one bulk store
-#define BULK_STAGE_BYTES 16384
-#endif
-#ifndef BULK_CHUNKS_PER_BLOCK   // consecutive chunks a block copies
-#define BULK_CHUNKS_PER_BLOCK 1
-#endif
-#ifndef BULK_STAGES             // the block's ring of chunk buffers
-#define BULK_STAGES 1
-#endif
-#ifndef BULK_LEAD               // chunk loads issued ahead of the store
-#define BULK_LEAD (BULK_STAGES - 1)
-#endif
-#ifndef BULK_RESERVE_BYTES      // shared memory a block takes at least, which
-#define BULK_RESERVE_BYTES 73728  // caps the blocks an SM holds: 3 at 72 KB
-#endif
 
 namespace {
 
@@ -328,74 +304,44 @@ namespace bulk {
 
 using namespace hopper;
 
-constexpr int STAGES = BULK_STAGES;
-constexpr int STAGE_BYTES = BULK_STAGE_BYTES;
-constexpr int64_t PER_BLOCK = BULK_CHUNKS_PER_BLOCK;
-constexpr int LEAD = BULK_LEAD;
-constexpr int PENDING = STAGES - 1 - LEAD;     // stores reading at a reload
+constexpr int CHUNK = 16384;     // a block's bytes: one bulk load, one store
+constexpr int RESERVE = 73728;   // shared memory a block takes: 3 an SM
 constexpr int THREADS = 32;
-constexpr int RING = STAGES * STAGE_BYTES + STAGES * 8;
-constexpr int SMEM = RING > BULK_RESERVE_BYTES ? RING : BULK_RESERVE_BYTES;
-static_assert(PER_BLOCK >= 1 && LEAD >= 0 && PENDING >= 0,
-              "BULK_LEAD is 0 to BULK_STAGES - 1");
-static_assert(STAGE_BYTES % 128 == 0 && STAGE_BYTES < (1 << 20),
-              "a stage is whole 128-byte lines under the mbarrier's limit");
+static_assert(CHUNK % 128 == 0 && CHUNK + 8 <= RESERVE,
+              "whole 128-byte lines and the mbarrier within the reserve");
 
-// `body` bytes (a multiple of 16) by bulk copies, block b taking chunks
-// b·PER_BLOCK onwards, then the tail up to `nbytes` by the last block's
-// threads.
+// `body` bytes (a multiple of 16) by bulk copies, block b taking the chunk
+// at b·CHUNK, then the tail up to `nbytes` by the last block's threads.
 __global__ void __launch_bounds__(THREADS)
 copy_kernel(const uint8_t* __restrict__ src, uint8_t* __restrict__ dst,
             int64_t body, int64_t nbytes) {
-  extern __shared__ __align__(128) uint8_t ring[];
-  uint64_t* full = reinterpret_cast<uint64_t*>(ring + STAGES * STAGE_BYTES);
+  extern __shared__ __align__(128) uint8_t buf[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(buf + CHUNK);
   if (blockIdx.x == gridDim.x - 1)
     for (int64_t b = body + threadIdx.x; b < nbytes; b += THREADS)
       dst[b] = src[b];
-  if (threadIdx.x != 0) return;
-  const int64_t chunks = (body + STAGE_BYTES - 1) / STAGE_BYTES;
-  const int64_t c0 = (int64_t)blockIdx.x * PER_BLOCK;
-  const int64_t n = chunks - c0 < PER_BLOCK ? chunks - c0 : PER_BLOCK;
-  for (int s = 0; s < STAGES; ++s) mbar_init(&full[s], 1);
+  const int64_t off = (int64_t)blockIdx.x * CHUNK;
+  if (threadIdx.x != 0 || off >= body) return;
+  const uint32_t bytes = (uint32_t)(body - off < CHUNK ? body - off : CHUNK);
+  mbar_init(full, 1);
   mbar_fence_init();
-  // Iteration i loads chunk i and stores chunk i - LEAD.  Before the load
-  // reuses stage i % STAGES, the store of chunk i - STAGES must have read
-  // it: of the stores issued so far (up to chunk i - 1 - LEAD) the last
-  // PENDING may still be reading.
-  for (int64_t i = 0; i < n + LEAD; ++i) {
-    if (i < n) {
-      const int s = (int)(i % STAGES);
-      if (i >= STAGES) bulk_wait_read<PENDING>();
-      const int64_t off = (c0 + i) * STAGE_BYTES;
-      const uint32_t bytes =
-          (uint32_t)(body - off < STAGE_BYTES ? body - off : STAGE_BYTES);
-      mbar_arrive_expect_tx(&full[s], bytes);
-      bulk_load(ring + s * STAGE_BYTES, src + off, bytes, &full[s]);
-    }
-    if (i >= LEAD) {
-      const int64_t j = i - LEAD;
-      const int s = (int)(j % STAGES);
-      const int64_t off = (c0 + j) * STAGE_BYTES;
-      const uint32_t bytes =
-          (uint32_t)(body - off < STAGE_BYTES ? body - off : STAGE_BYTES);
-      mbar_wait(&full[s], (uint32_t)(j / STAGES) & 1u);
-      bulk_store(dst + off, ring + s * STAGE_BYTES, bytes);
-      bulk_commit();
-    }
-  }
-  bulk_wait<0>();
+  mbar_arrive_expect_tx(full, bytes);
+  bulk_load(buf, src + off, bytes, full);
+  mbar_wait(full, 0);
+  bulk_store(dst + off, buf, bytes);
+  bulk_commit();
+  bulk_wait<0>();   // the store is in global memory before the block leaves
 }
 
 cudaError_t launch_copy(const void* src, void* dst, int64_t nbytes,
                         cudaStream_t stream) {
   const int64_t body = nbytes & ~int64_t(15);
-  const int64_t chunks = (body + STAGE_BYTES - 1) / STAGE_BYTES;
-  const int64_t blocks = (chunks + PER_BLOCK - 1) / PER_BLOCK;
+  const int64_t blocks = (body + CHUNK - 1) / CHUNK;
   if (blocks >= (int64_t(1) << 31)) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      copy_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+      copy_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, RESERVE);
   if (err != cudaSuccess) return err;
-  copy_kernel<<<(unsigned)(blocks < 1 ? 1 : blocks), THREADS, SMEM,
+  copy_kernel<<<(unsigned)(blocks < 1 ? 1 : blocks), THREADS, RESERVE,
                 stream>>>(static_cast<const uint8_t*>(src),
                           static_cast<uint8_t*>(dst), body, nbytes);
   return cudaGetLastError();

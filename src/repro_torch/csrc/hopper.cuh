@@ -4,8 +4,8 @@
 // warpgroup (setmaxnreg), the wgmma shared-memory descriptor for the
 // 128-byte swizzle, wgmma fence / commit / wait and the wgmma shapes used,
 // and the host-side tensor map; and, for the copy and Init engines, the
-// TMA's non-tensor bulk copies (load, store, bulk groups, proxy fence) and
-// the cached SM count.
+// TMA's non-tensor bulk copies (load, store, bulk groups) and the cached
+// SM count.
 //
 // Layout convention.  A TMA box whose inner extent is 64 bf16 (128 bytes)
 // lands in shared memory with the 128-byte swizzle: row r of the box is
@@ -153,25 +153,11 @@ __device__ __forceinline__ void bulk_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
 
-// Until at most N of this thread's bulk groups still read their shared
-// source (N an immediate; then that shared memory may be written again).
-template <int N>
-__device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
-}
-
 // Until at most N of this thread's bulk groups are incomplete: with N = 0
 // every store is visible in global memory (N an immediate).
 template <int N>
 __device__ __forceinline__ void bulk_wait() {
   asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Orders this thread's plain shared-memory writes before the async proxy
-// (a bulk store) reads them; barrier the block after it.  No alignment
-// rule: it moves nothing.
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // ---- register budget of a warpgroup (every warp of it executes these) ----

@@ -25,30 +25,21 @@
 // operations a word, stays far below the card's rate.
 //
 // Design.  The TPU kernels write one legalized VMEM tile per grid step.
+// Here a loop over 16-byte vectors (4 to 16 elements) with 64-bit element
+// indices writes the output front to back, so each warp stores 512
+// contiguous bytes; the last n mod V elements are written one by one.
+// The output is a fresh contiguous tensor; a base that is not 16-byte
+// aligned takes the element loop alone.  Every generator produces the raw
+// bits of its output dtype, so one kernel template serves all.
 //
-// memset's bulk route (init_memset_bulk; the host chooses it for a
-// 16-byte-aligned output: init_engine.memset_route) is the Init engine's
-// write side on the TMA's bulk copies.  The output is cut in
-// FILL_BUFFER_BYTES chunks and each block stores FILL_CHUNKS_PER_BLOCK
-// consecutive ones.  The block's threads fill a shared-memory buffer of
-// that size with the pattern, make the writes visible to the async proxy
-// (fence.proxy.async, then the barrier), and one thread stores the buffer
-// over each of its chunks with one bulk store, never reloading it, at
-// most 16 stores still reading it; the block leaves once every store has
-// completed.  The last block's threads write the tail under 16 bytes.
-// The shape kept, by timing (PERF.md §6, PR 17): one 16 KB chunk a block,
-// a grid as large as the chunks, and 56 KB of shared memory a block, so an
-// SM holds 3 blocks: the hardware hands blocks out in order, so the stores
-// sweep the output front to back, as `torch.zeros`'s fill kernel does; a
-// persistent grid over spans was 2% slower.  Bound by the bytes written.
-//
-// memset's fill route, iota and prng: a grid-stride loop over 16-byte
-// vectors (4 to 16 elements) with 64-bit element indices writes the output
-// front to back, so each warp stores 512 contiguous bytes; the last n mod V
-// elements are written one by one.  The output is a fresh contiguous
-// tensor; a base that is not 16-byte aligned takes the element loop alone.
-// Every generator produces the raw bits of its output dtype, so one kernel
-// template serves all.
+// memset launches a grid as large as the work, one vector a thread: the
+// hardware hands blocks out in order, so the stores sweep the output front
+// to back, as `torch.zeros`'s fill kernel does, and it times level with
+// that kernel.  Timed in turns (PERF.md §6, PR 17): the grid-stride loop
+// over at most 16 blocks an SM that iota and prng keep was 4% slower for
+// it; bulk stores (the TMA's) of a pattern buffer in shared memory were 2%
+// slower in a persistent grid and level with one 16 KB chunk a block, as
+// were 8 st.global.v4 stores a thread.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -56,19 +47,6 @@
 #include <stdint.h>
 
 #include "hopper.cuh"
-
-// memset's bulk route: its buffer and chunks.  Each may be set at build
-// time to time another shape of it (tools/kernel_versus.py memset
-// --alt-source "<this file> -DFILL_CHUNKS_PER_BLOCK=457").
-#ifndef FILL_BUFFER_BYTES       // the pattern buffer, one bulk store a chunk
-#define FILL_BUFFER_BYTES 16384
-#endif
-#ifndef FILL_CHUNKS_PER_BLOCK   // consecutive chunks a block stores
-#define FILL_CHUNKS_PER_BLOCK 1
-#endif
-#ifndef FILL_RESERVE_BYTES      // shared memory a block takes at least, which
-#define FILL_RESERVE_BYTES 57344  // caps the blocks an SM holds: 3 at 56 KB
-#endif
 
 namespace {
 
@@ -172,32 +150,34 @@ fill_kernel(U* __restrict__ out, int64_t n, Gen gen, bool vector) {
     out[e] = gen.template at<U>(e);
 }
 
-int grid_for(int64_t work) {
+// One thread a unit of work, capped at 16 blocks an SM unless `whole`
+// (then at the grid's limit; fill_kernel loops over what is left).
+int64_t grid_for(int64_t work, bool whole) {
   const int sms = hopper::sm_count() > 0 ? hopper::sm_count() : 132;
   const int64_t blocks = (work + THREADS - 1) / THREADS;
-  const int64_t cap = (int64_t)sms * 16;
-  return (int)(blocks < 1 ? 1 : (blocks < cap ? blocks : cap));
+  const int64_t cap = whole ? INT32_MAX : (int64_t)sms * 16;
+  return blocks < 1 ? 1 : (blocks < cap ? blocks : cap);
 }
 
 template <typename Gen>
-cudaError_t launch(void* out, int64_t n, int itemsize, Gen gen,
+cudaError_t launch(void* out, int64_t n, int itemsize, Gen gen, bool whole,
                    cudaStream_t stream) {
   if (n < 0) return cudaErrorInvalidValue;
   if (n == 0) return cudaSuccess;
   const bool vector = reinterpret_cast<uintptr_t>(out) % 16 == 0;
   const int64_t work = vector ? n / (16 / itemsize) + 16 : n;
-  const int grid = grid_for(work);
+  const int64_t grid = grid_for(work, whole);
   switch (itemsize) {
     case 1:
-      fill_kernel<uint8_t, Gen><<<grid, THREADS, 0, stream>>>(
+      fill_kernel<uint8_t, Gen><<<(unsigned)grid, THREADS, 0, stream>>>(
           static_cast<uint8_t*>(out), n, gen, vector);
       break;
     case 2:
-      fill_kernel<uint16_t, Gen><<<grid, THREADS, 0, stream>>>(
+      fill_kernel<uint16_t, Gen><<<(unsigned)grid, THREADS, 0, stream>>>(
           static_cast<uint16_t*>(out), n, gen, vector);
       break;
     case 4:
-      fill_kernel<uint32_t, Gen><<<grid, THREADS, 0, stream>>>(
+      fill_kernel<uint32_t, Gen><<<(unsigned)grid, THREADS, 0, stream>>>(
           static_cast<uint32_t*>(out), n, gen, vector);
       break;
     default:
@@ -205,70 +185,6 @@ cudaError_t launch(void* out, int64_t n, int itemsize, Gen gen,
   }
   return cudaGetLastError();
 }
-
-// ---------------------------------------------------------------------------
-// memset's bulk route: a pattern buffer in shared memory, bulk-stored
-// ---------------------------------------------------------------------------
-
-namespace bulk {
-
-using namespace hopper;
-
-constexpr int BUF = FILL_BUFFER_BYTES;
-constexpr int64_t PER_BLOCK = FILL_CHUNKS_PER_BLOCK;
-constexpr int PENDING = 16;   // stores still reading the buffer, at most
-constexpr int THREADS = 128;
-static_assert(BUF % 128 == 0 && BUF <= 48 * 1024 && PER_BLOCK >= 1,
-              "the buffer is whole 128-byte lines of static-size shared "
-              "memory");
-
-// `body` bytes (a multiple of 16) by bulk stores, block b taking chunks
-// b·PER_BLOCK onwards, then the tail up to `nbytes` by the last block's
-// threads; byte b of the output is byte b % 4 of `pattern` (the output is
-// 16-byte aligned, the element 1, 2 or 4 bytes).
-__global__ void __launch_bounds__(THREADS)
-memset_kernel(uint8_t* __restrict__ out, int64_t body, int64_t nbytes,
-              uint32_t pattern) {
-  __shared__ __align__(128) uint32_t buf[BUF / 4];
-  for (int i = threadIdx.x; i < BUF / 4; i += THREADS) buf[i] = pattern;
-  if (blockIdx.x == gridDim.x - 1)
-    for (int64_t b = body + threadIdx.x; b < nbytes; b += THREADS)
-      out[b] = (uint8_t)(pattern >> (8 * (b % 4)));
-  fence_proxy_async();
-  __syncthreads();
-  if (threadIdx.x != 0) return;
-  const int64_t chunks = (body + BUF - 1) / BUF;
-  const int64_t c0 = (int64_t)blockIdx.x * PER_BLOCK;
-  const int64_t c1 = chunks - c0 < PER_BLOCK ? chunks : c0 + PER_BLOCK;
-  for (int64_t c = c0; c < c1; ++c) {
-    const int64_t off = c * BUF;
-    const uint32_t bytes = (uint32_t)(body - off < BUF ? body - off : BUF);
-    bulk_store(out + off, buf, bytes);
-    bulk_commit();
-    bulk_wait_read<PENDING>();
-  }
-  bulk_wait<0>();
-}
-
-cudaError_t launch_memset(void* out, int64_t nbytes, uint32_t pattern,
-                          cudaStream_t stream) {
-  const int64_t body = nbytes & ~int64_t(15);
-  const int64_t chunks = (body + BUF - 1) / BUF;
-  const int64_t blocks = (chunks + PER_BLOCK - 1) / PER_BLOCK;
-  if (blocks >= (int64_t(1) << 31)) return cudaErrorInvalidValue;
-  constexpr int PAD = FILL_RESERVE_BYTES > BUF ? FILL_RESERVE_BYTES - BUF : 0;
-  if (PAD > 0) {
-    cudaError_t err = cudaFuncSetAttribute(
-        memset_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, PAD);
-    if (err != cudaSuccess) return err;
-  }
-  memset_kernel<<<(unsigned)(blocks < 1 ? 1 : blocks), THREADS, PAD,
-                  stream>>>(static_cast<uint8_t*>(out), body, nbytes,
-                            pattern);
-  return cudaGetLastError();
-}
-
-}  // namespace bulk
 
 }  // namespace
 
@@ -284,20 +200,8 @@ const char* repro_cuda_error_string(int err) {
 // `pattern` holds the value's bytes, repeated to fill 32 bits.
 int init_memset(void* out, int64_t n, int itemsize, uint32_t pattern,
                 void* stream) {
-  return launch(out, n, itemsize, MemsetGen{pattern},
+  return launch(out, n, itemsize, MemsetGen{pattern}, true,
                 static_cast<cudaStream_t>(stream));
-}
-
-// Fills `nbytes` bytes at `out`, 16-byte aligned, with the four bytes of
-// `pattern` repeated (the value's 1-, 2- or 4-byte pattern, as for
-// init_memset), on the bulk route.
-int init_memset_bulk(void* out, int64_t nbytes, uint32_t pattern,
-                     void* stream) {
-  if (nbytes < 0) return cudaErrorInvalidValue;
-  if (nbytes == 0) return cudaSuccess;
-  if (reinterpret_cast<uintptr_t>(out) % 16) return cudaErrorMisalignedAddress;
-  return bulk::launch_memset(out, nbytes, pattern,
-                             static_cast<cudaStream_t>(stream));
 }
 
 // `kind` is one of Kind and must fit `itemsize`.
@@ -306,7 +210,7 @@ int init_iota(void* out, int64_t n, int itemsize, uint32_t start, int kind,
   const int need[] = {1, 2, 4, 1, 4, 2, 2};
   if (kind < 0 || kind > F16 || need[kind] != itemsize)
     return cudaErrorInvalidValue;
-  return launch(out, n, itemsize, IotaGen{start, kind},
+  return launch(out, n, itemsize, IotaGen{start, kind}, false,
                 static_cast<cudaStream_t>(stream));
 }
 
@@ -316,7 +220,7 @@ int init_prng(void* out, int64_t n, int itemsize, uint32_t seed, int kind,
   const int need[] = {4, 4, 2, 1};
   if (kind < 0 || kind > 3 || need[kind] != itemsize)
     return cudaErrorInvalidValue;
-  return launch(out, n, itemsize, PrngGen{seed, kind},
+  return launch(out, n, itemsize, PrngGen{seed, kind}, false,
                 static_cast<cudaStream_t>(stream));
 }
 

@@ -49,8 +49,8 @@ copy_2d_launches_by_route = dict.fromkeys(ROUTES, 0)
 strided_copy_nd_launches = 0
 #: fewest bytes a dense copy takes the bulk route for
 BULK_MIN_BYTES = 1 << 24
-#: the bulk route's chunk, `BULK_STAGE_BYTES` of csrc/copy_engine.cu
-BULK_STAGE_BYTES = 16384
+#: the bulk route's chunk, `CHUNK` of csrc/copy_engine.cu
+BULK_CHUNK_BYTES = 16384
 
 
 #: VMEM as a transport-layer endpoint for plan estimates: on-chip, deep

@@ -11,22 +11,19 @@ nothing.  The pseudorandom stream is the functional back-end's splitmix32
 (`repro_torch.core.backend.splitmix32`), so the engine's Init bytes and
 the kernel's agree.
 
-A memset of an aligned output takes the card's own DMA engine: a pattern
-buffer in shared memory written out by the TMA's bulk stores (route
-"bulk"); otherwise, and for iota and prng, a grid-stride loop of 16-byte
-stores ("fill").
+memset writes with a grid as large as the work, iota and prng with a
+grid-stride loop; all with 16-byte stores.
 
-`check_fill` holds the Pallas kernels' host-side refusals and
-`memset_routes` chooses memset's kernel; they run on any device, so the
-CPU tests reach them.  `memset_launches`, `iota_fill_launches` and
-`prng_fill_launches` count this module's kernel launches,
-`memset_launches_by_route` the first by route.
+`check_fill` holds the Pallas kernels' host-side refusals; it runs on any
+device, so the CPU tests reach it.  `memset_launches`,
+`iota_fill_launches` and `prng_fill_launches` count this module's kernel
+launches.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
 
@@ -36,10 +33,7 @@ from repro_torch.kernels import runtime
 from .ref import MASK32, fill_value
 
 SOURCE = "init_engine"
-#: memset's kernel routes (`memset_routes`)
-MEMSET_ROUTES = ("bulk", "fill")
 memset_launches = 0
-memset_launches_by_route = dict.fromkeys(MEMSET_ROUTES, 0)
 iota_fill_launches = 0
 prng_fill_launches = 0
 
@@ -50,11 +44,6 @@ IOTA_KINDS = {torch.int8: 0, torch.uint8: 0, torch.int16: 1,
               torch.float16: 6}
 PRNG_KINDS = {torch.uint32: 0, torch.float32: 1, torch.bfloat16: 2,
               torch.int8: 3}
-#: fewest bytes a memset takes the bulk route for
-BULK_MIN_BYTES = 1 << 26
-#: the bulk route's pattern buffer, `FILL_BUFFER_BYTES` of
-#: csrc/init_engine.cu
-FILL_BUFFER_BYTES = 16384
 
 
 def check_fill(shape, dtype: torch.dtype, generator: str = "memset"
@@ -76,40 +65,15 @@ def check_fill(shape, dtype: torch.dtype, generator: str = "memset"
     return rows, cols
 
 
-def memset_routes(out: torch.Tensor, address: Optional[int] = None
-                  ) -> Tuple[str, ...]:
-    """The kernel routes that take a memset of the contiguous `out`, the
-    chosen one first: at a 16-byte-aligned base (`address`,
-    out.data_ptr() unless given) "bulk" from `BULK_MIN_BYTES` on, and
-    below it may; "fill" always.  A view that is not contiguous raises
-    `ValueError`."""
-    if not out.is_contiguous():
-        raise ValueError(f"memset writes a contiguous output, got strides "
-                         f"{out.stride()} for shape {tuple(out.shape)}")
-    nbytes = out.numel() * out.element_size()
-    base = out.data_ptr() if address is None else address
-    if nbytes == 0 or base % 16:
-        return ("fill",)
-    return ("bulk", "fill") if nbytes >= BULK_MIN_BYTES else \
-        ("fill", "bulk")
-
-
-def memset_route(out: torch.Tensor, address: Optional[int] = None) -> str:
-    """The route `memset_cuda` takes to fill `out`."""
-    return memset_routes(out, address)[0]
-
-
 def _lib() -> ctypes.CDLL:
     lib = runtime.load(SOURCE)
     if lib.init_memset.argtypes is None:
         P, I, L, U = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
                       ctypes.c_uint32)
         lib.init_memset.argtypes = [P, L, I, U, P]
-        lib.init_memset_bulk.argtypes = [P, L, U, P]
         lib.init_iota.argtypes = [P, L, I, U, I, P]
         lib.init_prng.argtypes = [P, L, I, U, I, P]
-        for fn in (lib.init_memset, lib.init_memset_bulk, lib.init_iota,
-                   lib.init_prng):
+        for fn in (lib.init_memset, lib.init_iota, lib.init_prng):
             fn.restype = I
     return lib
 
@@ -122,46 +86,37 @@ def _out(shape, dtype, device) -> torch.Tensor:
     return torch.empty(tuple(shape), dtype=dtype, device=device)
 
 
-def _launch(name: str, out: torch.Tensor, *args) -> bool:
-    """Run `init_<name>(out's pointer, *args, stream)`; False when there
-    is nothing to fill."""
+def _launch(name: str, out: torch.Tensor, word: int, *kind) -> bool:
+    """Run `init_<name>` on `out`; False when there is nothing to fill."""
     if out.numel() == 0:
         return False
     lib = _lib()
     with torch.cuda.device(out.device):
         stream = torch.cuda.current_stream(out.device).cuda_stream
-        err = getattr(lib, f"init_{name}")(out.data_ptr(), *args, stream)
+        err = getattr(lib, f"init_{name}")(
+            out.data_ptr(), out.numel(), out.element_size(), word & MASK32,
+            *kind, stream)
     runtime.check(lib, err, f"init_{name}")
     return True
 
 
+def pattern_word(value, dtype: torch.dtype) -> int:
+    """`value` cast into `dtype` as `jnp.full` does, its 1-, 2- or 4-byte
+    pattern repeated into 32 bits, as `init_memset` takes it."""
+    raw = torch.tensor([fill_value(value, dtype)], dtype=dtype) \
+        .view(torch.uint8).tolist()
+    return int.from_bytes(bytes(raw * (4 // len(raw))), "little")
+
+
 def memset_cuda(shape: Tuple[int, int], value, dtype=torch.float32,
-                device="cuda", kernel_route: Optional[str] = None
-                ) -> torch.Tensor:
+                device="cuda") -> torch.Tensor:
     """(rows, cols) of `value` cast into `dtype` as `jnp.full` does; the
-    card writes its bytes and never converts.  `kernel_route` names one
-    of `memset_routes` in place of the chosen one, to test and time the
-    routes; any other raises `ValueError`."""
+    card writes its bytes and never converts."""
     global memset_launches
     check_fill(shape, dtype)
     out = _out(shape, dtype, device)
-    allowed = memset_routes(out)
-    chosen = kernel_route or allowed[0]
-    if chosen not in allowed:
-        raise ValueError(f"memset route {chosen!r} does not take this "
-                         f"output; routes {allowed}")
-    raw = torch.tensor([fill_value(value, dtype)], dtype=dtype) \
-        .view(torch.uint8).tolist()
-    word = int.from_bytes(bytes(raw * (4 // len(raw))), "little")
-    if chosen == "bulk":
-        launched = _launch("memset_bulk", out,
-                           out.numel() * out.element_size(), word)
-    else:
-        launched = _launch("memset", out, out.numel(), out.element_size(),
-                           word)
-    if launched:
+    if _launch("memset", out, pattern_word(value, dtype)):
         memset_launches += 1
-        memset_launches_by_route[chosen] += 1
     return out
 
 
@@ -171,8 +126,7 @@ def iota_fill_cuda(shape: Tuple[int, int], start: int = 0,
     global iota_fill_launches
     check_fill(shape, dtype, "iota")
     out = _out(shape, dtype, device)
-    if _launch("iota", out, out.numel(), out.element_size(), start & MASK32,
-               IOTA_KINDS[dtype]):
+    if _launch("iota", out, start, IOTA_KINDS[dtype]):
         iota_fill_launches += 1
     return out
 
@@ -184,7 +138,6 @@ def prng_fill_cuda(shape: Tuple[int, int], seed: int = 0,
     global prng_fill_launches
     check_fill(shape, dtype, "prng")
     out = _out(shape, dtype, device)
-    if _launch("prng", out, out.numel(), out.element_size(), seed & MASK32,
-               PRNG_KINDS[dtype]):
+    if _launch("prng", out, seed, PRNG_KINDS[dtype]):
         prng_fill_launches += 1
     return out

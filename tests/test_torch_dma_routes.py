@@ -1,12 +1,11 @@
-"""The copy and Init engines' route choice on the host, on CPU tensors:
+"""The copy and Init engines' host side, on CPU tensors:
 `copy_engine.routes` picks `copy_2d`'s kernel (the bulk copy for one
 dense, 16-byte-aligned run from `BULK_MIN_BYTES`; the gather for any
-other view; the transforms' own kernels), `init_engine.memset_routes`
-memset's (the bulk stores for an aligned output from `BULK_MIN_BYTES`;
-the fill loop otherwise).  Both read only shape, strides, element size
-and the base address, which the tests pass as integers where alignment
-is the point.  The kernels themselves are held bit for bit against the
-plain versions on the card (`test_torch_kernels_cuda.py`).
+other view; the transforms' own kernels) from shape, strides, element
+size and the base address, which the tests pass as integers where
+alignment is the point; `init_engine.pattern_word` is the 32-bit pattern
+memset's kernel writes.  The kernels themselves are held bit for bit
+against the plain versions on the card (`test_torch_kernels_cuda.py`).
 """
 
 import functools
@@ -18,13 +17,13 @@ import pytest
 import torch
 
 from repro_torch.core import instream
+from repro_torch.kernels.init_engine import memset_ref
 
 CE = importlib.import_module("repro_torch.kernels.copy_engine.copy_engine")
 IE = importlib.import_module("repro_torch.kernels.init_engine.init_engine")
 CSRC = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "csrc"
 MIB = 1 << 20
 BIG = CE.BULK_MIN_BYTES + 4 * MIB      # above the copy's threshold
-BIG_FILL = IE.BULK_MIN_BYTES + 4 * MIB  # above memset's
 DTYPES = [torch.float32, torch.bfloat16, torch.float16, torch.int8,
           torch.uint8, torch.bool, torch.int16, torch.int32]
 
@@ -105,40 +104,25 @@ def test_copy_route_follows_check_copy_2d():
     assert CE.route(x.bfloat16(), op, address=0) == "convert"
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
-def test_memset_route_aligned_output_takes_bulk(dtype):
-    out = _dense(BIG_FILL, dtype)
-    assert IE.memset_routes(out, address=1 << 20) == ("bulk", "fill")
-    assert IE.memset_route(out, address=1 << 20) == "bulk"
+EVERY_DTYPE = DTYPES + [torch.uint16, torch.uint32]
 
 
-@pytest.mark.parametrize("nbytes,address,want", [
-    (BIG_FILL, 4096 + 4, ("fill",)),
-    (BIG_FILL, 4096 + 8, ("fill",)),
-    (IE.BULK_MIN_BYTES - 16, 4096, ("fill", "bulk")),
-    (IE.BULK_MIN_BYTES, 4096, ("bulk", "fill")),
-    (16, 4096, ("fill", "bulk")),
-    (0, 4096, ("fill",))])
-def test_memset_route_unaligned_below_threshold_and_empty(nbytes, address,
-                                                          want):
-    out = torch.zeros((1, nbytes), dtype=torch.uint8)
-    assert IE.memset_routes(out, address=address) == want
+@pytest.mark.parametrize("dtype", EVERY_DTYPE)
+@pytest.mark.parametrize("value", [2.5, 300, -1, -0.0])
+def test_memset_pattern_word_is_the_plain_versions_bytes(dtype, value):
+    """Every 4 bytes the kernel writes, little-endian, are the plain
+    version's: bf16 −0.0 is 00 80 00 80, 300 into int8 2c 2c 2c 2c."""
+    want = memset_ref((1, 16), value, dtype, "cpu").view(torch.uint8)
+    word = IE.pattern_word(value, dtype)
+    assert list(word.to_bytes(4, "little")) == want.reshape(-1)[:4].tolist()
 
 
-def test_memset_route_refuses_a_strided_output():
-    with pytest.raises(ValueError, match="contiguous"):
-        IE.memset_routes(_dense(BIG_FILL).t())
-
-
-@pytest.mark.parametrize("name,module,constant", [
-    ("copy_engine", CE, "BULK_STAGE_BYTES"),
-    ("init_engine", IE, "FILL_BUFFER_BYTES")])
-def test_bulk_chunk_sizes_match_the_sources(name, module, constant):
+def test_bulk_chunk_size_matches_the_source():
     """The card tests size their cases around the chunk the CUDA source
     builds with."""
-    text = (CSRC / f"{name}.cu").read_text()
-    found = re.search(rf"#define {constant} (\d+)", text)
-    assert found and int(found.group(1)) == getattr(module, constant)
+    text = (CSRC / "copy_engine.cu").read_text()
+    found = re.search(r"constexpr int CHUNK = (\d+);", text)
+    assert found and int(found.group(1)) == CE.BULK_CHUNK_BYTES
 
 
 def test_wrappers_refuse_cpu_tensors():
@@ -146,4 +130,4 @@ def test_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA device"):
         CE.copy_2d_cuda(x, kernel_route="bulk")
     with pytest.raises(ValueError, match="CUDA device"):
-        IE.memset_cuda((8, 128), 0.0, device="cpu", kernel_route="bulk")
+        IE.memset_cuda((8, 128), 0.0, device="cpu")

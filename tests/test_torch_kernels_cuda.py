@@ -443,14 +443,14 @@ def test_copy_2d_cast_above_2_31_bytes(cuda):
     assert _bits_equal(copy_2d(x), copy_2d_ref(x))
 
 
-# The bulk routes (the TMA's bulk copies): byte counts around a chunk and a
-# block's span (forced onto the route below its size threshold), every
-# dtype on the route chosen, views it must refuse, sizes past 2^31 bytes
+# The copy's bulk route (the TMA's bulk copies): byte counts around a
+# chunk (forced onto the route below its size threshold), every dtype on
+# the route chosen, views it must refuse, sizes past 2^31 bytes; memset
+# around a block's span (256 threads x 16 bytes), every dtype, past 2^31
 
-SB = CE.BULK_STAGE_BYTES
-FB = IE.FILL_BUFFER_BYTES
-# ≥ 16 and 64 MiB (the two routes' thresholds) in every dtype, ragged
-# 16-byte tails
+SB = CE.BULK_CHUNK_BYTES
+FB = 256 * 16
+# ≥ 16 MiB (the copy's threshold) in every dtype, ragged 16-byte tails
 ROWS, COLS = 4097, 4099
 FILL_ROWS, FILL_COLS = 8193, 8195
 
@@ -464,8 +464,8 @@ def _route_count(counts, route, before):
 @pytest.mark.parametrize("nbytes", [7, 16, SB - 16, SB + 16, 3 * SB + 48,
                                     16 * 1000 + 7, 2000 * SB + 48])
 def test_copy_bulk_byte_counts(cuda, nbytes):
-    """One chunk or less, a chunk ± 16 bytes, ragged tails, and a copy
-    whose blocks each take more chunks than the ring has stages."""
+    """One chunk or less, a chunk ± 16 bytes, ragged tails, and 2,001
+    blocks, more than an SM's worth on every SM."""
     x = _any((1, nbytes), torch.int8, cuda, 30)
     before = dict(CE.copy_2d_launches_by_route)
     got = CE.copy_2d_cuda(x, kernel_route="bulk")
@@ -515,14 +515,14 @@ def test_copy_bulk_above_2_31_bytes(cuda):
 
 
 def test_bulk_entries_refuse_unaligned_addresses(cuda):
-    """The C entries return an error, and the wrapper's check raises."""
+    """The C entry returns an error, and the wrapper's check raises."""
     x = torch.zeros(1024, dtype=torch.uint8, device=cuda)
     stream = torch.cuda.current_stream().cuda_stream
-    clib, ilib = CE._lib(), IE._lib()
+    clib = CE._lib()
     for err in (clib.copy_bulk(x.data_ptr() + 1, x.data_ptr() + 512, 64,
                                stream),
-                clib.copy_bulk(x.data_ptr(), x.data_ptr() + 520, 64, stream),
-                ilib.init_memset_bulk(x.data_ptr() + 4, 64, 0, stream)):
+                clib.copy_bulk(x.data_ptr(), x.data_ptr() + 520, 64,
+                               stream)):
         assert err != 0
         with pytest.raises(RuntimeError, match="launch failed"):
             runtime.check(clib, err, "bulk")
@@ -537,34 +537,29 @@ MEMSET_BYTES = [16, FB - 16, FB + 16, 3 * FB + 48, 1056 * FB + 48,
 @pytest.mark.parametrize("dtype,value,nbytes", [
     (dt, v, n) for dt, v in MEMSET_PATTERNS for n in MEMSET_BYTES
     if n % torch.empty((), dtype=dt).element_size() == 0])
-def test_memset_bulk_around_a_block_span(cuda, dtype, value, nbytes):
+def test_memset_around_a_block_span(cuda, dtype, value, nbytes):
     """Patterns whose bytes differ (bf16 −0.0 is 00 80, f32 2.5 00 00 20
-    40), a buffer ± 16 bytes, ragged tails, and blocks that each store
-    several buffers."""
+    40), a block's span ± 16 bytes, ragged tails, and 1,057 blocks."""
     shape = (1, nbytes // torch.empty((), dtype=dtype).element_size())
-    before = dict(IE.memset_launches_by_route)
-    got = IE.memset_cuda(shape, value, dtype, cuda, kernel_route="bulk")
-    assert _route_count(IE.memset_launches_by_route, "bulk", before)
+    before = IE.memset_launches
+    got = IE.memset_cuda(shape, value, dtype, cuda)
+    assert IE.memset_launches == before + 1
     assert _bits_equal(got, memset_ref(shape, value, dtype, cuda))
 
 
 @pytest.mark.parametrize("dtype", EVERY_DTYPE)
-def test_memset_bulk_every_dtype(cuda, dtype):
+def test_memset_every_dtype(cuda, dtype):
     shape = (FILL_ROWS, FILL_COLS)
     for value in (2.5, 300, -1, -0.0):
-        before = dict(IE.memset_launches_by_route)
         got = memset(shape, value, dtype, cuda)
-        assert _route_count(IE.memset_launches_by_route, "bulk", before)
         assert _bits_equal(got, memset_ref(shape, value, dtype, cuda))
 
 
-def test_memset_bulk_above_2_31_bytes(cuda):
+def test_memset_above_2_31_bytes(cuda):
     """2,147,614,722 bytes of bf16 −0.0: offsets past 2^31, a 2-byte
     tail."""
     shape = (32769, 32769)
-    before = dict(IE.memset_launches_by_route)
     got = memset(shape, -0.0, torch.bfloat16, cuda)
-    assert _route_count(IE.memset_launches_by_route, "bulk", before)
     assert _bits_equal(got, memset_ref(shape, -0.0, torch.bfloat16, cuda))
 
 

@@ -19,20 +19,19 @@ splits: `git show 5a2c425:src/repro_torch/csrc/decode_attention.cu`), 5
 rounds.  Both by CUDA events around back-to-back calls, after warm-up.
 
 copy and memset: `chip_smoke.py`'s dma phase at its real sizes, and the
-bulk routes at 1, 8, 32 and 128 MiB (their size threshold), by device time
+dense copy and memset at 1, 8, 32 and 128 MiB, by device time
 (`torch.profiler`), 5 rounds in turns.  copy: the bf16 copy of gemma2-2b's
 embedding table (256,000 x 2,304) on routes bulk and gather and
 `x.clone()`, its cast to fp32 and `x.to(float32)`, mamba2-1.3b's SSD input
 view through `strided_copy_nd` and `x.contiguous()`.  memset: a
-(3,860,480, 256) bf16 zero fill on routes bulk and fill and `torch.zeros`,
-the (16,384, 16,384) int32 iota and `torch.arange`, the (256,000, 2,304)
-f32 prng.  First the kernels that `x.clone()` (copy) and `torch.zeros`
-(memset) run, by name, from the profiler.  Each --alt-source (repeatable)
-is a source built with its -D flags in the port's source in place, on
-every route whose C entry it exports: the parent's `copy_engine.cu` or
-`init_engine.cu`, this checkout's with another shape of its bulk kernel
-(-DBULK_RESERVE_BYTES=0), or `tools/dma_variants.cu`, the register-copy
-variants of the bulk routes.
+(3,860,480, 256) bf16 zero fill and `torch.zeros`, the (16,384, 16,384)
+int32 iota and `torch.arange`, the (256,000, 2,304) f32 prng.  First the
+kernels that `x.clone()` (copy) and `torch.zeros` (memset) run, by name,
+from the profiler.  Each --alt-source (repeatable) is a source built with
+its -D flags in the port's source in place, on every route whose C entry
+it exports: the parent's `copy_engine.cu` or `init_engine.cu`, or
+`tools/dma_variants.cu`, the register-copy variants of the bulk copy and
+of memset (-DVAR_RESERVE_BYTES=73728 -DVAR_UNROLL=4).
 
 Every output is checked against the plain version first.  Prints the
 card's name and power limit, then one line per shape: median (min-max) ms
@@ -324,11 +323,10 @@ def memset(alts) -> None:
                     lambda: torch.zeros(kv, dtype=bf16, device=dev))
 
     def zeros(shape):
-        return (shape,
-                lambda s, r: ie.memset_cuda(s, 0, bf16, dev, kernel_route=r),
+        return (shape, lambda s, r: ie.memset_cuda(s, 0, bf16, dev),
                 lambda s: memset_ref(s, 0, bf16, dev),
                 lambda s: torch.zeros(s, dtype=bf16, device=dev),
-                ("bulk", "fill"))
+                ("memset",))
 
     cases = [(f"memset 0 bf16 {s}", *zeros(s))
              for s in (kv, (2048, 256), (16384, 256), (65536, 256),
@@ -343,7 +341,7 @@ def memset(alts) -> None:
          lambda s, r: ie.prng_fill_cuda(s, 7, f32, dev),
          lambda s: prng_fill_ref(s, 7, f32, dev), None, ("prng",))]
     versus("repro_torch.kernels.init_engine.init_engine", cases, alts,
-           {"bulk": "init_memset_bulk", "fill": "init_memset",
+           {"memset": "init_memset",
             "iota": "init_iota", "prng": "init_prng"})
 
 
