@@ -33,7 +33,7 @@
 // Nothing passes through registers.  A block reserves 72 KB of shared
 // memory, so an SM holds 3 blocks: 48 KB in flight an SM, and the hardware
 // hands blocks out in order, so the bytes in flight sweep the run front to
-// back.  Timed in turns (PERF.md §6, PR 17): more blocks an SM are slower
+// back.  Timed in turns (PERF.md §6): more blocks an SM are slower
 // (13 by 2%), and so is a persistent grid of one block an SM, each owning
 // one span through a ring of stages (by 4-6%), and a register copy at the
 // same 3 blocks an SM with 8 16-byte loads a thread in flight (by 0.3%;

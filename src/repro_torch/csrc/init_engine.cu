@@ -35,7 +35,7 @@
 // memset launches a grid as large as the work, one vector a thread: the
 // hardware hands blocks out in order, so the stores sweep the output front
 // to back, as `torch.zeros`'s fill kernel does, and it times level with
-// that kernel.  Timed in turns (PERF.md §6, PR 17): the grid-stride loop
+// that kernel.  Timed in turns (PERF.md §6): the grid-stride loop
 // over at most 16 blocks an SM that iota and prng keep was 4% slower for
 // it; bulk stores (the TMA's) of a pattern buffer in shared memory were 2%
 // slower in a persistent grid and level with one 16 KB chunk a block, as
