@@ -14,7 +14,8 @@ lines tagged with its name:
                the matmul), one `nvcc` each for sm_90a, started together;
                the flash and matmul libraries' SASS (`cuobjdump -sass`)
                must hold wgmma (`HGMMA`) and TMA loads (`UTMALDG`), the
-               copy library's the bulk copy (`UBLKCP`);
+               copy library's the bulk copy (`UBLKCP`), the SSD library's
+               mma.sync (`HMMA`) and cp.async (`LDGSTS`);
   3. kernels — each CUDA kernel against its plain PyTorch version on the
                card (tolerance relative to max|plain|: 2e-2 bf16, 1e-4
                fp32; for flash attention, each output row's error against
@@ -34,9 +35,12 @@ lines tagged with its name:
                GQA groups 5, 6 and 16 of the configs still to port; the
                SSD scan at
                mamba2-1.3b's prefill shape in fp32 and bf16, on views of
-               (B, S, ...) tensors as the SSM layer passes them, with four
-               groups, and a small case also held against the sequential
-               recurrence;
+               (B, S, ...) tensors as the SSM layer passes them, both on
+               the tensor-core route (`ssd.route`, counted by route), with
+               four groups, and a small case and one whose A·dt overflows
+               exp above the diagonal (A −40, dt 0.1) also held against
+               the sequential recurrence; its bound both as 3xTF32 on the
+               tensor cores and on the CUDA cores, each with its share;
   4. dma     — the quickstart's path through the port's descriptor
                plane (host NumPy: a register front-end's 3-D gather, the
                presets' 4 KiB cycles), a `plan_nd_copy` plan whose
@@ -76,7 +80,8 @@ lines tagged with its name:
                4 left-padded requests through `ServeEngine.generate`,
                twice; the launch counters, set to 0 before each run, must
                show every attention and SSD call went through the kernels
-               and no other kernel ran (no copy, Init or matmul kernel);
+               (every SSD call on the tensor cores) and no other kernel ran
+               (no copy, Init or matmul kernel);
   7. card vs CPU — 2 gemma2 layers (SWA, FULL) and 2 mamba2 layers at
                full width in fp32, a 600-token prompt and 3 decode steps:
                logits of the CUDA path agree with the CPU path within 1e-4;
@@ -103,9 +108,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W limit)
+# H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W limit); fp32
+# products on the tensor cores as three TF32 products each (3xTF32)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12,
+              "3xtf32": 494.7e12 / 3}
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 
 
@@ -257,10 +264,12 @@ def phase_build():
     log(f"[build] {', '.join(n + '.cu' for n in sources)} for sm_90a in "
         f"{time.perf_counter() - t0:.1f} s")
     # flash's bf16 route and matmul's wgmma routes must run on wgmma fed
-    # by TMA, the copy engine's bulk route on the TMA's bulk copies
+    # by TMA, the copy engine's bulk route on the TMA's bulk copies, the
+    # SSD's tensor-core route on mma.sync fed by cp.async
     for name, ops in (("flash_attention", ("HGMMA", "UTMALDG")),
                       ("matmul_dma", ("HGMMA", "UTMALDG")),
-                      ("copy_engine", ("UBLKCP",))):
+                      ("copy_engine", ("UBLKCP",)),
+                      ("ssd", ("HMMA", "LDGSTS"))):
         sass = subprocess.run(
             [runtime.cuda_tool("cuobjdump"), "-sass",
              str(runtime.library_path(name))],
@@ -555,7 +564,10 @@ def ssd_flops_bytes(B, H, G, S, P, N, elt):
 
 
 def phase_ssd_kernel(sk):
-    """The SSD kernel against its plain versions; returns its JSON entry."""
+    """The SSD kernel against its plain versions, each case on the route
+    `sk.route` gives it (the main shape, in both dtypes, on the tensor
+    cores); returns its JSON entry, whose bound is the least of the two:
+    3xTF32 on the tensor cores (165 TFLOP/s) for fp32."""
     import torch
     from repro_torch.kernels.ssd import ssd_chunked_ref, ssd_ref
     dev = torch.device("cuda")
@@ -564,20 +576,24 @@ def phase_ssd_kernel(sk):
     log("[kernels] ssd: no single PyTorch call computes the chunked SSD "
         "scan, so library_ms is null")
 
-    def inputs(B, H, G, S, P, N, dtype):
+    def inputs(B, H, G, S, P, N, dtype, A=None, dt=None):
         """mamba2's ranges: dt = softplus(.) in [0.001, 0.1], A = -exp(A_log)
         with A_log = log(1..H), D = 1.  x, B and C are (B, H or G, S, .)
         views of one (B, S, H·P + 2·G·N) tensor and dt of a (B, S, H) one,
-        as the SSM layer passes them."""
+        as the SSM layer passes them.  A number for A or dt fills it."""
         xbc = torch.randn((B, S, H * P + 2 * G * N), generator=gen,
                           device=dev)
         xbc[..., H * P:] *= 0.3
         xs, Bs, Cs = torch.split(xbc.to(DT[dtype]), [H * P, G * N, G * N],
                                  dim=-1)
-        dt = 0.001 + 0.099 * torch.rand((B, S, H), generator=gen, device=dev)
-        return (xs.reshape(B, S, H, P).transpose(1, 2), dt.transpose(1, 2),
-                -torch.arange(1, H + 1, device=dev, dtype=torch.float32),
-                torch.ones(H, device=dev),
+        dtv = 0.001 + 0.099 * torch.rand((B, S, H), generator=gen,
+                                         device=dev)
+        if dt is not None:
+            dtv.fill_(dt)
+        Av = -torch.arange(1, H + 1, device=dev, dtype=torch.float32) \
+            if A is None else torch.full((H,), A, device=dev)
+        return (xs.reshape(B, S, H, P).transpose(1, 2), dtv.transpose(1, 2),
+                Av, torch.ones(H, device=dev),
                 *(t.reshape(B, S, G, N).transpose(1, 2) for t in (Bs, Cs)))
 
     def rel(got, want):
@@ -586,19 +602,29 @@ def phase_ssd_kernel(sk):
         return err, err / max(float(want.float().abs().max()), 1e-6)
 
     cases = [
-        # (label, B, H, G, S, P, N, dtype, main path?)
-        ("main", 4, 64, 1, 4608, 64, 128, "float32", True),
-        ("main", 4, 64, 1, 4608, 64, 128, "bfloat16", False),
-        ("groups", 2, 64, 4, 1024, 64, 128, "float32", False),
-        ("small", 1, 4, 1, 256, 64, 128, "float32", False),
+        # (label, B, H, G, S, P, N, dtype, main path?, A, dt)
+        ("main", 4, 64, 1, 4608, 64, 128, "float32", True, None, None),
+        ("main", 4, 64, 1, 4608, 64, 128, "bfloat16", False, None, None),
+        ("groups", 2, 64, 4, 1024, 64, 128, "float32", False, None, None),
+        ("small", 1, 4, 1, 256, 64, 128, "float32", False, None, None),
+        # cum_t − cum_s up to 508 above the diagonal: exp overflows there
+        ("overflow", 1, 4, 1, 512, 64, 128, "float32", False, -40.0, 0.1),
     ]
     L, worst, entry = 128, 0.0, None
-    for label, B, H, G, S, P, N, dtype, main in cases:
-        args = inputs(B, H, G, S, P, N, dtype)
+    for label, B, H, G, S, P, N, dtype, main, A, dtc in cases:
+        args = inputs(B, H, G, S, P, N, dtype, A, dtc)
+        route = sk.route(args[0], args[4], args[5], L)
+        if label == "main" and route != "tensor_cores":
+            raise AssertionError(f"ssd main {dtype}: route {route}, want "
+                                 f"tensor_cores")
+        before = dict(sk.launches_by_route)
         y, state = sk.ssd_cuda(*args, chunk=L)
+        if sk.launches_by_route[route] != before[route] + 1:
+            raise AssertionError(f"ssd {label} {dtype}: no launch counted "
+                                 f"on route {route}")
         wy, wstate = ssd_chunked_ref(*args, chunk=L, return_state=True)
         checks = {"y": rel(y, wy), "state": rel(state, wstate)}
-        if label == "small":
+        if label in ("small", "overflow"):
             sy, sstate = ssd_ref(*args, return_state=True)
             checks.update({"y vs sequential": rel(y, sy),
                            "state vs sequential": rel(state, sstate)})
@@ -613,12 +639,21 @@ def phase_ssd_kernel(sk):
                            iters=5, warmup=1)
         flops, nbytes = ssd_flops_bytes(B, H, G, S, P, N,
                                         args[0].element_size())
-        b_ms, b_by = bound(flops, nbytes, dtype)
+        if dtype == "float32":   # 3xTF32 on the tensor cores; CUDA cores
+            b_ms, b_by = bound(flops, nbytes, "3xtf32")
+            cc_ms, cc_by = bound(flops, nbytes, "float32")
+            bounds = (f"bound {b_ms:.4f} ms ({b_by}, 3xTF32 at 165 TFLOP/s)"
+                      f" {100 * b_ms / ms:.1f}%, CUDA-core bound "
+                      f"{cc_ms:.4f} ms ({cc_by}, 67 TFLOP/s) "
+                      f"{100 * cc_ms / ms:.1f}%")
+        else:
+            b_ms, b_by = bound(flops, nbytes, dtype)
+            bounds = f"bound {b_ms:.4f} ms ({b_by}) {100 * b_ms / ms:.1f}%"
         log(f"[kernels] ssd {label} B{B} H{H} G{G} S{S} P{P} N{N} L{L} "
-            f"{dtype}: rel err " + ", ".join(
+            f"{dtype} on route {route}: rel err " + ", ".join(
                 f"{what} {r:.2e}" for what, (_, r) in checks.items()) +
             f" (tol {TOL[dtype]:.0e}) | kernel {ms:.3f} ms, plain "
-            f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}), "
+            f"{plain_ms:.3f} ms, {bounds}, "
             f"{flops / ms / 1e9:.1f} TFLOP/s")
         if main:
             entry = dict(name="ssd", route="cuda",
@@ -1277,6 +1312,7 @@ def phase_serve(arch, mods):
     for attempt in range(2):
         for key in phases:
             phases[key].clear()
+        ssd_routes = dict(mods["ssd"].launches_by_route)
         reset(mods)                            # the main path's run
         torch.cuda.reset_peak_memory_stats()
         t = time.perf_counter()
@@ -1288,6 +1324,11 @@ def phase_serve(arch, mods):
         want = expected_launches(cfg, steps)
         if counts != want:
             raise AssertionError(f"{arch} launches {counts}, want {want}")
+        ssd_tc = mods["ssd"].launches_by_route["tensor_cores"] - \
+            ssd_routes["tensor_cores"]
+        if ssd_tc != counts["ssd"]:
+            raise AssertionError(f"{arch}: {ssd_tc} of {counts['ssd']} SSD "
+                                 f"launches on the tensor cores")
         for r in out:
             if len(r.output) != NEW_TOKENS or not all(
                     0 <= t < cfg.vocab_size for t in r.output):

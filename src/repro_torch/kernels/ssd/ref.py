@@ -62,10 +62,12 @@ def ssd_chunked_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     cum = torch.cumsum(A.float()[None, :, None, None] * dtf, dim=-1)
     total = cum[..., -1]                               # (Bb, H, nc)
 
-    # intra-chunk: exp of the masked half may overflow; `where` drops it
+    # intra-chunk: above the diagonal seg is a positive sum that may
+    # overflow exp, so mask before it (exp(-inf) = 0, and the gradient
+    # there is 0, not 0 * inf)
     seg = cum[..., :, None] - cum[..., None, :]        # (Bb, H, nc, L, L)
     mask = torch.tril(torch.ones((L, L), dtype=torch.bool, device=x.device))
-    decay = torch.where(mask, torch.exp(seg), 0.0)
+    decay = torch.exp(torch.where(mask, seg, float("-inf")))
     scores = torch.einsum("bhctn,bhcsn->bhcts", Cf.float(), Bf.float()) * \
         decay * dtf[..., None, :]
     y_intra = torch.einsum("bhcts,bhcsp->bhctp",

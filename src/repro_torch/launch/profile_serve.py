@@ -10,7 +10,9 @@ through `ServeEngine.generate`: once to warm up, once timed, once under
 (the model's step plus sampling and the host's wait for the tokens) it
 prints the wall time without the profiler, the device's busy time, its
 idle share against that wall time, the kernel launches and the kernels
-by device time.  The last line is a JSON summary.
+by device time; and the peak device memory of the timed `generate`.  The
+last line is a JSON summary.  Run as a file with another checkout's `src`
+on PYTHONPATH, it measures that checkout's port the same way.
 """
 
 from __future__ import annotations
@@ -113,14 +115,17 @@ def main() -> None:
     model = LM(cfg, RunConfig(dtype="bfloat16"), seed=SEED, device=dev)
     engine = ServeEngine(model, max_len=MAX_LEN, seed=SEED)
     run_generate(engine, profiled=False)                  # warm-up
+    torch.cuda.reset_peak_memory_stats(dev)
     plain, steps, _ = run_generate(engine, profiled=False)
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
     under, steps, profs = run_generate(engine, profiled=True)
 
     summary = {"arch": cfg.name,
                "config": f"{cfg.name} full width bf16, prompts {PROMPTS} "
                          f"left-padded, {NEW_TOKENS} new tokens",
                "device": torch.cuda.get_device_name(dev),
-               "decode_steps": steps}
+               "decode_steps": steps, "peak_gib": peak_gib}
+    print(f"[generate] peak device memory {peak_gib:.3f} GiB")
     for name, n in (("prefill", 1), ("decode_step", steps)):
         wall_ms = 1e3 * plain[name] / n
         prof_ms = 1e3 * under[name] / n

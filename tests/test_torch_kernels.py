@@ -29,7 +29,8 @@ from repro.kernels.decode_attention import (decode_attention as j_decode,
                                             decode_attention_ref as j_dref)
 from repro.kernels.flash_attention import (attention_ref as j_fref,
                                            flash_attention as j_flash)
-from repro.kernels.ssd import ssd as j_ssd, ssd_ref as j_ssd_ref
+from repro.kernels.ssd import (ssd as j_ssd, ssd_chunked_ref as j_ssd_chunked_ref,
+                               ssd_ref as j_ssd_ref)
 from repro_torch.kernels.decode_attention import (decode_attention,
                                                   decode_attention_ref)
 from repro_torch.kernels.flash_attention import attention_ref, flash_attention
@@ -317,6 +318,101 @@ def test_ssd_bad_shapes_raise():
         ssd(x[:, :3], dt[:, :3], A[:3], D[:3], B, C, chunk=64)
     with pytest.raises(ValueError):
         ssd(x.to("meta"), dt, A, D, B, C, chunk=64)
+
+
+def test_ssd_chunked_ref_gradients_past_exp_overflow():
+    """A·dt large enough that exp(cum_t − cum_s) overflows above the
+    diagonal (A −40, dt 0.1, chunk 32: seg reaches 124): the port's chunked
+    plain version masks before the exponential, so its forward pass equals
+    JAX's and its gradients are finite and equal the sequential scan's."""
+    rng = np.random.default_rng(9)
+    B, H, G, S, P, N, L = 1, 2, 1, 64, 8, 8, 32
+    arrs = [rng.standard_normal((B, H, S, P)),
+            np.full((B, H, S), 0.1),
+            np.array([-40.0, -1.0]),
+            rng.standard_normal(H),
+            rng.standard_normal((B, G, S, N)) * 0.3,
+            rng.standard_normal((B, G, S, N)) * 0.3]
+    arrs = [a.astype(np.float32) for a in arrs]
+    wy = torch.from_numpy(rng.standard_normal((B, H, S, P)).astype(
+        np.float32))
+    ws = torch.from_numpy(rng.standard_normal((B, H, N, P)).astype(
+        np.float32))
+    jy, jstate = j_ssd_chunked_ref(*[jnp.asarray(a) for a in arrs],
+                                   chunk=L, return_state=True)
+
+    def grads(fn, **kw):
+        args = [torch.from_numpy(a).requires_grad_() for a in arrs]
+        y, state = fn(*args, return_state=True, **kw)
+        ((y * wy).sum() + (state * ws).sum()).backward()
+        return y.detach(), state.detach(), {
+            n: args[i].grad for n, i in (("x", 0), ("dt", 1), ("A", 2),
+                                         ("B", 4), ("C", 5))}
+
+    y, state, got = grads(ssd_chunked_ref, chunk=L)
+    assert _rel_err(y, jy) < TOL["float32"]
+    assert _rel_err(state, jstate) < TOL["float32"]
+    _, _, want = grads(ssd_ref)
+    for name, g in got.items():
+        assert bool(torch.isfinite(g).all()), name
+        assert _rel_err(g, want[name]) < 1e-4, name
+
+
+def _route_view(dtype=torch.float32, P=64, N=128, off=0, row_pad=0):
+    """x, B, C as (B, H or G, S, .) views of one (B, S, H·P + 2·N) tensor,
+    as the SSM layer passes them, starting `off` elements in, with rows
+    `row_pad` elements longer."""
+    Bb, H, S = 2, 4, 256
+    width = H * P + 2 * N + row_pad
+    flat = torch.zeros(Bb * S * width + off + 64, dtype=dtype)
+    xbc = flat[off:off + Bb * S * width].view(Bb, S, width)
+    xs, Bs, Cs = torch.split(xbc[..., :H * P + 2 * N], [H * P, N, N], dim=-1)
+    return (xs.reshape(Bb, S, H, P).transpose(1, 2),
+            Bs.reshape(Bb, S, 1, N).transpose(1, 2),
+            Cs.reshape(Bb, S, 1, N).transpose(1, 2))
+
+
+@pytest.mark.parametrize("kw,chunk,want", [
+    (dict(), 128, "tensor_cores"),                       # mamba2-1.3b
+    (dict(dtype=torch.bfloat16), 128, "tensor_cores"),
+    (dict(dtype=torch.float16), 128, "cuda_cores"),
+    (dict(off=1), 128, "cuda_cores"),                    # base 4 bytes off
+    (dict(off=4), 128, "tensor_cores"),                  # 16 bytes off
+    (dict(dtype=torch.bfloat16, off=4), 128, "cuda_cores"),
+    (dict(dtype=torch.bfloat16, off=8), 128, "tensor_cores"),
+    (dict(row_pad=2), 128, "cuda_cores"),                # row stride
+    (dict(row_pad=4), 128, "tensor_cores"),
+    (dict(dtype=torch.bfloat16, row_pad=4), 128, "cuda_cores"),
+    (dict(P=16, N=32), 32, "tensor_cores"),              # reduced mamba2
+    (dict(P=32, N=16), 64, "tensor_cores"),
+    (dict(P=48, N=80), 96, "cuda_cores"),                # P off the tiles
+    (dict(P=128), 128, "cuda_cores"),
+    (dict(P=8), 128, "cuda_cores"),
+    (dict(N=24), 128, "cuda_cores"),                     # N % 16
+    (dict(N=144), 128, "cuda_cores"),                    # N over 128
+    (dict(), 96, "tensor_cores"),
+    (dict(), 256, "cuda_cores"),                         # chunk over 128
+])
+def test_ssd_route(kw, chunk, want):
+    """The kernel's route, chosen on the host from dtype, base alignment,
+    strides, P, N and the chunk (`ssd.route`, called on CPU tensors)."""
+    sk = importlib.import_module("repro_torch.kernels.ssd.ssd")
+    x, B, C = _route_view(**kw)
+    assert sk.route(x, B, C, chunk) == want
+    # the same shapes as contiguous tensors: only the view's layout moved
+    # the choice
+    if "off" in kw or "row_pad" in kw:
+        dense = sk.route(*(t.contiguous() for t in (x, B, C)), chunk)
+        assert dense == "tensor_cores"
+
+
+def test_ssd_route_needs_one_dtype_and_contiguous_rows():
+    sk = importlib.import_module("repro_torch.kernels.ssd.ssd")
+    x, B, C = _route_view()
+    assert sk.route(x, B.bfloat16(), C.bfloat16(), 128) == "cuda_cores"
+    assert sk.route(x[..., ::2], B, C, 128) == "cuda_cores"
+    assert sk.ROUTES == ("tensor_cores", "cuda_cores")
+    assert set(sk.launches_by_route) == set(sk.ROUTES)
 
 
 # --------------------------------------------------------------------------

@@ -340,6 +340,127 @@ def test_ssd_zero_dt_padding_keeps_the_state(cuda):
     assert _rel_err(got, want) < TOL[torch.float32]
 
 
+SSD_ROUTES = ["tensor_cores", "cuda_cores"]
+
+
+def _ssd_view_inputs(B, H, G, S, P, N, dtype, dev, seed, off=0, A=None,
+                     dt=None):
+    """x, B and C as views of one (B, S, H·P + 2·G·N) tensor starting `off`
+    elements in, dt of a (B, S, H) one: the SSM layer's layout.  A and dt
+    default to mamba2's ranges; a number fills them."""
+    g = torch.Generator(dev).manual_seed(seed)
+    width = H * P + 2 * G * N
+    flat = 0.3 * torch.randn(B * S * width + off, generator=g, device=dev)
+    xbc = flat.to(dtype)[off:].view(B, S, width)
+    xs, Bs, Cs = torch.split(xbc, [H * P, G * N, G * N], dim=-1)
+    dtv = 0.001 + 0.099 * torch.rand((B, S, H), generator=g, device=dev)
+    if dt is not None:
+        dtv.fill_(dt)
+    Av = -torch.arange(1, H + 1, device=dev, dtype=torch.float32) \
+        if A is None else torch.tensor(A, device=dev).expand(H).contiguous()
+    return (xs.reshape(B, S, H, P).transpose(1, 2), dtv.transpose(1, 2), Av,
+            torch.ones(H, device=dev),
+            *(t.reshape(B, S, G, N).transpose(1, 2) for t in (Bs, Cs)))
+
+
+def _ssd_on(args, chunk, route):
+    """ssd_cuda on `route`, checking that it counted one launch there."""
+    before = dict(SK.launches_by_route)
+    out = SK.ssd_cuda(*args, chunk=chunk, kernel_route=route)
+    assert SK.launches_by_route[route] == before[route] + 1
+    return out
+
+
+@pytest.mark.parametrize("case", SSD_CASES)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("route", SSD_ROUTES)
+def test_ssd_kernel_on_each_route(cuda, case, dtype, route):
+    """Every case on every route that takes it; the tensor-core route
+    refuses, before any launch, what `route` would not give it."""
+    args = _ssd_inputs(case, dtype, cuda, 21)
+    chunk = case["chunk"]
+    if route == "tensor_cores" and \
+            SK.route(args[0], args[4], args[5], chunk) != route:
+        before = SK.launches
+        with pytest.raises(ValueError, match="route"):
+            SK.ssd_cuda(*args, chunk=chunk, kernel_route=route)
+        assert SK.launches == before
+        return
+    want_y, want_state = ssd_chunked_ref(*args, chunk=chunk,
+                                         return_state=True)
+    y, state = _ssd_on(args, chunk, route)
+    assert _rel_err(y, want_y) < TOL[dtype]
+    assert _rel_err(state, want_state) < TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("route", SSD_ROUTES)
+def test_ssd_one_chunk(cuda, dtype, route):
+    """S = L: no recurrence across chunks, the final state is the chunk's
+    own."""
+    args = _ssd_view_inputs(2, 8, 2, 128, 64, 128, dtype, cuda, 22)
+    want_y, want_state = ssd_chunked_ref(*args, chunk=128, return_state=True)
+    y, state = _ssd_on(args, 128, route)
+    assert _rel_err(y, want_y) < TOL[dtype]
+    assert _rel_err(state, want_state) < TOL[dtype]
+
+
+@pytest.mark.parametrize("route", SSD_ROUTES)
+def test_ssd_36_chunks_vs_sequential_scan(cuda, route):
+    """mamba2-1.3b's 36 chunks of 128 against the step-by-step recurrence
+    (the ground truth, not the chunked form the kernels share)."""
+    args = _ssd_view_inputs(1, 4, 1, 36 * 128, 64, 128, torch.float32, cuda,
+                            23)
+    want_y, want_state = ssd_ref(*args, return_state=True)
+    y, state = _ssd_on(args, 128, route)
+    assert _rel_err(y, want_y) < TOL[torch.float32]
+    assert _rel_err(state, want_state) < TOL[torch.float32]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("route", SSD_ROUTES)
+def test_ssd_decay_past_exp_overflow(cuda, dtype, route):
+    """A −40 and dt 0.1: cum_t − cum_s reaches 508 above the diagonal,
+    where exp overflows; both routes mask before the exponential."""
+    args = _ssd_view_inputs(1, 4, 1, 512, 64, 128, dtype, cuda, 24, A=-40.0,
+                            dt=0.1)
+    want_y, want_state = ssd_ref(*args, return_state=True)
+    y, state = _ssd_on(args, 128, route)
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(state).all())
+    assert _rel_err(y, want_y) < TOL[dtype]
+    assert _rel_err(state, want_state) < TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ssd_route_follows_the_view(cuda, dtype):
+    """The model's views take the tensor cores; the same views one element
+    off a 16-byte boundary take the CUDA cores, with the same result."""
+    shape = (2, 8, 1, 256, 64, 128)
+    for off, want in ((0, "tensor_cores"), (1, "cuda_cores")):
+        args = _ssd_view_inputs(*shape, dtype, cuda, 25, off=off)
+        assert SK.route(args[0], args[4], args[5], 128) == want
+        ref_y, ref_state = ssd_chunked_ref(*args, chunk=128,
+                                           return_state=True)
+        before = dict(SK.launches_by_route)
+        y, state = ssd(*args, chunk=128, return_state=True)
+        assert SK.launches_by_route[want] == before[want] + 1
+        assert _rel_err(y, ref_y) < TOL[dtype]
+        assert _rel_err(state, ref_state) < TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ssd_main_shape_on_the_tensor_cores(cuda, dtype):
+    """mamba2-1.3b's prefill shape on the model's views, through `ssd`."""
+    args = _ssd_view_inputs(4, 64, 1, 4608, 64, 128, dtype, cuda, 26)
+    before = dict(SK.launches_by_route)
+    y, state = ssd(*args, chunk=128, return_state=True)
+    assert SK.launches_by_route["tensor_cores"] == \
+        before["tensor_cores"] + 1
+    want_y, want_state = ssd_chunked_ref(*args, chunk=128, return_state=True)
+    assert _rel_err(y, want_y) < TOL[dtype]
+    assert _rel_err(state, want_state) < TOL[dtype]
+
+
 def test_ssd_unsupported_shapes_raise(cuda):
     case = dict(B=1, H=2, G=1, S=64, P=16, N=16, chunk=32)
     args = _ssd_inputs(case, torch.float32, cuda, 14)

@@ -5,6 +5,7 @@ card.
     python3 tools/kernel_versus.py decode --alt-source PATH
     python3 tools/kernel_versus.py copy [--alt-source "PATH [-DNAME=V ...]"]...
     python3 tools/kernel_versus.py memset [--alt-source "PATH [-D...]"]...
+    python3 tools/kernel_versus.py ssd [--alt-source PATH]
 
 matmul: the served models' bf16 GEMM shapes (gemma2-2b's FFN gate with its
 tanh-gelu and its FFN down, mamba2-1.3b's in_proj, over 4 x 4,608 prefill
@@ -32,6 +33,16 @@ its -D flags in the port's source in place, on every route whose C entry
 it exports: the parent's `copy_engine.cu` or `init_engine.cu`, or
 `tools/dma_variants.cu`, the register-copy variants of the bulk copy and
 of memset (-DVAR_RESERVE_BYTES=73728 -DVAR_UNROLL=4).
+
+ssd: mamba2-1.3b's prefill shape (B 4, H 64, G 1, S 4,608, P 64, N 128,
+chunk 128) in fp32 and bf16, x, B and C as views of one (B, S, 4,352)
+tensor and dt of a (B, S, 64) one, as the SSM layer passes them: this
+build on both routes (`ssd.ROUTES`) and, with --alt-source, that build of
+`csrc/ssd.cu` through its own C entry `ssd_fwd` (the parent's kernel:
+`git show 472b131:src/repro_torch/csrc/ssd.cu`), each checked against
+`ssd_chunked_ref` (relative to max|plain|, 1e-4 fp32, 2e-2 bf16), then 5
+rounds in turns by CUDA events; and the device time of each kernel the
+tensor-core route launches, from the profiler.
 
 Every output is checked against the plain version first.  Prints the
 card's name and power limit, then one line per shape: median (min-max) ms
@@ -345,14 +356,74 @@ def memset(alts) -> None:
             "iota": "init_iota", "prng": "init_prng"})
 
 
+def ssd(alt_source) -> None:
+    import torch
+    from repro_torch.kernels.ssd import ssd_chunked_ref
+    sk = importlib.import_module("repro_torch.kernels.ssd.ssd")
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(2)
+    ours = sk._lib
+    alt = None
+    if alt_source:
+        alt = build([alt_source], "ssd")[0]
+        alt.ssd_fwd.argtypes = ours().ssd_fwd.argtypes
+        alt.ssd_fwd.restype = ctypes.c_int
+
+    def alt_call(args):
+        sk._lib = lambda: alt
+        try:
+            return sk.ssd_cuda(*args, chunk=L, kernel_route="cuda_cores")
+        finally:
+            sk._lib = ours
+
+    B, H, G, S, P, N, L = 4, 64, 1, 4608, 64, 128, 128
+    tol = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+    for dtype in (torch.float32, torch.bfloat16):
+        xbc = torch.randn((B, S, H * P + 2 * G * N), generator=gen,
+                          device=dev)
+        xbc[..., H * P:] *= 0.3
+        xs, Bs, Cs = torch.split(xbc.to(dtype), [H * P, G * N, G * N],
+                                 dim=-1)
+        dt = 0.001 + 0.099 * torch.rand((B, S, H), generator=gen, device=dev)
+        args = (xs.reshape(B, S, H, P).transpose(1, 2), dt.transpose(1, 2),
+                -torch.arange(1, H + 1, device=dev, dtype=torch.float32),
+                torch.ones(H, device=dev),
+                *(t.reshape(B, S, G, N).transpose(1, 2) for t in (Bs, Cs)))
+        fns = {f"this {r}": functools.partial(sk.ssd_cuda, *args, chunk=L,
+                                              kernel_route=r)
+               for r in sk.ROUTES}
+        if alt is not None:
+            fns["alt"] = functools.partial(alt_call, args)
+        want_y, want_state = ssd_chunked_ref(*args, chunk=L,
+                                             return_state=True)
+        errs = []
+        for name, fn in fns.items():
+            y, state = fn()
+            e = max(rel_err(y, want_y), rel_err(state, want_state))
+            if not e < tol[dtype]:
+                raise AssertionError(f"ssd {dtype} {name}: rel err {e:.2e}")
+            errs.append(f"{name} {e:.1e}")
+        del want_y, want_state, y, state
+        label = f"ssd {str(dtype)[6:]} B{B} H{H} G{G} S{S} P{P} N{N} L{L}"
+        print(f"{label}, the model's views: rel err {', '.join(errs)} | "
+              f"ms, median (min-max) of 5 in turns | "
+              + in_turns(fns, 5), flush=True)
+        library_kernels(f"{label} on route tensor_cores",
+                        fns["this tensor_cores"])
+        del args, xbc, xs, Bs, Cs, dt
+        torch.cuda.empty_cache()
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("kernel", choices=("matmul", "decode", "copy", "memset"))
+    ap.add_argument("kernel",
+                    choices=("matmul", "decode", "copy", "memset", "ssd"))
     ap.add_argument("--alt-source", action="append", default=[])
     args = ap.parse_args()
     if args.kernel == "decode" and not args.alt_source:
         ap.error("decode needs --alt-source")
-    if args.kernel in ("matmul", "decode") and len(args.alt_source) > 1:
+    if args.kernel in ("matmul", "decode", "ssd") and \
+            len(args.alt_source) > 1:
         ap.error(f"{args.kernel} takes one --alt-source")
     import torch
     if not torch.cuda.is_available():
@@ -361,9 +432,9 @@ def main() -> None:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
-    if args.kernel in ("matmul", "decode"):
+    if args.kernel in ("matmul", "decode", "ssd"):
         alt = args.alt_source[0] if args.alt_source else None
-        (matmul if args.kernel == "matmul" else decode)(alt)
+        {"matmul": matmul, "decode": decode, "ssd": ssd}[args.kernel](alt)
     else:
         (copy if args.kernel == "copy" else memset)(args.alt_source)
 
