@@ -82,7 +82,28 @@ lines tagged with its name:
                show every attention and SSD call went through the kernels
                (every SSD call on the tensor cores) and no other kernel ran
                (no copy, Init or matmul kernel);
-  7. card vs CPU — 2 gemma2 layers (SWA, FULL) and 2 mamba2 layers at
+  7. front   — the same two full-width models behind the continuous-
+               batching front door, `ServeFrontDoor(StepLM(model, ...),
+               layout).submit(req) ... .run()`: six requests of 33 to
+               4,608 prompt tokens, 32 new tokens each, every other one at
+               T=0.8, chunked prefill of 256 rows, over a pool of 420 pages
+               of one gemma2-2b layer's KV rows; once at max_running 4 and
+               once at 1 (all streams, hot ones included, must be equal);
+               the launch counters, set to 0 before each run, must read
+               flash attention once a layer an admission, decode attention
+               once a layer a decode call (one request a call), the SSD
+               once a layer an admission on the tensor cores, and nothing
+               else; each run prints its wall, the host seconds inside
+               `StepLM` against the rest (the descriptor plane), tokens/s,
+               steps, simulated cycles, preemptions and swaps, decode
+               calls, and peak memory; then the traffic's kernel shapes
+               (flash at B 1 and each prompt's own length, decode at B 1
+               over the 4,640-row cache, the SSD at B 1 on the prompt
+               padded to the chunk): every call of an admission and 3
+               decode steps of each request, each against its plain
+               version at TOL, and a request's logits `torch.equal` alone
+               and stepped after the five others;
+  8. card vs CPU — 2 gemma2 layers (SWA, FULL) and 2 mamba2 layers at
                full width in fp32, a 600-token prompt and 3 decode steps:
                logits of the CUDA path agree with the CPU path within 1e-4;
                then the 2 gemma2 layers in bf16, the serving dtype, on the
@@ -96,6 +117,7 @@ object with one entry per kernel; the last is the device line.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import importlib
 import json
 import math
@@ -1360,6 +1382,252 @@ def phase_serve(arch, mods):
     return runs[0]["counts"]
 
 
+# the front phase's traffic: six requests of ragged prompts, every other
+# one hot, through ServeFrontDoor(StepLM) over one gemma2-2b layer's paged
+# KV layout (mamba2-1.3b serves the same layout: the pool holds StepLM's
+# hash mirror, not the model's cache)
+FRONT_PROMPTS = (33, 300, 700, 1200, 2500, 4608)
+FRONT_NEW_TOKENS = 32
+FRONT_MAX_LEN = 4640
+FRONT_PAGES = 420
+FRONT_CHUNK = 256
+FRONT_CHECK_STEPS = 3   # decode steps of the kernel check after admission
+
+
+def front_requests(vocab_size: int):
+    """The same requests on every call, drawn from seed 0."""
+    import numpy as np
+    from repro_torch.serve import ServeRequest
+    rng = np.random.default_rng(0)
+    return [ServeRequest(rid=i, prompt=rng.integers(0, vocab_size, n).tolist(),
+                         max_new_tokens=FRONT_NEW_TOKENS,
+                         temperature=0.8 if i % 2 else 0.0, seed=i)
+            for i, n in enumerate(FRONT_PROMPTS)]
+
+
+def timed_steplm(model, layout):
+    """A `StepLM` whose admissions and decode steps add their host seconds,
+    between a synchronize on each side, to its `seconds`."""
+    import torch
+    from repro_torch.serve import StepLM
+    lm = StepLM(model, max_len=FRONT_MAX_LEN, row_bytes=layout.row_bytes)
+    lm.seconds = 0.0
+    for name in ("on_admit", "next_tokens"):
+        def run(*args, fn=getattr(lm, name)):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            lm.seconds += time.perf_counter() - t
+            return out
+        setattr(lm, name, run)
+    return lm
+
+
+def front_run(arch, cfg, model, layout, mods, max_running):
+    """One `ServeFrontDoor.run()` of the traffic; the launch counters, set
+    to 0 just before it, must show flash attention once a layer an
+    admission, decode attention once a layer a decode call, the SSD once a
+    layer an admission on the tensor cores, and no other kernel.  Returns
+    the requests' outputs."""
+    import torch
+    from repro_torch.configs import SSM
+    from repro_torch.serve import ServeFrontDoor
+    lm = timed_steplm(model, layout)
+    fd = ServeFrontDoor(lm, layout, max_seq_len=FRONT_MAX_LEN,
+                        max_running=max_running, prefill_chunk=FRONT_CHUNK)
+    reqs = front_requests(cfg.vocab_size)
+    for r in reqs:
+        fd.submit(r)
+    ssd_tc = mods["ssd"].launches_by_route["tensor_cores"]
+    gc.collect()      # an earlier run's front door and caches (a cycle)
+    reset(mods)                                # the main path's run
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    metrics = fd.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = read(mods)
+    n_ssm = sum(kind == SSM for kind in cfg.layer_kinds)
+    n_attn = cfg.n_layers - n_ssm
+    admitted = fd.sched.stats.admitted
+    want = {name: 0 for name in mods}
+    want.update(flash_attention=n_attn * admitted,
+                decode_attention=n_attn * lm.decode_calls,
+                ssd=n_ssm * admitted)
+    if counts != want:
+        raise AssertionError(f"{arch} front launches {counts}, want {want}")
+    ssd_tc = mods["ssd"].launches_by_route["tensor_cores"] - ssd_tc
+    if ssd_tc != counts["ssd"]:
+        raise AssertionError(f"{arch}: {ssd_tc} of {counts['ssd']} SSD "
+                             f"launches on the tensor cores")
+    for r in reqs:
+        if len(r.output) != FRONT_NEW_TOKENS or not all(
+                0 <= tok < cfg.vocab_size for tok in r.output):
+            raise AssertionError(f"bad output {r.output}")
+    n_new = sum(len(r.output) for r in reqs)
+    st = fd.alloc.stats
+    log(f"[front] {arch} max_running {max_running}: run() {wall:.2f} s "
+        f"wall, StepLM {lm.seconds:.2f} s, the rest (descriptor plane, "
+        f"scheduler) {wall - lm.seconds:.2f} s, {n_new / wall:.1f} generated "
+        f"tokens/s | {metrics.steps} steps, {metrics.cycles} simulated "
+        f"cycles, {st.preemptions} preemptions, {st.swapped_out} / "
+        f"{st.swapped_in} blocks swapped out / in, {admitted} admissions | "
+        f"{lm.decode_calls} decode calls of one request each | peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | launches "
+        + ", ".join(f"{k} {v}" for k, v in counts.items() if v))
+    return [r.output for r in reqs]
+
+
+def front_kernels(arch, cfg, model, mods):
+    """The front traffic's kernel shapes on the card, each call held
+    against its plain version on its own inputs, and a request's logits
+    against themselves.  Request 0 alone, then all six requests with
+    request 0 last, go through a `StepLM`: admission (a B = 1 prefill:
+    flash attention at each prompt's own length, the SSD at it padded to
+    the chunk), then FRONT_CHECK_STEPS decode steps (decode attention at
+    B = 1 over the FRONT_MAX_LEN-row cache, with its B = 1 key splits).
+    Each wrapper is swapped for one that launches the kernel and holds its
+    result against `attention_ref`, `decode_attention_ref` or
+    `ssd_chunked_ref` at TOL (flash row by row, as the kernels phase does);
+    request 0's logits must be `torch.equal` alone and among the others."""
+    import torch
+    from repro_torch.kernels.decode_attention import decode_attention_ref
+    from repro_torch.kernels.flash_attention import attention_ref
+    from repro_torch.kernels.ssd import ssd_chunked_ref
+    from repro_torch.serve import StepLM
+
+    fa, da, sk = (mods[n] for n in ("flash_attention", "decode_attention",
+                                    "ssd"))
+    kernels = {"flash_attention": fa.flash_attention_cuda,
+               "decode_attention": da.decode_attention_cuda,
+               "ssd": sk.ssd_cuda}
+    checks = {name: [] for name in kernels}    # (shape, rel, abs, tol)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def hold(name, shape, got, want, dtype, rows=False):
+        err = (got.float() - want.float()).abs()
+        if rows:
+            rel = (err.amax(-1) / want.float().abs().amax(-1)
+                   .clamp_min(1e-6)).max()
+        else:
+            rel = err.max() / want.float().abs().max().clamp_min(1e-6)
+        tol = TOL[str(dtype).removeprefix("torch.")]
+        checks[name].append((shape, rel, err.max(), tol))
+
+    def flash(q, k, v, **kw):
+        got = kernels["flash_attention"](q, k, v, **kw)
+        hold("flash_attention", f"B{q.shape[0]} S{q.shape[2]} "
+             f"w{kw['window']}", got, attention_ref(q, k, v, **kw),
+             q.dtype, rows=True)
+        return got
+
+    def decode(q, k, v, kv_len=None, **kw):
+        got = kernels["decode_attention"](q, k, v, kv_len=kv_len, **kw)
+        G = q.shape[1] // k.shape[1]
+        splits = da.num_splits(
+            q.shape[0] * k.shape[1] * (G // da.heads_per_block(G)),
+            k.shape[2], sms)
+        hold("decode_attention", f"B{q.shape[0]} cache {k.shape[2]} kv_len "
+             f"{int(kv_len)} w{kw['window']} splits {splits}", got,
+             decode_attention_ref(q, k, v, kv_len=kv_len, **kw), q.dtype)
+        return got
+
+    def ssd(x, dt, A, D, B, C, chunk=128, **kw):
+        route = sk.route(x, B, C, chunk)
+        y, state = kernels["ssd"](x, dt, A, D, B, C, chunk=chunk, **kw)
+        wy, wstate = ssd_chunked_ref(x, dt, A, D, B, C, chunk=chunk,
+                                     return_state=True)
+        shape = (f"B{x.shape[0]} S{x.shape[2]} "
+                 f"{str(x.dtype).removeprefix('torch.')} {route}")
+        hold("ssd", shape + " y", y, wy, x.dtype)
+        hold("ssd", shape + " state", state, wstate, x.dtype)
+        return y, state
+
+    def serve(rids):
+        """`rids` admitted in that order and stepped together; the logits
+        row behind each sample, by (rid, len(tokens))."""
+        lm = StepLM(model, max_len=FRONT_MAX_LEN, row_bytes=2048)
+        rows, sample = {}, lm._sample_row
+
+        def record(req, row):
+            rows[req.rid, len(req.tokens)] = row.clone()
+            return sample(req, row)
+        lm._sample_row = record
+        by_rid = {r.rid: r for r in front_requests(cfg.vocab_size)}
+        reqs = [by_rid[i] for i in rids]
+        for r in reqs:
+            r.tokens = list(r.prompt)
+            lm.on_admit(r)
+        for _ in range(FRONT_CHECK_STEPS + 1):
+            for r, tok in zip(reqs, lm.next_tokens(reqs, [None] * len(reqs))):
+                r.tokens.append(tok)
+        return rows
+
+    fa.flash_attention_cuda, da.decode_attention_cuda, sk.ssd_cuda = \
+        flash, decode, ssd
+    try:
+        alone = serve([0])
+        among = serve(list(range(len(FRONT_PROMPTS)))[::-1])
+    finally:
+        fa.flash_attention_cuda, da.decode_attention_cuda, sk.ssd_cuda = \
+            kernels.values()
+    for name, rows in checks.items():
+        if not rows:
+            continue
+        got = torch.stack([torch.stack([r, a]) for _, r, a, _ in rows]
+                          ).tolist()
+        bad = [(shape, rel) for (shape, _, _, tol), (rel, _) in zip(rows, got)
+               if not (math.isfinite(rel) and rel < tol)]
+        if bad:
+            raise AssertionError(f"{arch} front {name}: {len(bad)} of "
+                                 f"{len(rows)} calls off their plain "
+                                 f"version, first {bad[0]}")
+        shapes = dict.fromkeys(shape for shape, _, _, _ in rows)
+        worst = max(range(len(rows)), key=lambda i: got[i][0])
+        log(f"[front] {arch} {name}: {len(rows)} checks on the front "
+            f"traffic's shapes, max rel err {got[worst][0]:.2e} (at "
+            f"{rows[worst][0]}), max abs err {max(a for _, a in got):.3e} "
+            f"(tol {rows[0][3]:.0e}) | shapes: " + "; ".join(shapes))
+    keys = sorted(k for k in alone if k[0] == 0)
+    if keys != sorted(k for k in among if k[0] == 0) or not all(
+            torch.equal(alone[k], among[k]) for k in keys):
+        raise AssertionError(f"{arch}: request 0's logits differ alone and "
+                             f"among the other requests")
+    log(f"[front] {arch}: request 0's {len(keys)} logits rows (prefill and "
+        f"{FRONT_CHECK_STEPS} decode steps) torch.equal alone and stepped "
+        f"after the other {len(FRONT_PROMPTS) - 1} requests")
+
+
+def phase_front(arch, mods):
+    """Full-width `arch` behind the continuous-batching front door."""
+    import torch
+    from repro_torch.configs import RunConfig, get
+    from repro_torch.models import LM
+    from repro_torch.serve import KVLayout
+
+    cfg = get(arch)
+    model = LM(cfg, RunConfig(dtype="bfloat16"), seed=0, device="cuda")
+    layout = KVLayout(n_pages=FRONT_PAGES, page_size=16, n_kv_heads=4,
+                      head_dim=256, itemsize=2)
+    log(f"[front] {arch} full width, bf16, StepLM max_len {FRONT_MAX_LEN}; "
+        f"prompts {FRONT_PROMPTS}, {FRONT_NEW_TOKENS} new tokens each, every "
+        f"other request at T=0.8; pool of {FRONT_PAGES} pages of 16 rows of "
+        f"{layout.row_bytes} B, prefill_chunk {FRONT_CHUNK}")
+    out4 = front_run(arch, cfg, model, layout, mods, 4)
+    out1 = front_run(arch, cfg, model, layout, mods, 1)
+    if out4 != out1:
+        bad = [i for i, (a, b) in enumerate(zip(out4, out1)) if a != b]
+        raise AssertionError(f"{arch}: streams of requests {bad} differ "
+                             f"between max_running 4 and 1")
+    log(f"[front] {arch}: all {len(out4)} streams, hot ones included, equal "
+        f"at max_running 4 and 1; request 0 starts {out4[0][:8]}")
+    front_kernels(arch, cfg, model, mods)
+    del model
+    torch.cuda.empty_cache()
+
+
 def phase_card_vs_cpu(cfg, label, mods):
     import numpy as np
     import torch
@@ -1477,6 +1745,8 @@ def main() -> int:
     entries["flash_attention"]["launches"] = gemma["flash_attention"]
     entries["decode_attention"]["launches"] = gemma["decode_attention"]
     entries["ssd"]["launches"] = mamba["ssd"]
+    phase_front("gemma2-2b", mods)
+    phase_front("mamba2-1.3b", mods)
     gemma2 = dataclasses.replace(get("gemma2-2b"), n_layers=2,
                                  layer_pattern=(((ATTN_SWA, ATTN_FULL), 1),))
     phase_card_vs_cpu(gemma2, "SWA, FULL", mods)

@@ -111,3 +111,43 @@ def test_descriptor_plane_runs_without_jax():
     """)
     assert "plane ok" in out and "[dma] preset edge_ai" in out
 
+
+
+def test_front_door_runs_without_jax():
+    """The continuous-batching front door runs where JAX cannot be
+    imported: `ServeFrontDoor` over `HashLM` serves two requests to
+    completion and equals the sequential oracle, and over a `StepLM` of a
+    reduced gemma2-2b on the CPU it serves them again."""
+    out = _run("""
+        import numpy as np
+        from repro_torch.configs import get
+        from repro_torch.configs.base import RunConfig, reduced
+        from repro_torch.models import LM
+        from repro_torch.serve import (HashLM, KVLayout, ServeFrontDoor,
+                                       ServeRequest, StepLM,
+                                       oracle_generate)
+        lay = KVLayout(n_pages=16, page_size=4, n_kv_heads=2, head_dim=4)
+
+        def serve(model):
+            fd = ServeFrontDoor(model, lay, max_seq_len=24, max_running=2)
+            reqs = [ServeRequest(rid=i, prompt=[3 + i, 5, 7], seed=i,
+                                 max_new_tokens=4, temperature=0.8 * i)
+                    for i in range(2)]
+            for r in reqs:
+                fd.submit(r)
+            fd.run()
+            return reqs
+
+        hash_lm = HashLM(lay.row_bytes)
+        for r in serve(hash_lm):
+            assert r.output == oracle_generate(
+                hash_lm, r.seed, r.prompt, 4, r.temperature)
+        lm = LM(reduced(get("gemma2-2b")), RunConfig(dtype="float32"),
+                device="cpu")
+        step = StepLM(lm, max_len=32, row_bytes=lay.row_bytes)
+        assert [len(r.output) for r in serve(step)] == [4, 4]
+        assert not any(m.split(".")[0] in ("jax", "repro")
+                       for m in sys.modules)
+        print("front ok", step.decode_calls)
+    """)
+    assert "front ok" in out
