@@ -32,7 +32,7 @@ lines tagged with its name:
                its device time (torch.profiler: the split kernel is
                faster than its launch), at the main shape in 5 rounds in
                turns with `flex_attention`, median and spread, and at the
-               GQA groups 5, 6 and 16 of the configs still to port; the
+               GQA groups 5, 6 and 16 of the other configs; the
                SSD scan at
                mamba2-1.3b's prefill shape in fp32 and bf16, on views of
                (B, S, ...) tensors as the SSM layer passes them, both on
@@ -41,6 +41,12 @@ lines tagged with its name:
                exp above the diagonal (A −40, dt 0.1) also held against
                the sequential recurrence; its bound both as 3xTF32 on the
                tensor cores and on the CUDA cores, each with its share;
+               then the three kernels at hymba-1.5b's serving shapes
+               (flash and decode attention at 25 q and 5 kv heads of 64,
+               windows 1,024 and 0, no softcap; the SSD at 50 heads,
+               d_state 16, fp32 and bf16, on the tensor cores), each by
+               device time in turns with `flex_attention` where it
+               computes the same function;
   4. dma     — the quickstart's path through the port's descriptor
                plane (host NumPy: a register front-end's 3-D gather, the
                presets' 4 KiB cycles), a `plan_nd_copy` plan whose
@@ -74,10 +80,12 @@ lines tagged with its name:
                off, then the same epilogue) in turns, and the plain
                version; then both wgmma routes at M 1 to 128 (the small-M
                threshold);
-  6. serve   — full-width gemma2-2b (26 layers, d 2304, vocab 256,000)
-               and then full-width mamba2-1.3b (48 SSM layers, d 2048,
-               vocab 50,280), seeded random weights, bf16, each answer
-               4 left-padded requests through `ServeEngine.generate`,
+  6. serve   — full-width gemma2-2b (26 layers, d 2304, vocab 256,000),
+               then full-width mamba2-1.3b (48 SSM layers, d 2048, vocab
+               50,280), then full-width hymba-1.5b (32 hybrid layers, d
+               1600, attention and SSM heads side by side, vocab 32,001,
+               untied head), seeded random weights, bf16, each answer 4
+               left-padded requests through `ServeEngine.generate`,
                twice; the launch counters, set to 0 before each run, must
                show every attention and SSD call went through the kernels
                (every SSD call on the tensor cores) and no other kernel ran
@@ -104,11 +112,14 @@ lines tagged with its name:
                version at TOL, and a request's logits `torch.equal` alone
                and stepped after the five others;
   8. card vs CPU — 2 gemma2 layers (SWA, FULL) and 2 mamba2 layers at
-               full width in fp32, a 600-token prompt and 3 decode steps:
-               logits of the CUDA path agree with the CPU path within 1e-4;
-               then the 2 gemma2 layers in bf16, the serving dtype, on the
-               card: logits through the attention kernels agree with those
-               through their plain versions within 2e-2.
+               full width in fp32, a 600-token prompt and 3 decode steps,
+               and 2 hymba layers (HYBRID_FULL, HYBRID) on a 1,100-token
+               prompt, past their window and off the SSD's chunk: logits
+               of the CUDA path agree with the CPU path within 1e-4; then
+               the 2 gemma2 and the 2 hymba layers in bf16, the serving
+               dtype, on the card: logits through the attention and SSD
+               kernels agree with those through their plain versions
+               within 2e-2.
 
 Any failure raises and exits non-zero.  The second-to-last line is a JSON
 object with one entry per kernel; the last is the device line.
@@ -304,12 +315,19 @@ def phase_build():
             raise AssertionError(f"{name} SASS lacks one of {ops}: {counts}")
 
 
+def layer_counts(cfg):
+    """(layers with attention, layers with an SSM): a hybrid layer has
+    both."""
+    from repro_torch.models.blocks import ATTN_KINDS, SSM_KINDS
+    kinds = cfg.layer_kinds
+    return (sum(k in ATTN_KINDS for k in kinds),
+            sum(k in SSM_KINDS for k in kinds))
+
+
 def expected_launches(cfg, steps: int):
     """Kernel launches of one prefill and `steps` decode steps of `cfg`:
     no copy, Init or matmul kernel runs on the serving path."""
-    from repro_torch.configs import SSM
-    n_ssm = sum(kind == SSM for kind in cfg.layer_kinds)
-    n_attn = cfg.n_layers - n_ssm
+    n_attn, n_ssm = layer_counts(cfg)
     return {"flash_attention": n_attn, "decode_attention": n_attn * steps,
             "ssd": n_ssm, "matmul_dma": 0,
             **{name: 0 for name in DMA_KERNELS}}
@@ -328,7 +346,11 @@ def read(mods, names=None):
 def library_attention():
     """torch's `flex_attention` compiled, with `create_block_mask`; None
     where this torch has none.  Only timed here, as a yardstick: the port
-    never calls it."""
+    never calls it.  Dynamo compiles it anew for each shape and, past its
+    recompile limit, runs it uncompiled, which materializes the scores (72
+    ms against 0.76 for hymba-1.5b's full-attention case, the whole script
+    against its phase alone, runs BM and BL): so each phase that calls
+    this starts from an empty cache."""
     import torch
     try:
         from torch.nn.attention.flex_attention import (create_block_mask,
@@ -337,7 +359,69 @@ def library_attention():
         log(f"[kernels] torch {torch.__version__} has no flex_attention: "
             f"library_ms is null")
         return None
+    torch._dynamo.reset()
     return torch.compile(flex_attention, dynamic=False), create_block_mask
+
+
+def check_close(name, got, want, dtype, rows=False):
+    """Max abs error, and the error relative to max|want|, or with `rows`
+    the largest of each row's error against its own max|want| (a row with
+    no live key is 0 on both sides); raises at TOL[dtype] or above."""
+    import torch
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs()
+    abs_err = float(err.max())
+    if rows:
+        rel = float((err.amax(-1) / want.float().abs().amax(-1)
+                     .clamp_min(1e-6)).max())
+    else:
+        rel = abs_err / max(float(want.float().abs().max()), 1e-6)
+    if not (math.isfinite(rel) and rel < TOL[dtype]):
+        raise AssertionError(f"{name}: rel err {rel:.3e} >= "
+                             f"{TOL[dtype]:.0e}")
+    return abs_err, rel
+
+
+def row_rms(got, want):
+    """Mean over rows of rms(got − want) / rms(want): finer than the
+    checked maximum, which one bf16 step at a row's largest value already
+    sets to 2^-8 .. 2^-7.  Logged, not checked."""
+    err = (got.float() - want.float()).pow(2).mean(-1).sqrt()
+    return float((err / want.float().pow(2).mean(-1).sqrt()
+                  .clamp_min(1e-6)).mean())
+
+
+def flash_mask(causal, window):
+    """`flex_attention`'s mask_mod for a causal and sliding-window mask."""
+    def mask_mod(b, h, q_idx, kv_idx):
+        live = kv_idx >= 0
+        if causal:
+            live = live & (q_idx >= kv_idx)
+        if window:
+            live = live & (q_idx - kv_idx < window)
+        return live
+    return mask_mod
+
+
+def flex_call(library, label, q, k, v, mask_mod, want, dtype, scale,
+              score_mod=None, rows=False):
+    """flex_attention with `mask_mod` as its block mask, checked against
+    the plain version's `want`; returns the call, or None where this torch
+    has none (`library` None)."""
+    if library is None:
+        return None
+    flex, create_block_mask = library
+    mask = create_block_mask(mask_mod, None, None, q.shape[2], k.shape[2],
+                             device=q.device)
+
+    def call():
+        return flex(q, k, v, score_mod=score_mod, block_mask=mask,
+                    scale=scale, enable_gqa=True)
+    got = call()
+    _, rel = check_close(f"flex_attention {label}", got, want, dtype, rows)
+    rms = f", row rms err {row_rms(got, want):.2e}" if rows else ""
+    log(f"[kernels] library flex_attention {label}: rel err {rel:.2e}{rms}")
+    return call
 
 
 def phase_kernels(fa, da):
@@ -354,31 +438,6 @@ def phase_kernels(fa, da):
     def randn(shape, dtype):
         return torch.randn(shape, generator=gen, device=dev).to(DT[dtype])
 
-    def compare(name, got, want, dtype, rows=False):
-        """Max abs error, and the error relative to max|want|, or with
-        `rows` the largest of each row's error against its own max|want|
-        (a row with no live key is 0 on both sides)."""
-        torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs()
-        abs_err = float(err.max())
-        if rows:
-            rel = float((err.amax(-1) / want.float().abs().amax(-1)
-                         .clamp_min(1e-6)).max())
-        else:
-            rel = abs_err / max(float(want.float().abs().max()), 1e-6)
-        if not (math.isfinite(rel) and rel < TOL[dtype]):
-            raise AssertionError(f"{name}: rel err {rel:.3e} >= "
-                                 f"{TOL[dtype]:.0e}")
-        return abs_err, rel
-
-    def row_rms(got, want):
-        """Mean over rows of rms(got − want) / rms(want): finer than the
-        checked maximum, which one bf16 step at a row's largest value
-        already sets to 2^-8 .. 2^-7.  Logged, not checked."""
-        err = (got.float() - want.float()).pow(2).mean(-1).sqrt()
-        return float((err / want.float().pow(2).mean(-1).sqrt()
-                      .clamp_min(1e-6)).mean())
-
     entries = {}
     B, Hq, Hkv, D, scale, cap = 4, 8, 4, 256, 1 / 16, 50.0
 
@@ -386,23 +445,8 @@ def phase_kernels(fa, da):
         return cap * torch.tanh(score / cap)
 
     def library_call(label, q, k, v, mask_mod, want, dtype, rows=False):
-        """flex_attention, checked against the plain version; None where
-        this torch has none."""
-        if library is None:
-            return None
-        flex, create_block_mask = library
-        mask = create_block_mask(mask_mod, None, None, q.shape[2],
-                                 k.shape[2], device=dev)
-
-        def call():
-            return flex(q, k, v, score_mod=softcap_mod, block_mask=mask,
-                        scale=scale, enable_gqa=True)
-        got = call()
-        _, rel = compare(f"flex_attention {label}", got, want, dtype, rows)
-        rms = f", row rms err {row_rms(got, want):.2e}" if rows else ""
-        log(f"[kernels] library flex_attention {label}: rel err {rel:.2e}"
-            f"{rms}")
-        return call
+        return flex_call(library, label, q, k, v, mask_mod, want, dtype,
+                         scale, softcap_mod, rows)
 
     def library_ms(label, q, k, v, mask_mod, want, dtype, rows=False):
         """Check flex_attention against the plain version, then time it."""
@@ -412,16 +456,6 @@ def phase_kernels(fa, da):
         ms = time_ms(call)
         log(f"[kernels] library flex_attention {label}: {ms:.4f} ms")
         return ms
-
-    def flash_mask(causal, window):
-        def mask_mod(b, h, q_idx, kv_idx):
-            live = kv_idx >= 0
-            if causal:
-                live = live & (q_idx >= kv_idx)
-            if window:
-                live = live & (q_idx - kv_idx < window)
-            return live
-        return mask_mod
 
     flash_cases = [
         # (label, S, causal, window, dtype, main path?, q multiplier)
@@ -443,8 +477,8 @@ def phase_kernels(fa, da):
         kw = dict(causal=causal, window=w, softcap=cap, scale=scale)
         want = attention_ref(q, k, v, **kw)
         got = fa.flash_attention_cuda(q, k, v, **kw)
-        abs_err, rel = compare(f"flash {label} {dtype}", got, want, dtype,
-                               rows=True)
+        abs_err, rel = check_close(f"flash {label} {dtype}", got, want,
+                                   dtype, rows=True)
         rms = row_rms(got, want)
         del got
         worst = max(worst, abs_err)
@@ -490,7 +524,7 @@ def phase_kernels(fa, da):
                 kv_len = torch.tensor(n, dtype=torch.int32, device=dev) \
                     if w == 0 else n
                 want = decode_attention_ref(q, k, v, kv_len=n, **kw)
-                abs_err, rel = compare(
+                abs_err, rel = check_close(
                     f"decode kv{n} w{w} {dtype}",
                     da.decode_attention_cuda(q, k, v, kv_len=kv_len, **kw),
                     want, dtype)
@@ -538,8 +572,8 @@ def phase_kernels(fa, da):
                         library_ms=None if flex is None
                         else turns["flex_attention"][0])
         del q, k, v
-    # the GQA groups of the configs still to port, each at every head_dim
-    # over a 4,640-row cache; at their own head_dim with their own heads:
+    # the GQA groups of the other configs, each at every head_dim over a
+    # 4,640-row cache; at their own head_dim with their own heads:
     # hymba-1.5b (25 / 5, D 64), qwen2.5-32b (40 / 8, D 128),
     # internlm2-20b (48 / 8, D 128), chatglm3-6b (32 / 2, D 128)
     for hq, hkv, d, w in ((25, 5, 64, 1024), (40, 8, 128, 0), (20, 4, 256, 0),
@@ -551,7 +585,7 @@ def phase_kernels(fa, da):
             k, v = randn((B, hkv, MAX_LEN, d), dtype), \
                 randn((B, hkv, MAX_LEN, d), dtype)
             kw = dict(kv_len=4608, window=w, softcap=cap, scale=d ** -0.5)
-            abs_err, rel = compare(
+            abs_err, rel = check_close(
                 f"decode G{hq // hkv} D{d} {dtype}",
                 da.decode_attention_cuda(q, k, v, **kw),
                 decode_attention_ref(q, k, v, **kw), dtype)
@@ -585,6 +619,28 @@ def ssd_flops_bytes(B, H, G, S, P, N, elt):
     return flops, nbytes
 
 
+def ssd_view_inputs(gen, B, H, G, S, P, N, dtype, A=None, dt=None):
+    """mamba2's ranges: dt = softplus(.) in [0.001, 0.1], A = -exp(A_log)
+    with A_log = log(1..H), D = 1.  x, B and C are (B, H or G, S, .) views
+    of one (B, S, H·P + 2·G·N) tensor and dt of a (B, S, H) one, as the
+    SSM layer passes them.  A number for A or dt fills it."""
+    import torch
+    dev = gen.device
+    DT = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+    xbc = torch.randn((B, S, H * P + 2 * G * N), generator=gen, device=dev)
+    xbc[..., H * P:] *= 0.3
+    xs, Bs, Cs = torch.split(xbc.to(DT[dtype]), [H * P, G * N, G * N],
+                             dim=-1)
+    dtv = 0.001 + 0.099 * torch.rand((B, S, H), generator=gen, device=dev)
+    if dt is not None:
+        dtv.fill_(dt)
+    Av = -torch.arange(1, H + 1, device=dev, dtype=torch.float32) \
+        if A is None else torch.full((H,), A, device=dev)
+    return (xs.reshape(B, S, H, P).transpose(1, 2), dtv.transpose(1, 2),
+            Av, torch.ones(H, device=dev),
+            *(t.reshape(B, S, G, N).transpose(1, 2) for t in (Bs, Cs)))
+
+
 def phase_ssd_kernel(sk):
     """The SSD kernel against its plain versions, each case on the route
     `sk.route` gives it (the main shape, in both dtypes, on the tensor
@@ -594,29 +650,8 @@ def phase_ssd_kernel(sk):
     from repro_torch.kernels.ssd import ssd_chunked_ref, ssd_ref
     dev = torch.device("cuda")
     gen = torch.Generator(dev).manual_seed(2)
-    DT = {"bfloat16": torch.bfloat16, "float32": torch.float32}
     log("[kernels] ssd: no single PyTorch call computes the chunked SSD "
         "scan, so library_ms is null")
-
-    def inputs(B, H, G, S, P, N, dtype, A=None, dt=None):
-        """mamba2's ranges: dt = softplus(.) in [0.001, 0.1], A = -exp(A_log)
-        with A_log = log(1..H), D = 1.  x, B and C are (B, H or G, S, .)
-        views of one (B, S, H·P + 2·G·N) tensor and dt of a (B, S, H) one,
-        as the SSM layer passes them.  A number for A or dt fills it."""
-        xbc = torch.randn((B, S, H * P + 2 * G * N), generator=gen,
-                          device=dev)
-        xbc[..., H * P:] *= 0.3
-        xs, Bs, Cs = torch.split(xbc.to(DT[dtype]), [H * P, G * N, G * N],
-                                 dim=-1)
-        dtv = 0.001 + 0.099 * torch.rand((B, S, H), generator=gen,
-                                         device=dev)
-        if dt is not None:
-            dtv.fill_(dt)
-        Av = -torch.arange(1, H + 1, device=dev, dtype=torch.float32) \
-            if A is None else torch.full((H,), A, device=dev)
-        return (xs.reshape(B, S, H, P).transpose(1, 2), dtv.transpose(1, 2),
-                Av, torch.ones(H, device=dev),
-                *(t.reshape(B, S, G, N).transpose(1, 2) for t in (Bs, Cs)))
 
     def rel(got, want):
         torch.cuda.synchronize()
@@ -634,7 +669,7 @@ def phase_ssd_kernel(sk):
     ]
     L, worst, entry = 128, 0.0, None
     for label, B, H, G, S, P, N, dtype, main, A, dtc in cases:
-        args = inputs(B, H, G, S, P, N, dtype, A, dtc)
+        args = ssd_view_inputs(gen, B, H, G, S, P, N, dtype, A, dtc)
         route = sk.route(args[0], args[4], args[5], L)
         if label == "main" and route != "tensor_cores":
             raise AssertionError(f"ssd main {dtype}: route {route}, want "
@@ -686,6 +721,180 @@ def phase_ssd_kernel(sk):
         del args, y, state, wy, wstate
     entry["max_abs_err"] = worst
     return entry
+
+
+HYMBA = "hymba-1.5b"
+
+
+def decode_mask(kv_len, window):
+    """`flex_attention`'s mask_mod for one query over a cache of `kv_len`
+    live rows, the last `window` of them where `window` is not 0."""
+    def mask_mod(b, h, q_idx, kv_idx):
+        live = kv_idx < kv_len
+        if window:
+            live = live & (kv_idx >= kv_len - window)
+        return live
+    return mask_mod
+
+
+def phase_hymba_kernels(mods):
+    """Flash attention, decode attention and the SSD at hymba-1.5b's
+    main-path shapes under the serve phase's traffic (B 4, 4,608 prompt
+    tokens, a 4,640-row cache; 25 q and 5 kv heads of 64, no softcap,
+    window 1,024 on 29 layers and 0 on 3; the SSD on the views
+    `models/ssm.py` hands it, 50 heads of 64, d_state 16, chunk 128, on
+    the tensor cores), each against its plain version at TOL (flash row by
+    row), then by device time (torch.profiler), 5 rounds in turns with
+    `flex_attention` where it computes the same function; the plain
+    version by CUDA events.  Returns one JSON entry a kernel, for the case
+    with the most launches a generate: the windowed layers' flash and
+    decode attention, the fp32 SSD."""
+    import torch
+    from repro_torch.configs import get
+    from repro_torch.kernels.decode_attention import decode_attention_ref
+    from repro_torch.kernels.flash_attention import attention_ref
+    from repro_torch.kernels.ssd import ssd_chunked_ref
+    from repro_torch.launch.profile_serve import MAX_LEN, PROMPTS
+    from repro_torch.models.ssm import ssm_dims
+
+    cfg = get(HYMBA)
+    fa, da, sk = (mods[n] for n in ("flash_attention", "decode_attention",
+                                    "ssd"))
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(3)
+    library = library_attention()
+    B, S = len(PROMPTS), max(PROMPTS)
+    Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    scale, bf16 = D ** -0.5, "bfloat16"
+    entries = {}
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    def timed(label, kern, lib):
+        """Device ms of the kernel and of the library call, in turns."""
+        t = in_turns({"kernel": kern,
+                      **({} if lib is None else {"flex_attention": lib})})
+        log(f"[kernels] {HYMBA} {label} in turns, device ms median "
+            f"(min-max) over 5 rounds: " + ", ".join(
+                f"{n} {md:.4f} ({lo:.4f}-{hi:.4f})"
+                for n, (md, lo, hi) in t.items()))
+        return t["kernel"][0], None if lib is None else \
+            t["flex_attention"][0]
+
+    def entry(name, ms, plain_ms, b_ms, b_by, lib_ms):
+        return dict(name=f"{name} {HYMBA}", route="cuda",
+                    source=f"src/repro_torch/csrc/{KERNELS[name][2]}.cu",
+                    replaces=KERNELS[name][3], ms=ms, plain_ms=plain_ms,
+                    bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+
+    worst = 0.0
+    for w in (cfg.window, 0):
+        q, k, v = randn(B, Hq, S, D), randn(B, Hkv, S, D), randn(B, Hkv, S, D)
+        kw = dict(causal=True, window=w, softcap=0.0, scale=scale)
+        label = f"flash B{B} Hq{Hq} Hkv{Hkv} S{S} D{D} w{w} bf16"
+        want = attention_ref(q, k, v, **kw)
+        got = fa.flash_attention_cuda(q, k, v, **kw)
+        abs_err, rel = check_close(f"{HYMBA} {label}", got, want, bf16,
+                                   rows=True)
+        rms = row_rms(got, want)
+        worst = max(worst, abs_err)
+        lib = flex_call(library, f"{HYMBA} {label}", q, k, v,
+                        flash_mask(True, w), want, bf16, scale, rows=True)
+        del got, want
+        ms, lib_ms = timed(label, lambda: fa.flash_attention_cuda(
+            q, k, v, **kw), lib)
+        plain_ms = time_ms(lambda: attention_ref(q, k, v, **kw), iters=3,
+                           warmup=1)
+        flops = 4 * D * flash_live_pairs(S, S, True, w) * B * Hq
+        b_ms, b_by = bound(flops, (2 * q.numel() + k.numel() + v.numel())
+                           * q.element_size(), bf16)
+        versus = "" if lib_ms is None else f", {ms / lib_ms:.2f}x library"
+        log(f"[kernels] {HYMBA} {label}: row rel err {rel:.2e} (tol "
+            f"{TOL[bf16]:.0e}), row rms err {rms:.2e} | kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}), "
+            f"{100 * b_ms / ms:.1f}% of bound, {flops / ms / 1e9:.1f} "
+            f"TFLOP/s{versus}")
+        if w:
+            entries["flash_attention"] = entry("flash_attention", ms,
+                                               plain_ms, b_ms, b_by, lib_ms)
+        del q, k, v, lib
+        torch.cuda.empty_cache()
+    entries["flash_attention"]["max_abs_err"] = worst
+
+    worst = 0.0
+    q = randn(B, Hq, D)
+    k, v = randn(B, Hkv, MAX_LEN, D), randn(B, Hkv, MAX_LEN, D)
+    for w in (cfg.window, 0):
+        kw = dict(kv_len=S, window=w, softcap=0.0, scale=scale)
+        label = (f"decode B{B} Hq{Hq} Hkv{Hkv} cache {MAX_LEN} D{D} kv_len "
+                 f"{S} w{w} bf16")
+        want = decode_attention_ref(q, k, v, **kw)
+        abs_err, rel = check_close(f"{HYMBA} {label}",
+                                   da.decode_attention_cuda(q, k, v, **kw),
+                                   want, bf16)
+        worst = max(worst, abs_err)
+        lib = flex_call(library, f"{HYMBA} {label}", q[:, :, None], k, v,
+                        decode_mask(S, w), want[:, :, None], bf16, scale)
+        ms, lib_ms = timed(label, lambda: da.decode_attention_cuda(
+            q, k, v, **kw), lib)
+        plain_ms = time_ms(lambda: decode_attention_ref(q, k, v, **kw))
+        live = min(S, w) if w else S
+        b_ms, b_by = bound(4 * B * Hq * live * D,
+                           (2 * B * Hkv * live * D + 2 * q.numel())
+                           * q.element_size(), bf16)
+        versus = "" if lib_ms is None else f", {ms / lib_ms:.2f}x library"
+        log(f"[kernels] {HYMBA} {label}: rel err {rel:.2e} (tol "
+            f"{TOL[bf16]:.0e}) | kernel {ms:.4f} ms device, plain "
+            f"{plain_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}), "
+            f"{100 * b_ms / ms:.1f}% of bound{versus}")
+        if w:
+            entries["decode_attention"] = entry("decode_attention", ms,
+                                                plain_ms, b_ms, b_by, lib_ms)
+    entries["decode_attention"]["max_abs_err"] = worst
+    del q, k, v, lib
+
+    worst = 0.0
+    _, H, P, G, N = ssm_dims(cfg)
+    L = cfg.ssm.chunk
+    for dtype in ("float32", "bfloat16"):
+        args = ssd_view_inputs(gen, B, H, G, S, P, N, dtype)
+        label = f"ssd B{B} H{H} G{G} S{S} P{P} N{N} L{L} {dtype}"
+        route = sk.route(args[0], args[4], args[5], L)
+        before = sk.launches_by_route["tensor_cores"]
+        y, state = sk.ssd_cuda(*args, chunk=L)
+        if route != "tensor_cores" or \
+                sk.launches_by_route["tensor_cores"] != before + 1:
+            raise AssertionError(f"{HYMBA} {label}: route {route}, want "
+                                 f"tensor_cores")
+        wy, wstate = ssd_chunked_ref(*args, chunk=L, return_state=True)
+        errs = [check_close(f"{HYMBA} {label} {what}", got, want, dtype)
+                for what, got, want in (("y", y, wy),
+                                        ("state", state, wstate))]
+        worst = max([worst] + [e for e, _ in errs])
+        del y, state, wy, wstate
+        ms, _ = timed(label, lambda: sk.ssd_cuda(*args, chunk=L), None)
+        plain_ms = time_ms(lambda: ssd_chunked_ref(*args, chunk=L,
+                                                   return_state=True),
+                           iters=3, warmup=1)
+        flops, nbytes = ssd_flops_bytes(B, H, G, S, P, N,
+                                        args[0].element_size())
+        b_ms, b_by = bound(flops, nbytes,
+                           "3xtf32" if dtype == "float32" else dtype)
+        log(f"[kernels] {HYMBA} {label} on route {route}: rel err y "
+            f"{errs[0][1]:.2e}, state {errs[1][1]:.2e} (tol "
+            f"{TOL[dtype]:.0e}) | kernel {ms:.4f} ms device, plain "
+            f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}"
+            f"{', 3xTF32' if dtype == 'float32' else ''}), "
+            f"{100 * b_ms / ms:.1f}% of bound, {flops / ms / 1e9:.1f} "
+            f"TFLOP/s")
+        if dtype == "float32":
+            entries["ssd"] = entry("ssd", ms, plain_ms, b_ms, b_by, None)
+        del args
+        torch.cuda.empty_cache()
+    entries["ssd"]["max_abs_err"] = worst
+    return {e["name"]: e for e in entries.values()}
 
 
 def dma_plane():
@@ -1298,7 +1507,7 @@ def phase_serve(arch, mods):
         HOT_ROW, HOT_TEMPERATURE, MAX_LEN, NEW_TOKENS, PROMPTS,
         make_requests)
     from repro_torch.models import LM
-    from repro_torch.models.common import unembed
+    from repro_torch.models.common import dense, unembed
     from repro_torch.serve import ServeEngine
 
     cfg = get(arch)
@@ -1365,20 +1574,29 @@ def phase_serve(arch, mods):
             f"over {steps} steps, {n_new / wall:.1f} tokens/s "
             f"({wall:.2f} s wall), peak memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | launches "
-            + ", ".join(f"{k} {v}" for k, v in counts.items()))
+            + ", ".join(f"{k} {v}" for k, v in counts.items()) +
+            f" (ssd on route tensor_cores {ssd_tc})")
     for i in range(len(PROMPTS)):
         if i != HOT_ROW and runs[0]["outputs"][i] != runs[1]["outputs"][i]:
             raise AssertionError(f"{arch}: greedy row {i} differs on rerun")
     log(f"[serve] {arch}: greedy rows identical on rerun; row 0 starts "
         f"{runs[0]['outputs'][0][:8]}")
 
-    # cost of fp32 logits: upcast operands vs a bf16 product, decode shape
+    # cost of fp32 logits at the decode shape: the tied head's upcast
+    # operands vs a bf16 product; the untied head is a bf16 product
     x = torch.randn(len(PROMPTS), cfg.d_model, device="cuda",
                     dtype=torch.bfloat16)
-    up_ms = time_ms(lambda: unembed(model.embed, x))
-    bf_ms = time_ms(lambda: x @ model.embed.t())
-    log(f"[serve] {arch} unembed (B {len(PROMPTS)}, vocab {cfg.vocab_size}): "
-        f"fp32 upcast {up_ms:.3f} ms vs bf16 product {bf_ms:.3f} ms per step")
+    if cfg.tie_embeddings:
+        up_ms = time_ms(lambda: unembed(model.embed, x))
+        bf_ms = time_ms(lambda: x @ model.embed.t())
+        log(f"[serve] {arch} unembed (B {len(PROMPTS)}, vocab "
+            f"{cfg.vocab_size}): fp32 upcast {up_ms:.3f} ms vs bf16 product "
+            f"{bf_ms:.3f} ms per step")
+    else:
+        head_ms = time_ms(lambda: dense(x, model.lm_head).float())
+        log(f"[serve] {arch} untied head (B {len(PROMPTS)}, d {cfg.d_model}, "
+            f"vocab {cfg.vocab_size}): bf16 product then upcast "
+            f"{head_ms:.3f} ms per step")
     return runs[0]["counts"]
 
 
@@ -1431,7 +1649,6 @@ def front_run(arch, cfg, model, layout, mods, max_running):
     layer an admission on the tensor cores, and no other kernel.  Returns
     the requests' outputs."""
     import torch
-    from repro_torch.configs import SSM
     from repro_torch.serve import ServeFrontDoor
     lm = timed_steplm(model, layout)
     fd = ServeFrontDoor(lm, layout, max_seq_len=FRONT_MAX_LEN,
@@ -1449,8 +1666,7 @@ def front_run(arch, cfg, model, layout, mods, max_running):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     counts = read(mods)
-    n_ssm = sum(kind == SSM for kind in cfg.layer_kinds)
-    n_attn = cfg.n_layers - n_ssm
+    n_attn, n_ssm = layer_counts(cfg)
     admitted = fd.sched.stats.admitted
     want = {name: 0 for name in mods}
     want.update(flash_attention=n_attn * admitted,
@@ -1628,7 +1844,10 @@ def phase_front(arch, mods):
     torch.cuda.empty_cache()
 
 
-def phase_card_vs_cpu(cfg, label, mods):
+def phase_card_vs_cpu(cfg, label, mods, S=600):
+    """2 layers at full width in fp32, a prompt of S tokens and 3 decode
+    steps: the card's logits against the CPU's over the real vocab rows,
+    and the card's launches against `expected_launches`."""
     import numpy as np
     import torch
     from repro_torch.configs import RunConfig
@@ -1639,7 +1858,7 @@ def phase_card_vs_cpu(cfg, label, mods):
     cpu = LM(cfg, f32, device="cpu", init=False)
     cpu.load_state_dict(gpu.state_dict())
     rng = np.random.default_rng(1)
-    B, S, steps = 2, 600, 3
+    B, steps = 2, 3
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S + steps)))
     max_len = S + steps
     reset(mods)
@@ -1667,19 +1886,23 @@ def phase_card_vs_cpu(cfg, label, mods):
         f"(tol 1e-4)")
 
 
-def phase_bf16_vs_plain(cfg, label, mods):
+def phase_bf16_vs_plain(cfg, label, mods, S=600):
     """The serving dtype end to end: the 2 layers in bf16 on the card,
-    logits through the attention kernels against the same model with the
-    kernels' plain versions in their place."""
+    logits through the attention and SSD kernels against the same model
+    with the kernels' plain versions in their place."""
     import numpy as np
     import torch
     from repro_torch.configs import RunConfig
     from repro_torch.kernels.decode_attention import decode_attention_ref
     from repro_torch.kernels.flash_attention import attention_ref
+    from repro_torch.kernels.ssd import ssd_chunked_ref
     from repro_torch.models import LM, lm_decode_step, lm_prefill
 
+    def ssd_plain(*args, chunk=128):
+        return ssd_chunked_ref(*args, chunk=chunk, return_state=True)
+
     model = LM(cfg, RunConfig(dtype="bfloat16"), seed=1, device="cuda")
-    B, S, steps = 2, 600, 3
+    B, steps = 2, 3
     toks = torch.from_numpy(np.random.default_rng(2).integers(
         0, cfg.vocab_size, (B, S + steps))).cuda()
 
@@ -1698,14 +1921,16 @@ def phase_bf16_vs_plain(cfg, label, mods):
     if counts != want_counts:
         raise AssertionError(f"bf16 card path launches {counts}, want "
                              f"{want_counts}")
-    fa, da = mods["flash_attention"], mods["decode_attention"]
-    kernels = fa.flash_attention_cuda, da.decode_attention_cuda
-    fa.flash_attention_cuda, da.decode_attention_cuda = \
-        attention_ref, decode_attention_ref
+    fa, da, sk = (mods[n] for n in ("flash_attention", "decode_attention",
+                                    "ssd"))
+    kernels = fa.flash_attention_cuda, da.decode_attention_cuda, sk.ssd_cuda
+    fa.flash_attention_cuda, da.decode_attention_cuda, sk.ssd_cuda = \
+        attention_ref, decode_attention_ref, ssd_plain
     try:
         want = run()
     finally:
-        fa.flash_attention_cuda, da.decode_attention_cuda = kernels
+        fa.flash_attention_cuda, da.decode_attention_cuda, sk.ssd_cuda = \
+            kernels
     worst = 0.0
     for g, w in zip(got, want):
         g, w = g[:, :cfg.vocab_size].float(), w[:, :cfg.vocab_size].float()
@@ -1731,20 +1956,26 @@ def main() -> int:
                      ("TRITON_HOME", "triton")):
         os.environ.setdefault(var, str(ROOT / "build" / sub))
     import torch
-    from repro_torch.configs import ATTN_FULL, ATTN_SWA, get
+    from repro_torch.configs import (ATTN_FULL, ATTN_SWA, HYBRID, HYBRID_FULL,
+                                     get)
     smi = phase_device()
     phase_build()
     mods = {name: importlib.import_module(k[0])
             for name, k in KERNELS.items()}
     entries = phase_kernels(mods["flash_attention"], mods["decode_attention"])
     entries["ssd"] = phase_ssd_kernel(mods["ssd"])
+    hymba_entries = phase_hymba_kernels(mods)
     entries.update(phase_dma(mods))
     entries["matmul_dma"] = phase_matmul(mods)
     gemma = phase_serve("gemma2-2b", mods)
     mamba = phase_serve("mamba2-1.3b", mods)
+    hymba = phase_serve(HYMBA, mods)
     entries["flash_attention"]["launches"] = gemma["flash_attention"]
     entries["decode_attention"]["launches"] = gemma["decode_attention"]
     entries["ssd"]["launches"] = mamba["ssd"]
+    for name, e in hymba_entries.items():
+        e["launches"] = hymba[name.split()[0]]
+        entries[name] = e
     phase_front("gemma2-2b", mods)
     phase_front("mamba2-1.3b", mods)
     gemma2 = dataclasses.replace(get("gemma2-2b"), n_layers=2,
@@ -1753,6 +1984,11 @@ def main() -> int:
     phase_bf16_vs_plain(gemma2, "SWA, FULL", mods)
     phase_card_vs_cpu(dataclasses.replace(get("mamba2-1.3b"), n_layers=2),
                       "SSM, SSM", mods)
+    # a prompt past hymba's window of 1,024, off the SSD's chunk of 128
+    hymba2 = dataclasses.replace(get(HYMBA), n_layers=2, layer_pattern=(
+        ((HYBRID_FULL,), 1), ((HYBRID,), 1)))
+    phase_card_vs_cpu(hymba2, "HYBRID_FULL, HYBRID", mods, S=1100)
+    phase_bf16_vs_plain(hymba2, "HYBRID_FULL, HYBRID", mods, S=1100)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(smi)

@@ -5,10 +5,10 @@ reference config and this one from the same numbers.  `RunConfig` keeps
 only what the ported path reads: the implementation of each kernel is
 chosen by the device of the tensor it is given, not by a knob.
 
-Layer heterogeneity (gemma2's local/global alternation) is a
-`layer_pattern`: a tuple of ((kinds...), repeat) segments.  The real
-layer order is segment by segment, and within a segment repeat by
-repeat, each repeat running `kinds` in order.
+Layer heterogeneity (gemma2's local/global alternation, hymba's three
+full-attention layers) is a `layer_pattern`: a tuple of ((kinds...),
+repeat) segments.  The real layer order is segment by segment, and
+within a segment repeat by repeat, each repeat running `kinds` in order.
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ ATTN_FULL = "attn_full"
 ATTN_SWA = "attn_swa"
 SSM = "ssm"
 HYBRID = "hybrid"          # parallel attention + SSM heads (hymba)
+HYBRID_FULL = "hybrid_full"   # the same with full attention
 
 
 @dataclass(frozen=True)

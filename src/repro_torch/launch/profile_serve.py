@@ -2,11 +2,11 @@
 
   PYTHONPATH=src python -m repro_torch.launch.profile_serve [--arch ARCH]
 
-A full-width model (`--arch`, default gemma2-2b; also mamba2-1.3b;
-random weights from seed 0, bf16) answers the smoke test's requests
-(`chip_smoke.py`'s serve phases, defined here as `make_requests`)
-through `ServeEngine.generate`: once to warm up, once timed, once under
-`torch.profiler`.  For prefill and for the decode step
+A full-width model (`--arch`, default gemma2-2b; also mamba2-1.3b and
+hymba-1.5b; random weights from seed 0, bf16) answers the smoke test's
+requests (`chip_smoke.py`'s serve phases, defined here as
+`make_requests`) through `ServeEngine.generate`: once to warm up, once
+timed, once under `torch.profiler`.  For prefill and for the decode step
 (the model's step plus sampling and the host's wait for the tokens) it
 prints the wall time without the profiler, the device's busy time, its
 idle share against that wall time, the kernel launches and the kernels

@@ -3,7 +3,7 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b \
       --batch 4 --prompt-len 32 --new-tokens 16 [--device cpu] [--full]
 
-`--arch` is gemma2-2b or mamba2-1.3b.
+`--arch` is gemma2-2b, mamba2-1.3b or hymba-1.5b.
 
 Without `--full` the config is `reduced()` and computes in float32, as
 the reference `repro.launch.serve` does; `--full` serves the published

@@ -1,12 +1,15 @@
-"""Transformer and SSM blocks and the layer loop (the port of
-`repro.models.blocks` for the attention and SSM kinds).
+"""Transformer, SSM and hybrid blocks and the layer loop (the port of
+`repro.models.blocks` for the attention, SSM and hybrid kinds).
 
 A block is one residual layer:
   attn_full / attn_swa — [norm → attention → (+)] [norm → FFN → (+)]
   ssm                  — [norm → mamba2 → (+)]      (no FFN in Mamba-2)
-with gemma2's optional post-norms on each branch.  The reference scans
-stacked parameters per segment; the port keeps its layers in a flat list
-in the order they run (`ArchConfig.layer_kinds`) and loops over it.
+  hybrid / hybrid_full — [norm → ½(attn ⊕ ssm) → (+)] [norm → FFN → (+)]
+with gemma2's optional post-norms on each branch.  A hybrid layer (hymba)
+runs attention and the SSM side by side on one normed input, norms each
+branch's output and averages the two.  The reference scans stacked
+parameters per segment; the port keeps its layers in a flat list in the
+order they run (`ArchConfig.layer_kinds`) and loops over it.
 """
 
 from __future__ import annotations
@@ -16,26 +19,29 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from repro_torch.configs.base import ArchConfig, ATTN_FULL, ATTN_SWA, SSM
+from repro_torch.configs.base import (ArchConfig, ATTN_FULL, ATTN_SWA,
+                                      HYBRID, HYBRID_FULL, SSM)
 from .attention import Attention, attention_decode_step, attention_forward
 from .common import rmsnorm
 from .ffn import FFN, ffn_forward
 from .ssm import SSM as SSMMixer, ssm_decode_step, ssm_forward
 
-ATTN_KINDS = (ATTN_FULL, ATTN_SWA)
-# attention layers: {"k", "v"}; SSM layers: {"conv", "state"}
+HYBRID_KINDS = (HYBRID, HYBRID_FULL)
+ATTN_KINDS = (ATTN_FULL, ATTN_SWA) + HYBRID_KINDS
+SSM_KINDS = (SSM,) + HYBRID_KINDS
+# attention layers: {"k", "v"}; SSM layers: {"conv", "state"}; hybrid
+# layers: all four
 Cache = Dict[str, torch.Tensor]
 
 
 def check_kind(kind: str) -> None:
     if kind not in ATTN_KINDS + (SSM,):
         raise NotImplementedError(
-            f"layer kind {kind!r} is not ported yet (ROADMAP.md, queue 1: "
-            f"hybrid and MoE blocks)")
+            f"layer kind {kind!r} is not ported (ROADMAP.md, queue 1)")
 
 
 def _window_for(kind: str, cfg: ArchConfig) -> int:
-    return cfg.window if kind == ATTN_SWA else 0
+    return cfg.window if kind in (ATTN_SWA, HYBRID) else 0
 
 
 def _norm(d: int, device: torch.device) -> nn.Parameter:
@@ -51,10 +57,13 @@ class Block(nn.Module):
         self.has_ffn = kind != SSM         # Mamba-2 layers have no FFN
         d = cfg.d_model
         self.ln1 = _norm(d, device)
-        if kind == SSM:
-            self.ssm = SSMMixer(cfg, dtype, device)
-        else:
+        if kind in ATTN_KINDS:
             self.attn = Attention(cfg, dtype, device)
+        if kind in SSM_KINDS:
+            self.ssm = SSMMixer(cfg, dtype, device)
+        if kind in HYBRID_KINDS:
+            self.attn_out_norm = _norm(d, device)
+            self.ssm_out_norm = _norm(d, device)
         if self.has_ffn:
             self.ln2 = _norm(d, device)
             self.ffn = FFN(d, cfg.d_ff, dtype, device)
@@ -73,22 +82,32 @@ def _ffn_branch(p: Block, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     return x + h
 
 
+def _hybrid_mix(p: Block, a: torch.Tensor, s: torch.Tensor
+                ) -> torch.Tensor:
+    """The hybrid layer's two branches, each normed, averaged."""
+    return 0.5 * (rmsnorm(p.attn_out_norm, a) + rmsnorm(p.ssm_out_norm, s))
+
+
 def block_forward(p: Block, x: torch.Tensor, cfg: ArchConfig, kind: str,
                   positions: Optional[torch.Tensor] = None,
                   collect_cache: bool = False):
     """Returns x, or (x, cache) when `collect_cache`: the roped k/v of an
-    attention layer, the final state and conv tail of an SSM layer."""
+    attention layer, the final state and conv tail of an SSM layer, both
+    of a hybrid layer."""
     h = rmsnorm(p.ln1, x)
-    if kind == SSM:
-        h = ssm_forward(p.ssm, h, cfg, return_state=collect_cache)
-        if collect_cache:
-            h, cache = h
-    else:
-        h = attention_forward(p.attn, h, cfg, window=_window_for(kind, cfg),
+    cache: Cache = {}
+    if kind in ATTN_KINDS:
+        a = attention_forward(p.attn, h, cfg, window=_window_for(kind, cfg),
                               positions=positions, return_kv=collect_cache)
         if collect_cache:
-            h, (k, v) = h
-            cache = {"k": k, "v": v}
+            a, (cache["k"], cache["v"]) = a
+    if kind in SSM_KINDS:
+        s = ssm_forward(p.ssm, h, cfg, return_state=collect_cache)
+        if collect_cache:
+            s, ssm_cache = s
+            cache.update(ssm_cache)
+    h = _hybrid_mix(p, a, s) if kind in HYBRID_KINDS else \
+        (s if kind == SSM else a)
     if cfg.post_block_norm:
         h = rmsnorm(p.post_ln1, h)
     x = _ffn_branch(p, x + h, cfg)
@@ -101,16 +120,19 @@ def block_decode_step(p: Block, x: torch.Tensor, cache: Cache, pos: int,
     """One token through one layer.  An attention cache is written in
     place; an SSM cache is replaced by the returned one."""
     h = rmsnorm(p.ln1, x)
-    if kind == SSM:
-        h, cache = ssm_decode_step(p.ssm, h, cache, cfg)
-    else:
-        h, ck, cv = attention_decode_step(
+    new_cache: Cache = {}
+    if kind in ATTN_KINDS:
+        a, new_cache["k"], new_cache["v"] = attention_decode_step(
             p.attn, h, cache["k"], cache["v"], pos, cfg,
             window=_window_for(kind, cfg))
-        cache = {"k": ck, "v": cv}
+    if kind in SSM_KINDS:
+        s, ssm_cache = ssm_decode_step(p.ssm, h, cache, cfg)
+        new_cache.update(ssm_cache)
+    h = _hybrid_mix(p, a, s) if kind in HYBRID_KINDS else \
+        (s if kind == SSM else a)
     if cfg.post_block_norm:
         h = rmsnorm(p.post_ln1, h)
-    return _ffn_branch(p, x + h, cfg), cache
+    return _ffn_branch(p, x + h, cfg), new_cache
 
 
 def segments_forward(layers: Sequence[Block], x: torch.Tensor,

@@ -23,6 +23,8 @@ _LAYER_LEAVES = {
     ("ln2", "scale"): "ln2",
     ("post_ln1", "scale"): "post_ln1",
     ("post_ln2", "scale"): "post_ln2",
+    ("attn_out_norm", "scale"): "attn_out_norm",
+    ("ssm_out_norm", "scale"): "ssm_out_norm",
     ("attn", "wq", "kernel"): "attn.wq",
     ("attn", "wk", "kernel"): "attn.wk",
     ("attn", "wv", "kernel"): "attn.wv",
@@ -60,14 +62,22 @@ def lm_from_numpy(cfg: ArchConfig, tree: Dict[str, Any],
     params = dict(model.named_parameters())
 
     def put(name: str, arr: np.ndarray) -> None:
+        if name not in params:
+            raise ValueError(f"{name}: the port's {cfg.name} has no such "
+                             f"parameter")
         p = params.pop(name)
         if tuple(arr.shape) != tuple(p.shape):
             raise ValueError(f"{name}: reference shape {arr.shape} != "
                              f"{tuple(p.shape)}")
         p.copy_(torch.tensor(arr, dtype=torch.float32))
 
+    top = set(tree) - {"embed", "final_norm", "lm_head", "segments"}
+    if top:
+        raise ValueError(f"unported parameters {sorted(top)}")
     put("embed", tree["embed"]["table"])
     put("final_norm", tree["final_norm"]["scale"])
+    if "lm_head" in tree:
+        put("lm_head", tree["lm_head"]["kernel"])
     layer = 0
     for (kinds, rep), seg in zip(cfg.pattern, tree["segments"]):
         for r in range(rep):

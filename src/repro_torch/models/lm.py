@@ -1,5 +1,5 @@
-"""Decoder-only LM (the port of `repro.models.lm` for dense attention and
-pure SSM models).
+"""Decoder-only LM (the port of `repro.models.lm` for dense attention,
+pure SSM and hybrid models, with a tied or an untied unembedding).
 
   LM             — the module; weights drawn from a seeded torch.Generator
   lm_prefill     — tokens → last-position logits and decode caches padded
@@ -19,11 +19,12 @@ from typing import List, Optional, Tuple, Union
 import torch
 from torch import nn
 
-from repro_torch.configs.base import ArchConfig, RunConfig, SSM
+from repro_torch.configs.base import ArchConfig, RunConfig
 from repro_torch.kernels.runtime import resolve_device
-from .blocks import Block, Cache, block_decode_step, segments_forward
+from .blocks import (ATTN_KINDS, SSM_KINDS, Block, Cache, block_decode_step,
+                     segments_forward)
 from .ssm import SSM as SSMMixer, ssm_dims
-from .common import embed, rmsnorm, softcap, unembed
+from .common import dense, embed, rmsnorm, softcap, unembed
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -31,8 +32,8 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 def _check_supported(cfg: ArchConfig) -> None:
     missing = [name for name, on in (
         ("moe", cfg.moe is not None), ("encoder", cfg.encoder is not None),
-        ("vision", cfg.vision is not None), ("qkv_bias", cfg.qkv_bias),
-        ("untied embeddings", not cfg.tie_embeddings)) if on]
+        ("vision", cfg.vision is not None), ("qkv_bias", cfg.qkv_bias))
+        if on]
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} not ported yet (ROADMAP.md, "
@@ -43,10 +44,10 @@ class LM(nn.Module):
     """`rcfg.dtype` is the compute dtype ("bfloat16" or "float32");
     `device` defaults to the card.  Weights follow the reference's
     initializers (truncated normal at ±2σ; σ = 1/sqrt(fan_in), 0.02 for
-    the embedding; norm scales 0; the SSM leaves by `init_ssm`'s law)
-    but are drawn from `torch.Generator(device)` seeded with `seed`, so
-    they are not the reference's numbers.  `init=False` leaves them unset
-    for a caller that copies weights in."""
+    the embedding and the untied head; norm scales 0; the SSM leaves by
+    `init_ssm`'s law) but are drawn from `torch.Generator(device)` seeded
+    with `seed`, so they are not the reference's numbers.  `init=False`
+    leaves them unset for a caller that copies weights in."""
 
     def __init__(self, cfg: ArchConfig, rcfg: RunConfig = RunConfig(),
                  seed: int = 0,
@@ -64,6 +65,9 @@ class LM(nn.Module):
             Block(cfg, kind, self.dtype, dev) for kind in cfg.layer_kinds)
         self.final_norm = nn.Parameter(
             torch.zeros(cfg.d_model, dtype=torch.float32, device=dev))
+        if not cfg.tie_embeddings:
+            self.lm_head = nn.Parameter(torch.empty(
+                cfg.d_model, cfg.padded_vocab, dtype=self.dtype, device=dev))
         if init:
             self._init_weights(torch.Generator(dev).manual_seed(seed))
 
@@ -99,18 +103,26 @@ class LM(nn.Module):
         cfg = self.cfg
         dh = cfg.resolved_head_dim
         fill(self.embed, 0.02)
+        if not cfg.tie_embeddings:
+            fill(self.lm_head, 0.02)
         for layer in self.layers:
-            if layer.kind == SSM:
+            if layer.kind in SSM_KINDS:
                 init_ssm(layer.ssm)
-                continue
-            a, f = layer.attn, layer.ffn
-            for w in (a.wq, a.wk, a.wv, f.w_gate, f.w_up):
-                fill(w, 1.0 / math.sqrt(cfg.d_model))
-            fill(a.wo, 1.0 / math.sqrt(cfg.n_heads * dh))
-            fill(f.w_down, 1.0 / math.sqrt(cfg.d_ff))
+            if layer.kind in ATTN_KINDS:
+                a = layer.attn
+                for w in (a.wq, a.wk, a.wv):
+                    fill(w, 1.0 / math.sqrt(cfg.d_model))
+                fill(a.wo, 1.0 / math.sqrt(cfg.n_heads * dh))
+            if layer.has_ffn:
+                f = layer.ffn
+                for w in (f.w_gate, f.w_up):
+                    fill(w, 1.0 / math.sqrt(cfg.d_model))
+                fill(f.w_down, 1.0 / math.sqrt(cfg.d_ff))
 
 
 def _embed_in(model: LM, tokens: torch.Tensor) -> torch.Tensor:
+    """The embedding rows, scaled by sqrt(d_model) only where the head is
+    tied, as in the reference."""
     x = embed(model.embed, tokens)
     if model.cfg.tie_embeddings:
         x = x * x.new_tensor(math.sqrt(model.cfg.d_model))
@@ -118,8 +130,13 @@ def _embed_in(model: LM, tokens: torch.Tensor) -> torch.Tensor:
 
 
 def _logits(model: LM, x: torch.Tensor) -> torch.Tensor:
+    """fp32 logits.  The untied head is the reference's `dense`: a product
+    in the compute dtype (in bf16 each logit rounded to bf16), then
+    upcast."""
     cfg = model.cfg
-    logits = softcap(unembed(model.embed, x), cfg.final_softcap)
+    logits = unembed(model.embed, x) if cfg.tie_embeddings else \
+        dense(x, model.lm_head).float()
+    logits = softcap(logits, cfg.final_softcap)
     if cfg.padded_vocab != cfg.vocab_size:
         logits[..., cfg.vocab_size:] = -1e30   # pad rows out of the softmax
     return logits
@@ -131,7 +148,8 @@ def lm_prefill(model: LM, tokens: torch.Tensor,
                ) -> Tuple[torch.Tensor, List[Cache]]:
     """tokens (B, S) → (last-position logits (B, V) fp32, caches), one
     cache per layer: {"k", "v"} of an attention layer, each (B, Hkv,
-    max_len, dh) and zero past S; {"conv", "state"} of an SSM layer."""
+    max_len, dh) and zero past S; {"conv", "state"} of an SSM layer; all
+    four of a hybrid layer."""
     B, S = tokens.shape
     max_len = max_len or S
     if S > max_len:

@@ -1,7 +1,8 @@
 """The port's attention and SSD ops on the CPU (their plain versions)
 against the JAX Pallas kernels in interpret mode and the JAX references,
 on the cases of tests/test_kernels.py plus gemma2's head_dim 256 with
-softcap 50 and reduced mamba2's SSD shape; and the copy and Init engines'
+softcap 50, hymba-1.5b's GQA group 5 at head_dim 64 and its d_state 16,
+and reduced mamba2's SSD shape; and the copy and Init engines'
 plain versions, which must equal the Pallas kernels bit for bit (the
 transform v·3 + 1, whose multiply-add XLA may fuse, within the float32
 rule below), on the cases of tests/test_kernels.py plus torch views and
@@ -53,6 +54,8 @@ FLASH_CASES = [
     # gemma2: head_dim 256, softcap 50, query scale 1/16, local window
     dict(B=1, Hq=2, Hkv=1, S=256, D=256, causal=True, window=64, cap=50.0,
          scale=1 / 16),
+    # hymba-1.5b: GQA group 5 at head_dim 64, a window, no softcap
+    dict(B=1, Hq=10, Hkv=2, S=256, D=64, causal=True, window=64, cap=0.0),
 ]
 DECODE_CASES = [
     dict(B=2, Hq=8, Hkv=2, S=512, D=64, kvlen=300, win=0, cap=0.0),
@@ -60,19 +63,24 @@ DECODE_CASES = [
     dict(B=2, Hq=8, Hkv=4, S=2048, D=64, kvlen=1500, win=256, cap=0.0),
     dict(B=1, Hq=8, Hkv=4, S=256, D=256, kvlen=200, win=64, cap=50.0,
          scale=1 / 16),
-    # the groups of the configs still to port: 5 (hymba-1.5b, qwen2.5-32b),
-    # 6 (internlm2-20b, internvl2-26b) and 16 (chatglm3-6b)
+    # GQA groups 5 (hymba-1.5b, qwen2.5-32b), 6 (internlm2-20b,
+    # internvl2-26b) and 16 (chatglm3-6b)
     # (caches a multiple of the Pallas kernel's 256-key block: see
     # test_decode_ragged_cache_equals_ref)
     dict(B=2, Hq=10, Hkv=2, S=512, D=64, kvlen=301, win=0, cap=0.0),
     dict(B=1, Hq=12, Hkv=2, S=512, D=128, kvlen=512, win=0, cap=30.0),
     dict(B=2, Hq=16, Hkv=1, S=768, D=128, kvlen=555, win=200, cap=50.0),
+    # hymba-1.5b's windowed layers: group 5, head_dim 64, no softcap
+    dict(B=2, Hq=10, Hkv=2, S=1024, D=64, kvlen=700, win=256, cap=0.0),
 ]
 SSD_CASES = [
     dict(B=2, H=4, G=2, S=256, P=32, N=64, chunk=64),
     dict(B=1, H=8, G=1, S=128, P=64, N=32, chunk=32),
     # reduced mamba2: d_inner 256 in 16 heads of 16, d_state 32, chunk 32
     dict(B=2, H=16, G=1, S=96, P=16, N=32, chunk=32),
+    # hymba-1.5b's d_state 16 and P 64, with H not a multiple of the
+    # kernel's 8-head blocks (hymba's 50 = 6 x 8 + 2)
+    dict(B=2, H=10, G=1, S=96, P=64, N=16, chunk=32),
 ]
 
 

@@ -88,6 +88,12 @@ FLASH_CASES = [
          qmul=30.0),
     dict(B=4, Hq=8, Hkv=4, S=4608, D=256, causal=True, window=0, cap=50.0,
          qmul=30.0),
+    # hymba-1.5b: GQA group 5 at head_dim 64 with a window, then its main
+    # path, the windowed and full hybrid layers of a 4,608-token prefill
+    dict(B=1, Hq=10, Hkv=2, S=256, D=64, causal=True, window=64, cap=0.0),
+    dict(B=4, Hq=25, Hkv=5, S=4608, D=64, causal=True, window=1024,
+         cap=0.0),
+    dict(B=4, Hq=25, Hkv=5, S=4608, D=64, causal=True, window=0, cap=0.0),
 ]
 DECODE_CASES = [
     dict(B=2, Hq=8, Hkv=2, S=512, D=64, kvlen=300, win=0, cap=0.0),
@@ -111,6 +117,10 @@ DECODE_CASES = [
     dict(B=1, Hq=16, Hkv=1, S=3000, D=64, kvlen=3000, win=0, cap=0.0),
     dict(B=2, Hq=32, Hkv=2, S=4640, D=128, kvlen=10, win=0, cap=50.0),
     dict(B=1, Hq=16, Hkv=1, S=1500, D=256, kvlen=1400, win=500, cap=50.0),
+] + [
+    # hymba-1.5b main path: group 5 at head_dim 64 over a 4,640-row cache
+    dict(B=4, Hq=25, Hkv=5, S=4640, D=64, kvlen=n, win=w, cap=0.0)
+    for n in (1, 4608) for w in (1024, 0)
 ]
 
 SSD_CASES = [
@@ -124,6 +134,10 @@ SSD_CASES = [
     dict(B=1, H=4, G=1, S=192, P=48, N=80, chunk=96),
     # mamba2-1.3b main path: 4 x 4,608 tokens, 64 heads, one group
     dict(B=4, H=64, G=1, S=4608, P=64, N=128, chunk=128),
+    # hymba-1.5b's d_state 16 with a partial last 8-head block (10 = 8 + 2),
+    # then its main path: 50 heads (6 x 8 + 2), N 16
+    dict(B=2, H=10, G=1, S=96, P=64, N=16, chunk=32),
+    dict(B=4, H=50, G=1, S=4608, P=64, N=16, chunk=128),
 ]
 
 
@@ -457,6 +471,27 @@ def test_ssd_main_shape_on_the_tensor_cores(cuda, dtype):
     assert SK.launches_by_route["tensor_cores"] == \
         before["tensor_cores"] + 1
     want_y, want_state = ssd_chunked_ref(*args, chunk=128, return_state=True)
+    assert _rel_err(y, want_y) < TOL[dtype]
+    assert _rel_err(state, want_state) < TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ssd_hymba_shape_on_the_tensor_cores(cuda, dtype):
+    """hymba-1.5b's prefill shape (50 heads, so a last block of 2 heads;
+    d_state 16, so one warp's rows of N) on the model's views, through
+    `ssd`, and again against the sequential scan over 4 heads."""
+    args = _ssd_view_inputs(4, 50, 1, 4608, 64, 16, dtype, cuda, 27)
+    assert SK.route(args[0], args[4], args[5], 128) == "tensor_cores"
+    before = dict(SK.launches_by_route)
+    y, state = ssd(*args, chunk=128, return_state=True)
+    assert SK.launches_by_route["tensor_cores"] == \
+        before["tensor_cores"] + 1
+    want_y, want_state = ssd_chunked_ref(*args, chunk=128, return_state=True)
+    assert _rel_err(y, want_y) < TOL[dtype]
+    assert _rel_err(state, want_state) < TOL[dtype]
+    args = _ssd_view_inputs(1, 10, 1, 1024, 64, 16, dtype, cuda, 28)
+    want_y, want_state = ssd_ref(*args, return_state=True)
+    y, state = _ssd_on(args, 128, "tensor_cores")
     assert _rel_err(y, want_y) < TOL[dtype]
     assert _rel_err(state, want_state) < TOL[dtype]
 

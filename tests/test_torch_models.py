@@ -246,11 +246,17 @@ def test_seeded_init_is_reproducible():
 
 
 def test_unported_kinds_raise():
-    cfg = dataclasses.replace(
-        port_cfg(j_reduced(j_get("gemma2-2b"))), layer_pattern=(
-            (("hybrid",), 1), ((ATTN_FULL,), 1)))
-    with pytest.raises(NotImplementedError):
+    """Every layer kind of the reference is ported (attention, SSM and,
+    since hymba-1.5b, hybrid); a kind outside them, and the MoE blocks,
+    which are a config's `moe` and not a kind, still raise."""
+    base = port_cfg(j_reduced(j_get("gemma2-2b")))
+    cfg = dataclasses.replace(base, layer_pattern=(
+        (("cross_attn",), 1), ((ATTN_FULL,), 1)))
+    with pytest.raises(NotImplementedError, match="cross_attn"):
         LM(cfg, RunConfig(dtype="float32"), device="cpu")
+    moe = port_cfg(j_reduced(j_get("mixtral-8x7b")))
+    with pytest.raises(NotImplementedError, match="moe"):
+        LM(moe, RunConfig(dtype="float32"), device="cpu")
 
 
 def _layer(params, layer=0):

@@ -1,6 +1,7 @@
 """The slices end to end on the CPU: the port's `ServeEngine` and JAX's
 `ServeEngine` (Pallas kernels in interpret mode, float32) answer the same
-requests on reduced gemma2 and on reduced mamba2 with the same weights.
+requests on reduced gemma2, reduced mamba2 and reduced hymba (two hybrid
+layers, untied head) with the same weights.
 
 Greedy token streams must be equal.  Each step's top-2 logit margin is
 asserted to exceed the two frameworks' logit disagreement (1e-4 of
@@ -101,7 +102,13 @@ def mamba2_setup():
     return _setup("mamba2-1.3b", 1)
 
 
-@pytest.mark.parametrize("which", ["setup", "mamba2_setup"])
+@pytest.fixture(scope="module")
+def hymba_setup():
+    """Seed 0: its smallest top-2 margin is 47x the disagreement bound."""
+    return _setup("hymba-1.5b", 0)
+
+
+@pytest.mark.parametrize("which", ["setup", "mamba2_setup", "hymba_setup"])
 def test_greedy_streams_equal_jax(request, which):
     model, prompts, j_out = request.getfixturevalue(which)
     engine = RecordingEngine(model, max_len=MAX_LEN)

@@ -8,11 +8,11 @@ poll completion and in a pool starved enough to preempt and swap.  The
 cases of tests/test_serve_sched.py are held here on the port (the
 sanitizer's is replaced by its refusal: `repro.sanitize` has no copy yet).
 
-`StepLM` is rewritten in PyTorch.  On reduced gemma2-2b and mamba2-1.3b
-(2 layers, fp32, the same weights in both packages) its greedy streams
-equal the JAX `StepLM`'s; every stream, hot rows included, is the same at
-`max_running` 4 and 1; and a request's decode logits are `torch.equal`
-whatever other requests are in flight.
+`StepLM` is rewritten in PyTorch.  On reduced gemma2-2b, mamba2-1.3b and
+hymba-1.5b (2 layers, fp32, the same weights in both packages) its greedy
+streams equal the JAX `StepLM`'s; every stream, hot rows included, is the
+same at `max_running` 4 and 1; and a request's decode logits are
+`torch.equal` whatever other requests are in flight.
 """
 
 import dataclasses
@@ -362,8 +362,8 @@ def _step_setup(arch, seed):
 
 
 # Weight seeds: with these requests the smallest top-2 margin of a greedy
-# token is 108x (gemma2, seed 0) and 136x (mamba2, seed 0) the
-# disagreement bound below.
+# token is 108x (gemma2, seed 0), 136x (mamba2, seed 0) and 153x (hymba,
+# seed 3) the disagreement bound below.
 @pytest.fixture(scope="module")
 def gemma2():
     return _step_setup("gemma2-2b", 0)
@@ -374,7 +374,12 @@ def mamba2():
     return _step_setup("mamba2-1.3b", 0)
 
 
-@pytest.mark.parametrize("which", ["gemma2", "mamba2"])
+@pytest.fixture(scope="module")
+def hymba():
+    return _step_setup("hymba-1.5b", 3)
+
+
+@pytest.mark.parametrize("which", ["gemma2", "mamba2", "hymba"])
 def test_steplm_greedy_streams_equal_jax(request, which):
     """Greedy rows through the port's `ServeFrontDoor(StepLM)` equal the
     JAX front door's; each greedy token's top-2 margin is many times the
@@ -397,7 +402,7 @@ def test_steplm_greedy_streams_equal_jax(request, which):
     assert lm.decode_calls == len(PROMPT_LENS) * (NEW_TOKENS - 1)
 
 
-@pytest.mark.parametrize("which", ["gemma2", "mamba2"])
+@pytest.mark.parametrize("which", ["gemma2", "mamba2", "hymba"])
 def test_continuous_equals_sequential(request, which):
     """Every stream, hot rows included, is the same at max_running 4 (the
     requests share steps) and 1 (each request alone), down to the bits of
@@ -416,7 +421,7 @@ def test_continuous_equals_sequential(request, which):
         assert torch.equal(row, rows[1][key]), key
 
 
-@pytest.mark.parametrize("which", ["gemma2", "mamba2"])
+@pytest.mark.parametrize("which", ["gemma2", "mamba2", "hymba"])
 def test_decode_logits_independent_of_other_requests(request, which):
     """A request's decode logits are `torch.equal` whether it steps alone
     or among other requests at the same position, before or after them in

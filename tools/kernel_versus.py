@@ -5,7 +5,7 @@ card.
     python3 tools/kernel_versus.py decode --alt-source PATH
     python3 tools/kernel_versus.py copy [--alt-source "PATH [-DNAME=V ...]"]...
     python3 tools/kernel_versus.py memset [--alt-source "PATH [-D...]"]...
-    python3 tools/kernel_versus.py ssd [--alt-source PATH]
+    python3 tools/kernel_versus.py ssd [--alt-source PATH] [--arch ARCH]
 
 matmul: the served models' bf16 GEMM shapes (gemma2-2b's FFN gate with its
 tanh-gelu and its FFN down, mamba2-1.3b's in_proj, over 4 x 4,608 prefill
@@ -34,9 +34,10 @@ it exports: the parent's `copy_engine.cu` or `init_engine.cu`, or
 `tools/dma_variants.cu`, the register-copy variants of the bulk copy and
 of memset (-DVAR_RESERVE_BYTES=73728 -DVAR_UNROLL=4).
 
-ssd: mamba2-1.3b's prefill shape (B 4, H 64, G 1, S 4,608, P 64, N 128,
-chunk 128) in fp32 and bf16, x, B and C as views of one (B, S, 4,352)
-tensor and dt of a (B, S, 64) one, as the SSM layer passes them: this
+ssd: the prefill shape of `--arch`'s SSM (B 4, S 4,608; mamba2-1.3b, the
+default: H 64, G 1, P 64, N 128, chunk 128; hymba-1.5b: H 50, N 16) in
+fp32 and bf16, x, B and C as views of one (B, S, H·P + 2·G·N) tensor and
+dt of a (B, S, H) one, as the SSM layer passes them: this
 build on both routes (`ssd.ROUTES`) and, with --alt-source, that build of
 `csrc/ssd.cu` through its own C entry `ssd_fwd` (the parent's kernel:
 `git show 472b131:src/repro_torch/csrc/ssd.cu`), each checked against
@@ -356,9 +357,11 @@ def memset(alts) -> None:
             "iota": "init_iota", "prng": "init_prng"})
 
 
-def ssd(alt_source) -> None:
+def ssd(alt_source, arch: str = "mamba2-1.3b") -> None:
     import torch
+    from repro_torch.configs import get
     from repro_torch.kernels.ssd import ssd_chunked_ref
+    from repro_torch.models.ssm import ssm_dims
     sk = importlib.import_module("repro_torch.kernels.ssd.ssd")
     dev = torch.device("cuda")
     gen = torch.Generator(dev).manual_seed(2)
@@ -376,7 +379,9 @@ def ssd(alt_source) -> None:
         finally:
             sk._lib = ours
 
-    B, H, G, S, P, N, L = 4, 64, 1, 4608, 64, 128, 128
+    cfg = get(arch)
+    _, H, P, G, N = ssm_dims(cfg)
+    B, S, L = 4, 4608, cfg.ssm.chunk
     tol = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
     for dtype in (torch.float32, torch.bfloat16):
         xbc = torch.randn((B, S, H * P + 2 * G * N), generator=gen,
@@ -419,6 +424,8 @@ def main() -> None:
     ap.add_argument("kernel",
                     choices=("matmul", "decode", "copy", "memset", "ssd"))
     ap.add_argument("--alt-source", action="append", default=[])
+    ap.add_argument("--arch", default="mamba2-1.3b",
+                    help="ssd: the model whose SSM shape to time")
     args = ap.parse_args()
     if args.kernel == "decode" and not args.alt_source:
         ap.error("decode needs --alt-source")
@@ -434,7 +441,10 @@ def main() -> None:
                          text=True, check=True).stdout.strip(), flush=True)
     if args.kernel in ("matmul", "decode", "ssd"):
         alt = args.alt_source[0] if args.alt_source else None
-        {"matmul": matmul, "decode": decode, "ssd": ssd}[args.kernel](alt)
+        if args.kernel == "ssd":
+            ssd(alt, args.arch)
+        else:
+            {"matmul": matmul, "decode": decode}[args.kernel](alt)
     else:
         (copy if args.kernel == "copy" else memset)(args.alt_source)
 
