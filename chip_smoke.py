@@ -46,7 +46,11 @@ lines tagged with its name:
                windows 1,024 and 0, no softcap; the SSD at 50 heads,
                d_state 16, fp32 and bf16, on the tensor cores), each by
                device time in turns with `flex_attention` where it
-               computes the same function;
+               computes the same function; then flash and decode
+               attention at head_dim 128 in the dense and VLM configs'
+               head layouts (48 q / 8 kv heads: internlm2-20b and
+               internvl2-26b; 32 / 2: chatglm3-6b; 40 / 8: qwen2.5-32b),
+               causal, no softcap, the same way;
   4. dma     — the quickstart's path through the port's descriptor
                plane (host NumPy: a register front-end's 3-D gather, the
                presets' 4 KiB cycles), a `plan_nd_copy` plan whose
@@ -84,12 +88,21 @@ lines tagged with its name:
                then full-width mamba2-1.3b (48 SSM layers, d 2048, vocab
                50,280), then full-width hymba-1.5b (32 hybrid layers, d
                1600, attention and SSM heads side by side, vocab 32,001,
-               untied head), seeded random weights, bf16, each answer 4
-               left-padded requests through `ServeEngine.generate`,
-               twice; the launch counters, set to 0 before each run, must
-               show every attention and SSD call went through the kernels
+               untied head), then the dense configs internlm2-20b (48
+               layers, d 6144), chatglm3-6b (28 layers, d 4096, qkv bias,
+               RoPE on half the head) and qwen2.5-32b (64 layers, d 5120,
+               qkv bias, 61 GiB of weights), seeded random weights, bf16,
+               each answer 4 left-padded requests through
+               `ServeEngine.generate`, twice, and is freed before the next;
+               the launch counters, set to 0 before each run, must show
+               every attention and SSD call went through the kernels
                (every SSD call on the tensor cores) and no other kernel ran
-               (no copy, Init or matmul kernel);
+               (no copy, Init or matmul kernel); then full-width
+               internvl2-26b's prefill of the same batch with 256 seeded
+               patch embeddings of width 3,200 a row, through
+               `make_prefill_step`, and 3 decode steps: finite logits, 48
+               flash and 144 decode launches, and last-position logits
+               that differ from those without the patches;
   7. front   — the same two full-width models behind the continuous-
                batching front door, `ServeFrontDoor(StepLM(model, ...),
                layout).submit(req) ... .run()`: six requests of 33 to
@@ -114,11 +127,14 @@ lines tagged with its name:
   8. card vs CPU — 2 gemma2 layers (SWA, FULL) and 2 mamba2 layers at
                full width in fp32, a 600-token prompt and 3 decode steps,
                and 2 hymba layers (HYBRID_FULL, HYBRID) on a 1,100-token
-               prompt, past their window and off the SSD's chunk: logits
-               of the CUDA path agree with the CPU path within 1e-4; then
-               the 2 gemma2 and the 2 hymba layers in bf16, the serving
-               dtype, on the card: logits through the attention and SSD
-               kernels agree with those through their plain versions
+               prompt, past their window and off the SSD's chunk, and 2
+               qwen2.5-32b layers (qkv bias, GQA 5, RoPE theta 1e6) and 2
+               chatglm3-6b layers (GQA 16, RoPE on half the head), their
+               qkv biases seeded non-zero: logits of the CUDA path agree
+               with the CPU path within 1e-4; then the 2 gemma2, the 2
+               hymba, the 2 qwen2.5 and the 2 chatglm3 layers in bf16, the
+               serving dtype, on the card: logits through the attention and
+               SSD kernels agree with those through their plain versions
                within 2e-2.
 
 Any failure raises and exits non-zero.  The second-to-last line is a JSON
@@ -737,123 +753,145 @@ def decode_mask(kv_len, window):
     return mask_mod
 
 
+def kernel_entry(name, arch, ms, plain_ms, b_ms, b_by, lib_ms, worst):
+    """The kernels line's entry of `name` at `arch`'s shapes."""
+    return dict(name=f"{name} {arch}", route="cuda",
+                source=f"src/repro_torch/csrc/{KERNELS[name][2]}.cu",
+                replaces=KERNELS[name][3], ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                max_abs_err=worst)
+
+
+def timed_in_turns(arch, label, kern, lib):
+    """Device ms of the kernel and of the library call (None: no call), 5
+    rounds in turns; returns the two medians."""
+    t = in_turns({"kernel": kern,
+                  **({} if lib is None else {"flex_attention": lib})})
+    log(f"[kernels] {arch} {label} in turns, device ms median (min-max) "
+        f"over 5 rounds: " + ", ".join(f"{n} {md:.4f} ({lo:.4f}-{hi:.4f})"
+                                       for n, (md, lo, hi) in t.items()))
+    return t["kernel"][0], None if lib is None else t["flex_attention"][0]
+
+
+def attention_layout_cases(cfg, mods, library, gen, windows):
+    """Flash and decode attention at `cfg`'s heads under the serve phase's
+    traffic (B 4, 4,608 prompt tokens, causal, a 4,640-row cache at
+    `kv_len` 4,608, bf16, no softcap), once for each of `windows`: each
+    against its plain version at TOL (flash row by row), then by device
+    time (torch.profiler), 5 rounds in turns with compiled
+    `flex_attention`; the plain version by CUDA events.  Prints each
+    case's time, bound, share of it and factor against `flex_attention`.
+    Returns the entries of flash and decode attention at windows[0], each
+    with the worst abs error over `windows`."""
+    import torch
+    from repro_torch.kernels.decode_attention import decode_attention_ref
+    from repro_torch.kernels.flash_attention import attention_ref
+    from repro_torch.launch.profile_serve import MAX_LEN, PROMPTS
+
+    fa, da = mods["flash_attention"], mods["decode_attention"]
+    arch, B, S = cfg.name, len(PROMPTS), max(PROMPTS)
+    Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    scale, bf16 = D ** -0.5, "bfloat16"
+    entries, found = {}, {}
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    def versus(ms, lib_ms):
+        return "" if lib_ms is None else f", {ms / lib_ms:.2f}x library"
+
+    worst = 0.0
+    for w in windows:
+        q, k, v = randn(B, Hq, S, D), randn(B, Hkv, S, D), randn(B, Hkv, S, D)
+        kw = dict(causal=True, window=w, softcap=0.0, scale=scale)
+        label = f"flash B{B} Hq{Hq} Hkv{Hkv} S{S} D{D} w{w} bf16"
+        want = attention_ref(q, k, v, **kw)
+        got = fa.flash_attention_cuda(q, k, v, **kw)
+        abs_err, rel = check_close(f"{arch} {label}", got, want, bf16,
+                                   rows=True)
+        rms = row_rms(got, want)
+        worst = max(worst, abs_err)
+        lib = flex_call(library, f"{arch} {label}", q, k, v,
+                        flash_mask(True, w), want, bf16, scale, rows=True)
+        del got, want
+        torch.cuda.empty_cache()
+        ms, lib_ms = timed_in_turns(
+            arch, label, lambda: fa.flash_attention_cuda(q, k, v, **kw), lib)
+        plain_ms = time_ms(lambda: attention_ref(q, k, v, **kw), iters=3,
+                           warmup=1)
+        flops = 4 * D * flash_live_pairs(S, S, True, w) * B * Hq
+        b_ms, b_by = bound(flops, (2 * q.numel() + k.numel() + v.numel())
+                           * q.element_size(), bf16)
+        log(f"[kernels] {arch} {label}: row rel err {rel:.2e} (tol "
+            f"{TOL[bf16]:.0e}), row rms err {rms:.2e} | kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}), "
+            f"{100 * b_ms / ms:.1f}% of bound, {flops / ms / 1e9:.1f} "
+            f"TFLOP/s{versus(ms, lib_ms)}")
+        found.setdefault("flash_attention", (ms, plain_ms, b_ms, b_by,
+                                             lib_ms))
+        del q, k, v, lib
+        torch.cuda.empty_cache()
+    entries["flash_attention"] = kernel_entry(
+        "flash_attention", arch, *found["flash_attention"], worst)
+
+    worst = 0.0
+    q = randn(B, Hq, D)
+    k, v = randn(B, Hkv, MAX_LEN, D), randn(B, Hkv, MAX_LEN, D)
+    for w in windows:
+        kw = dict(kv_len=S, window=w, softcap=0.0, scale=scale)
+        label = (f"decode B{B} Hq{Hq} Hkv{Hkv} cache {MAX_LEN} D{D} kv_len "
+                 f"{S} w{w} bf16")
+        want = decode_attention_ref(q, k, v, **kw)
+        abs_err, rel = check_close(f"{arch} {label}",
+                                   da.decode_attention_cuda(q, k, v, **kw),
+                                   want, bf16)
+        worst = max(worst, abs_err)
+        lib = flex_call(library, f"{arch} {label}", q[:, :, None], k, v,
+                        decode_mask(S, w), want[:, :, None], bf16, scale)
+        ms, lib_ms = timed_in_turns(
+            arch, label, lambda: da.decode_attention_cuda(q, k, v, **kw), lib)
+        plain_ms = time_ms(lambda: decode_attention_ref(q, k, v, **kw))
+        live = min(S, w) if w else S
+        b_ms, b_by = bound(4 * B * Hq * live * D,
+                           (2 * B * Hkv * live * D + 2 * q.numel())
+                           * q.element_size(), bf16)
+        log(f"[kernels] {arch} {label}: rel err {rel:.2e} (tol "
+            f"{TOL[bf16]:.0e}) | kernel {ms:.4f} ms device, plain "
+            f"{plain_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}), "
+            f"{100 * b_ms / ms:.1f}% of bound{versus(ms, lib_ms)}")
+        found.setdefault("decode_attention", (ms, plain_ms, b_ms, b_by,
+                                              lib_ms))
+    entries["decode_attention"] = kernel_entry(
+        "decode_attention", arch, *found["decode_attention"], worst)
+    del q, k, v, lib
+    torch.cuda.empty_cache()
+    return entries
+
+
 def phase_hymba_kernels(mods):
     """Flash attention, decode attention and the SSD at hymba-1.5b's
     main-path shapes under the serve phase's traffic (B 4, 4,608 prompt
     tokens, a 4,640-row cache; 25 q and 5 kv heads of 64, no softcap,
     window 1,024 on 29 layers and 0 on 3; the SSD on the views
     `models/ssm.py` hands it, 50 heads of 64, d_state 16, chunk 128, on
-    the tensor cores), each against its plain version at TOL (flash row by
-    row), then by device time (torch.profiler), 5 rounds in turns with
-    `flex_attention` where it computes the same function; the plain
-    version by CUDA events.  Returns one JSON entry a kernel, for the case
+    the tensor cores), each against its plain version at TOL, then by
+    device time in turns, as `attention_layout_cases` says (the SSD has
+    no library call).  Returns one JSON entry a kernel, for the case
     with the most launches a generate: the windowed layers' flash and
     decode attention, the fp32 SSD."""
     import torch
     from repro_torch.configs import get
-    from repro_torch.kernels.decode_attention import decode_attention_ref
-    from repro_torch.kernels.flash_attention import attention_ref
     from repro_torch.kernels.ssd import ssd_chunked_ref
-    from repro_torch.launch.profile_serve import MAX_LEN, PROMPTS
+    from repro_torch.launch.profile_serve import PROMPTS
     from repro_torch.models.ssm import ssm_dims
 
     cfg = get(HYMBA)
-    fa, da, sk = (mods[n] for n in ("flash_attention", "decode_attention",
-                                    "ssd"))
-    dev = torch.device("cuda")
-    gen = torch.Generator(dev).manual_seed(3)
-    library = library_attention()
+    sk = mods["ssd"]
+    gen = torch.Generator("cuda").manual_seed(3)
     B, S = len(PROMPTS), max(PROMPTS)
-    Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    scale, bf16 = D ** -0.5, "bfloat16"
-    entries = {}
-
-    def randn(*shape):
-        return torch.randn(shape, generator=gen, device=dev).to(
-            torch.bfloat16)
-
-    def timed(label, kern, lib):
-        """Device ms of the kernel and of the library call, in turns."""
-        t = in_turns({"kernel": kern,
-                      **({} if lib is None else {"flex_attention": lib})})
-        log(f"[kernels] {HYMBA} {label} in turns, device ms median "
-            f"(min-max) over 5 rounds: " + ", ".join(
-                f"{n} {md:.4f} ({lo:.4f}-{hi:.4f})"
-                for n, (md, lo, hi) in t.items()))
-        return t["kernel"][0], None if lib is None else \
-            t["flex_attention"][0]
-
-    def entry(name, ms, plain_ms, b_ms, b_by, lib_ms):
-        return dict(name=f"{name} {HYMBA}", route="cuda",
-                    source=f"src/repro_torch/csrc/{KERNELS[name][2]}.cu",
-                    replaces=KERNELS[name][3], ms=ms, plain_ms=plain_ms,
-                    bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
-
-    worst = 0.0
-    for w in (cfg.window, 0):
-        q, k, v = randn(B, Hq, S, D), randn(B, Hkv, S, D), randn(B, Hkv, S, D)
-        kw = dict(causal=True, window=w, softcap=0.0, scale=scale)
-        label = f"flash B{B} Hq{Hq} Hkv{Hkv} S{S} D{D} w{w} bf16"
-        want = attention_ref(q, k, v, **kw)
-        got = fa.flash_attention_cuda(q, k, v, **kw)
-        abs_err, rel = check_close(f"{HYMBA} {label}", got, want, bf16,
-                                   rows=True)
-        rms = row_rms(got, want)
-        worst = max(worst, abs_err)
-        lib = flex_call(library, f"{HYMBA} {label}", q, k, v,
-                        flash_mask(True, w), want, bf16, scale, rows=True)
-        del got, want
-        ms, lib_ms = timed(label, lambda: fa.flash_attention_cuda(
-            q, k, v, **kw), lib)
-        plain_ms = time_ms(lambda: attention_ref(q, k, v, **kw), iters=3,
-                           warmup=1)
-        flops = 4 * D * flash_live_pairs(S, S, True, w) * B * Hq
-        b_ms, b_by = bound(flops, (2 * q.numel() + k.numel() + v.numel())
-                           * q.element_size(), bf16)
-        versus = "" if lib_ms is None else f", {ms / lib_ms:.2f}x library"
-        log(f"[kernels] {HYMBA} {label}: row rel err {rel:.2e} (tol "
-            f"{TOL[bf16]:.0e}), row rms err {rms:.2e} | kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}), "
-            f"{100 * b_ms / ms:.1f}% of bound, {flops / ms / 1e9:.1f} "
-            f"TFLOP/s{versus}")
-        if w:
-            entries["flash_attention"] = entry("flash_attention", ms,
-                                               plain_ms, b_ms, b_by, lib_ms)
-        del q, k, v, lib
-        torch.cuda.empty_cache()
-    entries["flash_attention"]["max_abs_err"] = worst
-
-    worst = 0.0
-    q = randn(B, Hq, D)
-    k, v = randn(B, Hkv, MAX_LEN, D), randn(B, Hkv, MAX_LEN, D)
-    for w in (cfg.window, 0):
-        kw = dict(kv_len=S, window=w, softcap=0.0, scale=scale)
-        label = (f"decode B{B} Hq{Hq} Hkv{Hkv} cache {MAX_LEN} D{D} kv_len "
-                 f"{S} w{w} bf16")
-        want = decode_attention_ref(q, k, v, **kw)
-        abs_err, rel = check_close(f"{HYMBA} {label}",
-                                   da.decode_attention_cuda(q, k, v, **kw),
-                                   want, bf16)
-        worst = max(worst, abs_err)
-        lib = flex_call(library, f"{HYMBA} {label}", q[:, :, None], k, v,
-                        decode_mask(S, w), want[:, :, None], bf16, scale)
-        ms, lib_ms = timed(label, lambda: da.decode_attention_cuda(
-            q, k, v, **kw), lib)
-        plain_ms = time_ms(lambda: decode_attention_ref(q, k, v, **kw))
-        live = min(S, w) if w else S
-        b_ms, b_by = bound(4 * B * Hq * live * D,
-                           (2 * B * Hkv * live * D + 2 * q.numel())
-                           * q.element_size(), bf16)
-        versus = "" if lib_ms is None else f", {ms / lib_ms:.2f}x library"
-        log(f"[kernels] {HYMBA} {label}: rel err {rel:.2e} (tol "
-            f"{TOL[bf16]:.0e}) | kernel {ms:.4f} ms device, plain "
-            f"{plain_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}), "
-            f"{100 * b_ms / ms:.1f}% of bound{versus}")
-        if w:
-            entries["decode_attention"] = entry("decode_attention", ms,
-                                                plain_ms, b_ms, b_by, lib_ms)
-    entries["decode_attention"]["max_abs_err"] = worst
-    del q, k, v, lib
+    entries = attention_layout_cases(cfg, mods, library_attention(), gen,
+                                     (cfg.window, 0))
 
     worst = 0.0
     _, H, P, G, N = ssm_dims(cfg)
@@ -874,7 +912,8 @@ def phase_hymba_kernels(mods):
                                         ("state", state, wstate))]
         worst = max([worst] + [e for e, _ in errs])
         del y, state, wy, wstate
-        ms, _ = timed(label, lambda: sk.ssd_cuda(*args, chunk=L), None)
+        ms, _ = timed_in_turns(HYMBA, label,
+                               lambda: sk.ssd_cuda(*args, chunk=L), None)
         plain_ms = time_ms(lambda: ssd_chunked_ref(*args, chunk=L,
                                                    return_state=True),
                            iters=3, warmup=1)
@@ -890,11 +929,33 @@ def phase_hymba_kernels(mods):
             f"{100 * b_ms / ms:.1f}% of bound, {flops / ms / 1e9:.1f} "
             f"TFLOP/s")
         if dtype == "float32":
-            entries["ssd"] = entry("ssd", ms, plain_ms, b_ms, b_by, None)
+            found = (ms, plain_ms, b_ms, b_by, None)
         del args
         torch.cuda.empty_cache()
-    entries["ssd"]["max_abs_err"] = worst
+    entries["ssd"] = kernel_entry("ssd", HYMBA, *found, worst)
     return {e["name"]: e for e in entries.values()}
+
+
+DENSE = ("internlm2-20b", "chatglm3-6b", "qwen2.5-32b")
+VLM = "internvl2-26b"
+
+
+def phase_dense_kernels(mods):
+    """Flash and decode attention at head_dim 128 in the dense and VLM
+    configs' three head layouts: 48 q / 8 kv heads (internlm2-20b, and
+    internvl2-26b's backbone), 32 / 2 (chatglm3-6b) and 40 / 8
+    (qwen2.5-32b); full attention and no softcap, as they serve; each as
+    `attention_layout_cases` says, with dynamo's cache reset for each
+    layout.  Returns the entries, named by the config of each layout."""
+    import torch
+    from repro_torch.configs import get
+    gen = torch.Generator("cuda").manual_seed(4)
+    entries = {}
+    for arch in DENSE:
+        for e in attention_layout_cases(get(arch), mods, library_attention(),
+                                        gen, (0,)).values():
+            entries[e["name"]] = e
+    return entries
 
 
 def dma_plane():
@@ -1500,7 +1561,8 @@ def phase_matmul(mods):
 
 def phase_serve(arch, mods):
     """Full-width `arch` answers the traffic twice; returns the launches
-    of the first run."""
+    of the first run.  The model, its engine and the allocator's cached
+    blocks are freed before it returns, so the next model has the card."""
     import torch
     from repro_torch.configs import RunConfig, get
     from repro_torch.launch.profile_serve import (
@@ -1597,7 +1659,91 @@ def phase_serve(arch, mods):
         log(f"[serve] {arch} untied head (B {len(PROMPTS)}, d {cfg.d_model}, "
             f"vocab {cfg.vocab_size}): bf16 product then upcast "
             f"{head_ms:.3f} ms per step")
+    del engine, model, x, out
+    free_card()
     return runs[0]["counts"]
+
+
+def free_card():
+    """Drop what no one holds (reference cycles included) and return the
+    allocator's cached blocks to the card."""
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+VLM_DECODE_STEPS = 3
+
+
+def phase_vlm_prefill(mods):
+    """Full-width internvl2-26b (the 48-layer backbone and its patch
+    projector; the vision tower is a stub in both packages) through
+    `make_prefill_step(model)(tokens, patch_embeds=...)`: the serve
+    traffic's batch with 256 seeded patch embeddings of width 3,200 a row
+    in place of its first 256 positions, then VLM_DECODE_STEPS greedy
+    decode steps.  The logits must be finite, the launches 48 flash and
+    48 x VLM_DECODE_STEPS decode and nothing else, and the last-position
+    logits must differ from those of the same tokens without patches.
+    Frees the model before it returns."""
+    import torch
+    from repro_torch.configs import RunConfig, get
+    from repro_torch.launch.profile_serve import MAX_LEN, make_requests
+    from repro_torch.models import LM
+    from repro_torch.serve import (greedy_sample, make_decode_step,
+                                   make_prefill_step)
+    from repro_torch.serve.engine import left_pad
+
+    cfg = get(VLM)
+    model = LM(cfg, RunConfig(dtype="bfloat16"), seed=0, device="cuda")
+    prefill = make_prefill_step(model, max_len=MAX_LEN)
+    decode = make_decode_step(model)
+    tokens = left_pad([r.prompt for r in make_requests(cfg.vocab_size)]
+                      ).cuda()
+    B, S = tokens.shape
+    n, width = cfg.vision.n_patches, cfg.vision.patch_embed_dim
+    patches = torch.randn((B, n, width), device="cuda",
+                          generator=torch.Generator("cuda").manual_seed(5)
+                          ).to(torch.bfloat16)
+    reset(mods)                                # the main path's run
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    logits, caches = prefill(tokens, patch_embeds=patches)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t
+    first = logits
+    for step in range(VLM_DECODE_STEPS):
+        logits, caches = decode(caches, greedy_sample(logits)[:, None].long(),
+                                S + step)
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"{VLM}: non-finite logits at decode step "
+                                 f"{step}")
+    torch.cuda.synchronize()
+    counts, want = read(mods), expected_launches(cfg, VLM_DECODE_STEPS)
+    if counts != want:
+        raise AssertionError(f"{VLM} launches {counts}, want {want}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del caches
+    text, _ = prefill(tokens)
+    V = cfg.vocab_size
+    if not bool(torch.isfinite(first).all()):
+        raise AssertionError(f"{VLM}: non-finite prefill logits")
+    diff = float((first[:, :V] - text[:, :V]).abs().max())
+    rel = diff / float(text[:, :V].abs().max())
+    if not diff > 0:
+        raise AssertionError(f"{VLM}: the patch embeddings left the "
+                             f"last-position logits unchanged")
+    log(f"[serve] {VLM} full width ({cfg.n_layers} layers, d {cfg.d_model}, "
+        f"vocab {V} padded to {cfg.padded_vocab}, "
+        f"{sum(p.numel() for p in model.parameters()) / 1e9:.3f} B params "
+        f"bf16): prefill of B {B} x {S} tokens with {n} patch embeddings of "
+        f"width {width} a row {prefill_s:.3f} s, then {VLM_DECODE_STEPS} "
+        f"decode steps; logits finite; last-position logits against the "
+        f"same tokens without patches: max abs diff {diff:.3e} (rel "
+        f"{rel:.2e}); peak memory {peak:.2f} GiB | launches " +
+        ", ".join(f"{k} {v}" for k, v in counts.items() if v))
+    del model, prefill, decode, logits, first, text
+    free_card()
 
 
 # the front phase's traffic: six requests of ragged prompts, every other
@@ -1818,7 +1964,6 @@ def front_kernels(arch, cfg, model, mods):
 
 def phase_front(arch, mods):
     """Full-width `arch` behind the continuous-batching front door."""
-    import torch
     from repro_torch.configs import RunConfig, get
     from repro_torch.models import LM
     from repro_torch.serve import KVLayout
@@ -1841,13 +1986,26 @@ def phase_front(arch, mods):
         f"at max_running 4 and 1; request 0 starts {out4[0][:8]}")
     front_kernels(arch, cfg, model, mods)
     del model
-    torch.cuda.empty_cache()
+    free_card()
+
+
+def seed_qkv_biases(model, seed):
+    """Draw a qkv-bias model's biases at σ 0.5 from `seed`: the init's
+    zeros would hide a bias that is dropped."""
+    import torch
+    gen = torch.Generator(model.device).manual_seed(seed)
+    with torch.no_grad():
+        for layer in model.layers:
+            for b in (layer.attn.bq, layer.attn.bk, layer.attn.bv):
+                b.copy_(0.5 * torch.randn(b.shape, generator=gen,
+                                          device=b.device))
 
 
 def phase_card_vs_cpu(cfg, label, mods, S=600):
     """2 layers at full width in fp32, a prompt of S tokens and 3 decode
     steps: the card's logits against the CPU's over the real vocab rows,
-    and the card's launches against `expected_launches`."""
+    and the card's launches against `expected_launches`.  qkv biases are
+    seeded non-zero."""
     import numpy as np
     import torch
     from repro_torch.configs import RunConfig
@@ -1855,6 +2013,8 @@ def phase_card_vs_cpu(cfg, label, mods, S=600):
 
     f32 = RunConfig(dtype="float32")
     gpu = LM(cfg, f32, seed=1, device="cuda")
+    if cfg.qkv_bias:
+        seed_qkv_biases(gpu, 1)
     cpu = LM(cfg, f32, device="cpu", init=False)
     cpu.load_state_dict(gpu.state_dict())
     rng = np.random.default_rng(1)
@@ -1884,12 +2044,15 @@ def phase_card_vs_cpu(cfg, label, mods, S=600):
     log(f"[card-vs-cpu] 2 layers ({label}) d {cfg.d_model} fp32, B {B}, "
         f"prompt {S}, {steps} decode steps: max logits rel err {worst:.2e} "
         f"(tol 1e-4)")
+    del gpu, cpu, cg, cc
+    free_card()
 
 
 def phase_bf16_vs_plain(cfg, label, mods, S=600):
     """The serving dtype end to end: the 2 layers in bf16 on the card,
     logits through the attention and SSD kernels against the same model
-    with the kernels' plain versions in their place."""
+    with the kernels' plain versions in their place.  qkv biases are
+    seeded non-zero."""
     import numpy as np
     import torch
     from repro_torch.configs import RunConfig
@@ -1902,6 +2065,8 @@ def phase_bf16_vs_plain(cfg, label, mods, S=600):
         return ssd_chunked_ref(*args, chunk=chunk, return_state=True)
 
     model = LM(cfg, RunConfig(dtype="bfloat16"), seed=1, device="cuda")
+    if cfg.qkv_bias:
+        seed_qkv_biases(model, 2)
     B, steps = 2, 3
     toks = torch.from_numpy(np.random.default_rng(2).integers(
         0, cfg.vocab_size, (B, S + steps))).cuda()
@@ -1943,6 +2108,8 @@ def phase_bf16_vs_plain(cfg, label, mods, S=600):
         f"card, B {B}, prompt {S}, {steps} decode steps: kernels vs plain "
         f"versions, max logits rel err {worst:.2e} (tol "
         f"{TOL['bfloat16']:.0e})")
+    del model, got, want
+    free_card()
 
 
 def main() -> int:
@@ -1965,16 +2132,23 @@ def main() -> int:
     entries = phase_kernels(mods["flash_attention"], mods["decode_attention"])
     entries["ssd"] = phase_ssd_kernel(mods["ssd"])
     hymba_entries = phase_hymba_kernels(mods)
+    dense_entries = phase_dense_kernels(mods)
     entries.update(phase_dma(mods))
     entries["matmul_dma"] = phase_matmul(mods)
     gemma = phase_serve("gemma2-2b", mods)
     mamba = phase_serve("mamba2-1.3b", mods)
     hymba = phase_serve(HYMBA, mods)
+    served = {arch: phase_serve(arch, mods) for arch in DENSE}
+    phase_vlm_prefill(mods)
     entries["flash_attention"]["launches"] = gemma["flash_attention"]
     entries["decode_attention"]["launches"] = gemma["decode_attention"]
     entries["ssd"]["launches"] = mamba["ssd"]
     for name, e in hymba_entries.items():
         e["launches"] = hymba[name.split()[0]]
+        entries[name] = e
+    for name, e in dense_entries.items():
+        kernel, arch = name.split()
+        e["launches"] = served[arch][kernel]
         entries[name] = e
     phase_front("gemma2-2b", mods)
     phase_front("mamba2-1.3b", mods)
@@ -1989,6 +2163,13 @@ def main() -> int:
         ((HYBRID_FULL,), 1), ((HYBRID,), 1)))
     phase_card_vs_cpu(hymba2, "HYBRID_FULL, HYBRID", mods, S=1100)
     phase_bf16_vs_plain(hymba2, "HYBRID_FULL, HYBRID", mods, S=1100)
+    # qkv biases (seeded non-zero), GQA 5 and θ 1e6; GQA 16 and RoPE on
+    # half of each head
+    for arch, label in (("qwen2.5-32b", "qwen2.5-32b FULL, FULL"),
+                        ("chatglm3-6b", "chatglm3-6b FULL, FULL")):
+        cfg2 = dataclasses.replace(get(arch), n_layers=2)
+        phase_card_vs_cpu(cfg2, label, mods)
+        phase_bf16_vs_plain(cfg2, label, mods)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(smi)

@@ -1,7 +1,8 @@
 """Architecture configs of the port.
 
-`get(name)` returns the full ArchConfig; gemma2-2b, mamba2-1.3b and
-hymba-1.5b are ported so far.
+`get(name)` returns the full ArchConfig; gemma2-2b, mamba2-1.3b,
+hymba-1.5b, internlm2-20b, chatglm3-6b, qwen2.5-32b and internvl2-26b
+are ported so far.
 `reduced` (from .base) shrinks it for CPU tests.
 """
 
@@ -13,13 +14,17 @@ from .base import (ALL_SHAPES, ArchConfig, EncoderConfig, MoEConfig,
                    RunConfig, SSMConfig, ShapeSpec, VisionStub, reduced,
                    TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K,
                    ATTN_FULL, ATTN_SWA, SSM, HYBRID, HYBRID_FULL)
+from .chatglm3_6b import CONFIG as chatglm3_6b
 from .gemma2_2b import CONFIG as gemma2_2b
 from .hymba_1_5b import CONFIG as hymba_1_5b
+from .internlm2_20b import CONFIG as internlm2_20b
+from .internvl2_26b import CONFIG as internvl2_26b
 from .mamba2_1_3b import CONFIG as mamba2_1_3b
+from .qwen2_5_32b import CONFIG as qwen2_5_32b
 
-REGISTRY: Dict[str, ArchConfig] = {c.name: c for c in [gemma2_2b,
-                                                       mamba2_1_3b,
-                                                       hymba_1_5b]}
+REGISTRY: Dict[str, ArchConfig] = {c.name: c for c in [
+    gemma2_2b, mamba2_1_3b, hymba_1_5b, internlm2_20b, chatglm3_6b,
+    qwen2_5_32b, internvl2_26b]}
 
 
 def get(name: str) -> ArchConfig:

@@ -2,8 +2,9 @@
 
   PYTHONPATH=src python -m repro_torch.launch.profile_serve [--arch ARCH]
 
-A full-width model (`--arch`, default gemma2-2b; also mamba2-1.3b and
-hymba-1.5b; random weights from seed 0, bf16) answers the smoke test's
+A full-width model (`--arch`, default gemma2-2b; also mamba2-1.3b,
+hymba-1.5b, internlm2-20b, chatglm3-6b, qwen2.5-32b and internvl2-26b;
+random weights from seed 0, bf16) answers the smoke test's
 requests (`chip_smoke.py`'s serve phases, defined here as
 `make_requests`) through `ServeEngine.generate`: once to warm up, once
 timed, once under `torch.profiler`.  For prefill and for the decode step

@@ -3,7 +3,10 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b \
       --batch 4 --prompt-len 32 --new-tokens 16 [--device cpu] [--full]
 
-`--arch` is gemma2-2b, mamba2-1.3b or hymba-1.5b.
+`--arch` is gemma2-2b, mamba2-1.3b, hymba-1.5b, internlm2-20b,
+chatglm3-6b, qwen2.5-32b or internvl2-26b (whose backbone serves text
+prompts here: `ServeEngine` passes no patch embeddings, as the
+reference's engine does not).
 
 Without `--full` the config is `reduced()` and computes in float32, as
 the reference `repro.launch.serve` does; `--full` serves the published

@@ -1,5 +1,6 @@
-"""Models of the port in PyTorch: the dense attention LM (gemma2) and the
-pure SSM LM (mamba2)."""
+"""Models of the port in PyTorch: the decoder-only LM for dense attention
+(gemma2, internlm2, chatglm3, qwen2.5), pure SSM (mamba2), hybrid (hymba)
+and VLM (internvl2's backbone and patch projector) configs."""
 
 from .lm import LM, lm_decode_step, lm_prefill
 from .convert import lm_from_numpy

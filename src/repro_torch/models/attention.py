@@ -22,15 +22,24 @@ from .common import apply_rope, dense
 
 
 class Attention(nn.Module):
+    """wq, wk, wv, wo; with `cfg.qkv_bias` also bq, bk, bv, the biases of
+    the three input projections, zero at init as in the reference (wo has
+    none)."""
+
     def __init__(self, cfg: ArchConfig, dtype: torch.dtype,
                  device: torch.device) -> None:
         super().__init__()
         d, dh = cfg.d_model, cfg.resolved_head_dim
+        hq, hkv = cfg.n_heads * dh, cfg.n_kv_heads * dh
         kw = dict(dtype=dtype, device=device)
-        self.wq = nn.Parameter(torch.empty(d, cfg.n_heads * dh, **kw))
-        self.wk = nn.Parameter(torch.empty(d, cfg.n_kv_heads * dh, **kw))
-        self.wv = nn.Parameter(torch.empty(d, cfg.n_kv_heads * dh, **kw))
-        self.wo = nn.Parameter(torch.empty(cfg.n_heads * dh, d, **kw))
+        self.wq = nn.Parameter(torch.empty(d, hq, **kw))
+        self.wk = nn.Parameter(torch.empty(d, hkv, **kw))
+        self.wv = nn.Parameter(torch.empty(d, hkv, **kw))
+        self.wo = nn.Parameter(torch.empty(hq, d, **kw))
+        if cfg.qkv_bias:
+            self.bq = nn.Parameter(torch.zeros(hq, **kw))
+            self.bk = nn.Parameter(torch.zeros(hkv, **kw))
+            self.bv = nn.Parameter(torch.zeros(hkv, **kw))
 
 
 def _split_heads(x: torch.Tensor, n: int, dh: int) -> torch.Tensor:
@@ -51,9 +60,11 @@ def _scale(cfg: ArchConfig) -> float:
 def _qkv(p: Attention, x: torch.Tensor, cfg: ArchConfig,
          positions: torch.Tensor):
     dh = cfg.resolved_head_dim
-    q = _split_heads(dense(x, p.wq), cfg.n_heads, dh)
-    k = _split_heads(dense(x, p.wk), cfg.n_kv_heads, dh)
-    v = _split_heads(dense(x, p.wv), cfg.n_kv_heads, dh)
+    q = _split_heads(dense(x, p.wq, getattr(p, "bq", None)), cfg.n_heads, dh)
+    k = _split_heads(dense(x, p.wk, getattr(p, "bk", None)), cfg.n_kv_heads,
+                     dh)
+    v = _split_heads(dense(x, p.wv, getattr(p, "bv", None)), cfg.n_kv_heads,
+                     dh)
     q = apply_rope(q, positions, cfg.rope_fraction, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_fraction, cfg.rope_theta)
     return q, k, v

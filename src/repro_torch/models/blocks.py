@@ -135,19 +135,29 @@ def block_decode_step(p: Block, x: torch.Tensor, cache: Cache, pos: int,
     return _ffn_branch(p, x + h, cfg), new_cache
 
 
+def _pad_rows(a: torch.Tensor, max_len: int) -> torch.Tensor:
+    """(B, H, S, D) → (B, H, max_len, D), zero past S."""
+    out = a.new_zeros(a.shape[:2] + (max_len,) + a.shape[3:])
+    out[:, :, :a.shape[2]] = a
+    return out
+
+
 def segments_forward(layers: Sequence[Block], x: torch.Tensor,
                      cfg: ArchConfig,
                      positions: Optional[torch.Tensor] = None,
-                     collect_caches: bool = False):
-    """Run every layer in order; returns x, or (x, caches) with one cache
-    dict per layer."""
+                     cache_len: Optional[int] = None):
+    """Run every layer in order; returns x, or with `cache_len` (x,
+    caches), one cache dict per layer, whose k/v go into caches of
+    `cache_len` rows as soon as the layer has run, so the unpadded k/v of
+    no more than one layer are held at a time."""
     caches: List[Cache] = []
     for layer, kind in zip(layers, cfg.layer_kinds):
         out = block_forward(layer, x, cfg, kind, positions,
-                            collect_cache=collect_caches)
-        if collect_caches:
-            x, c = out
-            caches.append(c)
-        else:
+                            collect_cache=cache_len is not None)
+        if cache_len is None:
             x = out
-    return (x, caches) if collect_caches else x
+            continue
+        x, c = out
+        caches.append({name: _pad_rows(a, cache_len) if name in ("k", "v")
+                       else a for name, a in c.items()})
+    return x if cache_len is None else (x, caches)

@@ -29,6 +29,9 @@ _LAYER_LEAVES = {
     ("attn", "wk", "kernel"): "attn.wk",
     ("attn", "wv", "kernel"): "attn.wv",
     ("attn", "wo", "kernel"): "attn.wo",
+    ("attn", "wq", "bias"): "attn.bq",
+    ("attn", "wk", "bias"): "attn.bk",
+    ("attn", "wv", "bias"): "attn.bv",
     ("ffn", "w_gate", "kernel"): "ffn.w_gate",
     ("ffn", "w_up", "kernel"): "ffn.w_up",
     ("ffn", "w_down", "kernel"): "ffn.w_down",
@@ -71,13 +74,15 @@ def lm_from_numpy(cfg: ArchConfig, tree: Dict[str, Any],
                              f"{tuple(p.shape)}")
         p.copy_(torch.tensor(arr, dtype=torch.float32))
 
-    top = set(tree) - {"embed", "final_norm", "lm_head", "segments"}
+    top = set(tree) - {"embed", "final_norm", "lm_head", "vision_proj",
+                       "segments"}
     if top:
         raise ValueError(f"unported parameters {sorted(top)}")
     put("embed", tree["embed"]["table"])
     put("final_norm", tree["final_norm"]["scale"])
-    if "lm_head" in tree:
-        put("lm_head", tree["lm_head"]["kernel"])
+    for name in ("lm_head", "vision_proj"):
+        if name in tree:
+            put(name, tree[name]["kernel"])
     layer = 0
     for (kinds, rep), seg in zip(cfg.pattern, tree["segments"]):
         for r in range(rep):

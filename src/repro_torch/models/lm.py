@@ -1,9 +1,10 @@
 """Decoder-only LM (the port of `repro.models.lm` for dense attention,
-pure SSM and hybrid models, with a tied or an untied unembedding).
+pure SSM and hybrid models, with a tied or an untied unembedding, qkv
+biases, and the VLM's patch-embedding projector).
 
   LM             — the module; weights drawn from a seeded torch.Generator
-  lm_prefill     — tokens → last-position logits and decode caches padded
-                   to `max_len`
+  lm_prefill     — tokens (+ optional patch embeddings) → last-position
+                   logits and decode caches padded to `max_len`
   lm_decode_step — one token per row through the caches (attention caches
                    updated in place, SSM caches replaced)
 
@@ -31,8 +32,7 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 def _check_supported(cfg: ArchConfig) -> None:
     missing = [name for name, on in (
-        ("moe", cfg.moe is not None), ("encoder", cfg.encoder is not None),
-        ("vision", cfg.vision is not None), ("qkv_bias", cfg.qkv_bias))
+        ("moe", cfg.moe is not None), ("encoder", cfg.encoder is not None))
         if on]
     if missing:
         raise NotImplementedError(
@@ -44,10 +44,11 @@ class LM(nn.Module):
     """`rcfg.dtype` is the compute dtype ("bfloat16" or "float32");
     `device` defaults to the card.  Weights follow the reference's
     initializers (truncated normal at ±2σ; σ = 1/sqrt(fan_in), 0.02 for
-    the embedding and the untied head; norm scales 0; the SSM leaves by
-    `init_ssm`'s law) but are drawn from `torch.Generator(device)` seeded
-    with `seed`, so they are not the reference's numbers.  `init=False`
-    leaves them unset for a caller that copies weights in."""
+    the embedding and the untied head; norm scales and qkv biases 0; the
+    SSM leaves by `init_ssm`'s law) but are drawn from
+    `torch.Generator(device)` seeded with `seed`, so they are not the
+    reference's numbers.  `init=False` leaves them unset for a caller
+    that copies weights in (the qkv biases are then 0)."""
 
     def __init__(self, cfg: ArchConfig, rcfg: RunConfig = RunConfig(),
                  seed: int = 0,
@@ -68,6 +69,10 @@ class LM(nn.Module):
         if not cfg.tie_embeddings:
             self.lm_head = nn.Parameter(torch.empty(
                 cfg.d_model, cfg.padded_vocab, dtype=self.dtype, device=dev))
+        if cfg.vision is not None:
+            self.vision_proj = nn.Parameter(torch.empty(
+                cfg.vision.patch_embed_dim, cfg.d_model, dtype=self.dtype,
+                device=dev))
         if init:
             self._init_weights(torch.Generator(dev).manual_seed(seed))
 
@@ -105,6 +110,8 @@ class LM(nn.Module):
         fill(self.embed, 0.02)
         if not cfg.tie_embeddings:
             fill(self.lm_head, 0.02)
+        if cfg.vision is not None:
+            fill(self.vision_proj, 1.0 / math.sqrt(cfg.vision.patch_embed_dim))
         for layer in self.layers:
             if layer.kind in SSM_KINDS:
                 init_ssm(layer.ssm)
@@ -120,12 +127,23 @@ class LM(nn.Module):
                 fill(f.w_down, 1.0 / math.sqrt(cfg.d_ff))
 
 
-def _embed_in(model: LM, tokens: torch.Tensor) -> torch.Tensor:
+def _embed_in(model: LM, tokens: torch.Tensor,
+              patch_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The embedding rows, scaled by sqrt(d_model) only where the head is
-    tied, as in the reference."""
+    tied, as in the reference.  A VLM's `patch_embeds` (B, n,
+    patch_embed_dim), projected by `vision_proj` in the compute dtype,
+    replace the first n positions; a prompt of fewer than n tokens raises
+    (the reference would return a longer sequence)."""
     x = embed(model.embed, tokens)
     if model.cfg.tie_embeddings:
         x = x * x.new_tensor(math.sqrt(model.cfg.d_model))
+    if model.cfg.vision is not None and patch_embeds is not None:
+        n = patch_embeds.shape[1]
+        if n > x.shape[1]:
+            raise ValueError(f"{n} patch embeddings exceed the prompt of "
+                             f"{x.shape[1]} tokens")
+        x = torch.cat([dense(patch_embeds, model.vision_proj), x[:, n:]],
+                      dim=1)
     return x
 
 
@@ -144,30 +162,24 @@ def _logits(model: LM, x: torch.Tensor) -> torch.Tensor:
 
 @torch.no_grad()
 def lm_prefill(model: LM, tokens: torch.Tensor,
-               max_len: Optional[int] = None
+               max_len: Optional[int] = None,
+               patch_embeds: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, List[Cache]]:
-    """tokens (B, S) → (last-position logits (B, V) fp32, caches), one
-    cache per layer: {"k", "v"} of an attention layer, each (B, Hkv,
-    max_len, dh) and zero past S; {"conv", "state"} of an SSM layer; all
-    four of a hybrid layer."""
+    """tokens (B, S) (+ a VLM's patch embeddings, see `_embed_in`) →
+    (last-position logits (B, V) fp32, caches), one cache per layer:
+    {"k", "v"} of an attention layer, each (B, Hkv, max_len, dh) and zero
+    past S; {"conv", "state"} of an SSM layer; all four of a hybrid
+    layer."""
     B, S = tokens.shape
     max_len = max_len or S
     if S > max_len:
         raise ValueError(f"prompt of {S} tokens exceeds max_len {max_len}")
-    x = _embed_in(model, tokens)
+    x = _embed_in(model, tokens, patch_embeds)
     positions = torch.arange(S, device=tokens.device)
     x, caches = segments_forward(model.layers, x, model.cfg,
-                                 positions=positions, collect_caches=True)
+                                 positions=positions, cache_len=max_len)
     x = rmsnorm(model.final_norm, x[:, -1:])
-    logits = _logits(model, x)[:, 0]
-
-    def pad(a: torch.Tensor) -> torch.Tensor:
-        out = a.new_zeros(a.shape[:2] + (max_len,) + a.shape[3:])
-        out[:, :, :S] = a
-        return out
-
-    return logits, [{name: pad(a) if name in ("k", "v") else a
-                     for name, a in c.items()} for c in caches]
+    return _logits(model, x)[:, 0], caches
 
 
 @torch.no_grad()

@@ -3,7 +3,11 @@ sampling over a fixed batch of requests (the port of
 `repro.serve.engine`).
 
 Prompts are left-padded with token 0 and, as in the reference, the pad
-tokens are attended (there is no pad mask).
+tokens are attended (there is no pad mask).  Each batch row samples from
+its own generator, seeded from the engine's seed and the row and kept on
+the engine, so its draws go on from one `generate` call to the next, as
+the reference's engine key does; a fresh engine with the same seed
+repeats them.
 """
 
 from __future__ import annotations
@@ -32,11 +36,21 @@ class Request:
             bool(self.output and self.output[-1] in self.stop_tokens)
 
 
+def left_pad(prompts: List[List[int]]) -> torch.Tensor:
+    """(B, longest prompt) int64 tokens, each prompt left-padded with 0."""
+    width = max(map(len, prompts))
+    tokens = torch.zeros((len(prompts), width), dtype=torch.long)
+    for i, p in enumerate(prompts):
+        tokens[i, width - len(p):] = torch.tensor(p, dtype=torch.long)
+    return tokens
+
+
 class ServeEngine:
     def __init__(self, model: LM, max_len: int = 512, seed: int = 0) -> None:
         self.model = model
         self.max_len = max_len
         self.seed = seed
+        self._gens: List[torch.Generator] = []   # row i's sampling stream
         self._prefill = make_prefill_step(model, max_len=max_len)
         self._decode = make_decode_step(model)
 
@@ -44,15 +58,12 @@ class ServeEngine:
         """Run a padded batch of requests to completion."""
         B = len(requests)
         dev = self.model.device
-        prompt_len = max(len(r.prompt) for r in requests)
-        tokens = torch.zeros((B, prompt_len), dtype=torch.long)
-        for i, r in enumerate(requests):
-            tokens[i, prompt_len - len(r.prompt):] = torch.tensor(
-                r.prompt, dtype=torch.long)               # left pad
-        tokens = tokens.to(dev)
-        # row i of every generate call draws from the same seeded stream
-        gens = [torch.Generator(dev).manual_seed(self.seed * 65_537 + i)
-                for i in range(B)]
+        tokens = left_pad([r.prompt for r in requests]).to(dev)
+        prompt_len = tokens.shape[1]
+        for i in range(len(self._gens), B):
+            self._gens.append(torch.Generator(dev).manual_seed(
+                self.seed * 65_537 + i))
+        gens = self._gens[:B]
 
         logits, caches = self._prefill(tokens)
         max_new = max(r.max_new_tokens for r in requests)

@@ -11,8 +11,10 @@ from repro_torch.models import LM, lm_decode_step, lm_prefill
 
 
 def make_prefill_step(model: LM, max_len: Optional[int] = None) -> Callable:
-    def prefill(tokens: torch.Tensor):
-        return lm_prefill(model, tokens, max_len=max_len)
+    def prefill(tokens: torch.Tensor,
+                patch_embeds: Optional[torch.Tensor] = None):
+        return lm_prefill(model, tokens, max_len=max_len,
+                          patch_embeds=patch_embeds)
     return prefill
 
 

@@ -54,6 +54,7 @@ def test_every_module_imports_without_jax_or_repro():
         names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
             repro_torch.__path__, "repro_torch.")]
         assert "repro_torch.configs.hymba_1_5b" in names
+        assert "repro_torch.configs.qwen2_5_32b" in names
         for n in names:
             importlib.import_module(n)
         spec = importlib.util.spec_from_file_location("chip_smoke",
@@ -66,7 +67,8 @@ def test_every_module_imports_without_jax_or_repro():
     assert int(out.split()[-1]) >= 56
 
 
-@pytest.mark.parametrize("arch", ["gemma2-2b", "mamba2-1.3b", "hymba-1.5b"])
+@pytest.mark.parametrize("arch", ["gemma2-2b", "mamba2-1.3b", "hymba-1.5b",
+                                  "qwen2.5-32b", "internvl2-26b"])
 def test_serve_entry_point_runs_on_cpu_without_jax(arch):
     out = _run(f"""
         import runpy

@@ -94,6 +94,14 @@ FLASH_CASES = [
     dict(B=4, Hq=25, Hkv=5, S=4608, D=64, causal=True, window=1024,
          cap=0.0),
     dict(B=4, Hq=25, Hkv=5, S=4608, D=64, causal=True, window=0, cap=0.0),
+    # the dense configs' layouts at head_dim 128, no softcap, S off the
+    # 128-row q tile: GQA 5 (qwen2.5-32b), 6 (internlm2-20b,
+    # internvl2-26b) and 16 (chatglm3-6b)
+    dict(B=2, Hq=10, Hkv=2, S=333, D=128, causal=True, window=0, cap=0.0),
+    dict(B=1, Hq=12, Hkv=2, S=700, D=128, causal=True, window=0, cap=0.0),
+    dict(B=2, Hq=32, Hkv=2, S=257, D=128, causal=True, window=0, cap=0.0),
+    dict(B=1, Hq=16, Hkv=1, S=190, Sk=321, D=128, causal=False, window=0,
+         cap=0.0),
 ]
 DECODE_CASES = [
     dict(B=2, Hq=8, Hkv=2, S=512, D=64, kvlen=300, win=0, cap=0.0),

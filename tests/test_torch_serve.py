@@ -1,7 +1,9 @@
 """The slices end to end on the CPU: the port's `ServeEngine` and JAX's
 `ServeEngine` (Pallas kernels in interpret mode, float32) answer the same
-requests on reduced gemma2, reduced mamba2 and reduced hymba (two hybrid
-layers, untied head) with the same weights.
+requests on reduced gemma2, reduced mamba2, reduced hymba (two hybrid
+layers, untied head), reduced qwen2.5-32b (qkv bias, RoPE theta 1e6) and
+reduced chatglm3-6b (qkv bias, RoPE on half the head) with the same
+weights.
 
 Greedy token streams must be equal.  Each step's top-2 logit margin is
 asserted to exceed the two frameworks' logit disagreement (1e-4 of
@@ -49,7 +51,8 @@ def seeded_params(jcfg, seed):
     ±2σ; σ 0.02 for the embedding, 1/sqrt(fan_in) for a kernel or the SSM
     conv; norm scales and the conv bias stay 0; the SSM's A_log and D are
     deterministic and stay, its dt_bias is redrawn by `init_ssm`'s
-    log-uniform law).  `init_lm` salts its keys with Python's `hash()`,
+    log-uniform law; the qkv biases, 0 at init, are drawn at σ 0.5 so
+    that they matter).  `init_lm` salts its keys with Python's `hash()`,
     which differs between processes; these weights do not, so the token
     streams and their top-2 margins are the same in every run."""
     rng = np.random.default_rng(seed)
@@ -58,6 +61,9 @@ def seeded_params(jcfg, seed):
     def redraw(path, leaf):
         a = np.asarray(leaf)
         name = jax.tree_util.keystr(path)
+        if name.endswith("['bias']") and "['attn']" in name:
+            return jnp.asarray((rng.standard_normal(a.shape) * 0.5)
+                               .astype(a.dtype))
         if not np.any(a) or "A_log" in name or "['D']" in name:
             return leaf
         if "dt_bias" in name:
@@ -108,7 +114,20 @@ def hymba_setup():
     return _setup("hymba-1.5b", 0)
 
 
-@pytest.mark.parametrize("which", ["setup", "mamba2_setup", "hymba_setup"])
+@pytest.fixture(scope="module")
+def qwen_setup():
+    """Seed 1: its smallest top-2 margin is 110x the disagreement bound."""
+    return _setup("qwen2.5-32b", 1)
+
+
+@pytest.fixture(scope="module")
+def chatglm_setup():
+    """Seed 1: its smallest top-2 margin is 64x the disagreement bound."""
+    return _setup("chatglm3-6b", 1)
+
+
+@pytest.mark.parametrize("which", ["setup", "mamba2_setup", "hymba_setup",
+                                   "qwen_setup", "chatglm_setup"])
 def test_greedy_streams_equal_jax(request, which):
     model, prompts, j_out = request.getfixturevalue(which)
     engine = RecordingEngine(model, max_len=MAX_LEN)
@@ -138,7 +157,59 @@ def test_greedy_row_unchanged_by_hot_neighbour(setup):
         Request(prompt=list(prompts[0]), max_new_tokens=6),
         Request(prompt=list(prompts[0]), max_new_tokens=6,
                 temperature=1.3)])
-    assert again[1].output == mixed[1].output   # seeded per (seed, row)
+    # row 1's stream goes on from the first call, as the reference's key
+    assert again[1].output != mixed[1].output
+    assert again[0].output == pure[0].output
+
+
+def _hot(prompt, n=8, temperature=1.0):
+    return Request(prompt=list(prompt), max_new_tokens=n,
+                   temperature=temperature)
+
+
+def test_repeated_calls_draw_new_streams(setup):
+    """The same hot request, sent three times to one engine, gets three
+    different streams (the draws go on across calls)."""
+    model, prompts, _ = setup
+    engine = ServeEngine(model, max_len=MAX_LEN, seed=3)
+    outs = [engine.generate([_hot(prompts[1])])[0].output for _ in range(3)]
+    assert all(len(o) == 8 for o in outs)
+    assert outs[0] != outs[1] and outs[1] != outs[2] and outs[0] != outs[2]
+
+
+def test_fresh_engine_with_the_same_seed_repeats_its_calls(setup):
+    """Two engines of one seed give the same first call and the same
+    second call; another seed gives another stream."""
+    model, prompts, _ = setup
+
+    def two_calls(seed):
+        engine = ServeEngine(model, max_len=MAX_LEN, seed=seed)
+        return [[r.output for r in engine.generate(
+            [_hot(prompts[2]), _hot(prompts[3], temperature=0.7)])]
+            for _ in range(2)]
+
+    first = two_calls(7)
+    assert two_calls(7) == first
+    assert first[0] != first[1]
+    assert two_calls(8)[0] != first[0]
+
+
+def test_greedy_row_unchanged_by_hot_neighbours_across_calls(setup):
+    """A greedy row between two hot rows (one prompt for all three, so no
+    row is padded) equals the same request served alone, on the first
+    call and on the next, while its neighbours' streams move on."""
+    model, prompts, _ = setup
+    alone = ServeEngine(model, max_len=MAX_LEN).generate(
+        [Request(prompt=list(prompts[1]), max_new_tokens=8)])[0].output
+    engine = ServeEngine(model, max_len=MAX_LEN, seed=11)
+    calls = [engine.generate([_hot(prompts[1], temperature=1.5),
+                              Request(prompt=list(prompts[1]),
+                                      max_new_tokens=8),
+                              _hot(prompts[1], temperature=0.9)])
+             for _ in range(2)]
+    for out in calls:
+        assert out[1].output == alone
+    assert calls[0][0].output != calls[1][0].output
 
 
 def test_stop_tokens_end_generation_early(setup):
