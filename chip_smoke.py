@@ -50,7 +50,9 @@ lines tagged with its name:
                attention at head_dim 128 in the dense and VLM configs'
                head layouts (48 q / 8 kv heads: internlm2-20b and
                internvl2-26b; 32 / 2: chatglm3-6b; 40 / 8: qwen2.5-32b),
-               causal, no softcap, the same way;
+               causal, no softcap, the same way; then at the MoE configs'
+               (16 / 16, GQA group 1: qwen2-moe-a2.7b, causal; 32 / 8:
+               mixtral-8x7b, window 4,096);
   4. dma     — the quickstart's path through the port's descriptor
                plane (host NumPy: a register front-end's 3-D gather, the
                presets' 4 KiB cycles), a `plan_nd_copy` plan whose
@@ -102,7 +104,21 @@ lines tagged with its name:
                patch embeddings of width 3,200 a row, through
                `make_prefill_step`, and 3 decode steps: finite logits, 48
                flash and 144 decode launches, and last-position logits
-               that differ from those without the patches;
+               that differ from those without the patches; then the MoE
+               configs the same way, qwen2-moe-a2.7b whole (24 layers, d
+               2048, 60 routed experts top 4 and 4 shared, qkv bias,
+               14.3 B params) and mixtral-8x7b cut to 20 of its 32 layers
+               (d 4096, 8 experts top 2, window 4,096; 29.3 B params), each
+               printing the dropped share of (token, expert) pairs in each
+               layer of its prefill at capacity factor 1.25 from a third,
+               untimed generate, which for qwen2-moe also holds every flash
+               and decode call against its plain version; then the MoE
+               dispatch: the capacity buffer `moe_dispatch_compute` builds
+               on the card for 512 tokens of d 2,048 (bf16, 200 of them
+               one repeated row) equals, bit for bit, the one the port's
+               `IDMAEngine` fills on the host from `expert_gather_batch`'s
+               descriptors at the capacity `moe_expert_gather` uses, and a
+               second call gives y, aux and dropped bit for bit;
   7. front   — the same two full-width models behind the continuous-
                batching front door, `ServeFrontDoor(StepLM(model, ...),
                layout).submit(req) ... .run()`: six requests of 33 to
@@ -129,13 +145,16 @@ lines tagged with its name:
                and 2 hymba layers (HYBRID_FULL, HYBRID) on a 1,100-token
                prompt, past their window and off the SSD's chunk, and 2
                qwen2.5-32b layers (qkv bias, GQA 5, RoPE theta 1e6) and 2
-               chatglm3-6b layers (GQA 16, RoPE on half the head), their
-               qkv biases seeded non-zero: logits of the CUDA path agree
-               with the CPU path within 1e-4; then the 2 gemma2, the 2
-               hymba, the 2 qwen2.5 and the 2 chatglm3 layers in bf16, the
-               serving dtype, on the card: logits through the attention and
-               SSD kernels agree with those through their plain versions
-               within 2e-2.
+               chatglm3-6b layers (GQA 16, RoPE on half the head), and 2
+               qwen2-moe-a2.7b layers (60 experts top 4 at capacity factor
+               1.25, GQA 1), their qkv biases seeded non-zero: logits of the
+               CUDA path agree with the CPU path within 1e-4; then the 2
+               gemma2, the 2 hymba, the 2 qwen2.5, the 2 chatglm3 and the 2
+               qwen2-moe layers in bf16, the serving dtype, on the card:
+               logits through the attention and SSD kernels agree with
+               those through their plain versions within 2e-2; the MoE
+               pairs print how many (token, expert) pairs each layer
+               routed differently between the two runs.
 
 Any failure raises and exits non-zero.  The second-to-last line is a JSON
 object with one entry per kernel; the last is the device line.
@@ -143,6 +162,7 @@ object with one entry per kernel; the last is the device line.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import importlib
@@ -196,7 +216,8 @@ def device_ms(fn, iters: int = 20, warmup: int = 3, tries: int = 5
     call: the nearest whole number to its records over the calls, or
     that ratio itself where it rounds to 0 (a kernel some calls launch).
     A session with no device record is taken again, `tries` times at
-    most."""
+    most; if none of them has one, the time is taken with CUDA events
+    around the calls instead, and a line says so."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
@@ -217,9 +238,10 @@ def device_ms(fn, iters: int = 20, warmup: int = 3, tries: int = 5
         if total > 0:
             return total / 1e3
     seen = [(e.key[:60], e.count) for e in records if e.count]
-    raise RuntimeError(f"the profiler recorded no device time for {iters} "
-                       f"calls in {tries} sessions; the last one's records: "
-                       f"{seen}")
+    log(f"[timing] the profiler recorded no device time for {iters} calls "
+        f"in {tries} sessions (the last one's records: {seen}); CUDA "
+        f"events around {iters} calls instead")
+    return time_ms(fn, iters=iters, warmup=0)
 
 
 def in_turns(fns, rounds: int = 5):
@@ -229,10 +251,7 @@ def in_turns(fns, rounds: int = 5):
     times = {name: [] for name in fns}
     for r in range(rounds):
         for name in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
-            try:
-                times[name].append(device_ms(fns[name]))
-            except RuntimeError as e:
-                raise RuntimeError(f"{name}, round {r}: {e}") from None
+            times[name].append(device_ms(fns[name]))
     return {name: (statistics.median(t), min(t), max(t))
             for name, t in times.items()}
 
@@ -940,6 +959,161 @@ DENSE = ("internlm2-20b", "chatglm3-6b", "qwen2.5-32b")
 VLM = "internvl2-26b"
 
 
+MOE = ("qwen2-moe-a2.7b", "mixtral-8x7b")
+# mixtral-8x7b's 32 layers hold 46.7 B params, 87 GiB in bf16, more than
+# the card: it serves 20 of them, at full width
+MIXTRAL_LAYERS = 20
+
+
+def moe_config(arch):
+    """A MoE config as the card serves it: qwen2-moe-a2.7b whole,
+    mixtral-8x7b cut to MIXTRAL_LAYERS of its 32 layers."""
+    from repro_torch.configs import get
+    cfg = get(arch)
+    if arch == "mixtral-8x7b":
+        cfg = dataclasses.replace(cfg, n_layers=MIXTRAL_LAYERS)
+    return cfg
+
+
+class MoeLog:
+    """Within `with`, each `repro_torch.models.moe.route` call (one a MoE
+    layer a forward, in the order they run) is kept as (device type,
+    expert_idx, dropped fraction), the last two left on their device."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.moe, self.inner, self.calls = moe, moe.route, []
+
+        def route(*args, **kw):
+            r = self.inner(*args, **kw)
+            self.calls.append((r.expert_idx.device.type, r.expert_idx,
+                               1 - r.keep.float().mean()))
+            return r
+        moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.inner
+
+
+def routing_changes(cfg, a, b):
+    """Per layer, over the paired calls of two runs `a` and `b` (MoeLog
+    records): the (token, expert) pairs routed in `a` and not in `b`, and
+    the dropped fractions of both in the first (the prefill) call."""
+    import torch
+    L, E = cfg.n_layers, cfg.moe.n_experts
+    if len(a) != len(b) or len(a) % L:
+        raise AssertionError(f"{len(a)} and {len(b)} MoE calls for {L} "
+                             f"layers")
+    out = []
+    for layer in range(L):
+        changed = 0
+        for (_, ia, _), (_, ib, _) in zip(a[layer::L], b[layer::L]):
+            oa = torch.zeros(ia.shape[0], E).scatter_(1, ia.cpu(), 1)
+            ob = torch.zeros(ib.shape[0], E).scatter_(1, ib.cpu(), 1)
+            changed += int(((oa - ob) > 0).sum())
+        out.append((changed, float(a[layer][2]), float(b[layer][2])))
+    return out
+
+
+MOE_DISPATCH_TOKENS, MOE_DISPATCH_PADS = 512, 200
+
+
+def phase_moe_dispatch():
+    """The MoE dispatch on the card against the descriptor plane: one
+    qwen2-moe-a2.7b MoE layer (60 experts top 4, capacity factor 1.25,
+    seeded weights, bf16) over 512 tokens of d 2,048, the first 200 one
+    repeated row as the served batch's left padding makes them, so that
+    experts overflow.  The (E, C, d) capacity buffer `moe_dispatch_compute`
+    builds on the card must equal, bit for bit, the buffer the port's
+    `IDMAEngine` (host NumPy) fills from `moe_expert_gather`'s descriptor
+    batch over the same token bytes (`expert_gather_on_engine`, at the
+    routing's capacity).  A second call on the same inputs must give the
+    same bits: y, the aux loss and the dropped share (no atomics in the
+    combine)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.vm import expert_gather_on_engine
+    from repro_torch.models import moe
+
+    cfg = moe_config("qwen2-moe-a2.7b")
+    mc, T = cfg.moe, MOE_DISPATCH_TOKENS
+    gen = torch.Generator("cuda").manual_seed(6)
+    p = moe.MoE(cfg, torch.bfloat16, torch.device("cuda"))
+    with torch.no_grad():
+        for w in p.parameters():
+            w.copy_(torch.randn(w.shape, generator=gen, device="cuda")
+                    * w.shape[-2] ** -0.5)
+    x = torch.randn(T, cfg.d_model, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    x[:MOE_DISPATCH_PADS] = x[0]
+    built, inner = [], moe.dispatch
+
+    def record(x2, r, n):
+        built.append((inner(x2, r, n), r))
+        return built[-1][0]
+    moe.dispatch = record
+    try:
+        with torch.no_grad():
+            y, aux, dropped = moe.moe_dispatch_compute(p, x, mc, cfg.act)
+    finally:
+        moe.dispatch = inner
+    (buf, r), = built
+    if not bool(torch.isfinite(y).all()):
+        raise AssertionError("MoE dispatch: non-finite output")
+    with torch.no_grad():
+        again = moe.moe_dispatch_compute(p, x, mc, cfg.act)
+    for name, u, v in zip(("y", "aux", "dropped"), (y, aux, dropped), again):
+        if not torch.equal(u, v):
+            raise AssertionError(f"MoE dispatch: {name} differs between two "
+                                 f"calls on the same inputs")
+    if mc.capacity_factor != 1.25 or r.capacity != moe._capacity(T, mc):
+        raise AssertionError(f"MoE dispatch: capacity {r.capacity} at "
+                             f"factor {mc.capacity_factor}")
+    rows = x.view(torch.uint8).cpu().numpy()
+    t = time.perf_counter()
+    plane = expert_gather_on_engine(rows, r.expert_idx.cpu().numpy(),
+                                    mc.n_experts, r.capacity)
+    plane_s = time.perf_counter() - t
+    card = buf.view(torch.uint8).cpu().numpy().reshape(plane.shape)
+    kept = int(r.keep.sum())
+    if not np.array_equal(card, plane):
+        bad = int((card != plane).any(-1).sum())
+        raise AssertionError(f"MoE dispatch: {bad} of "
+                             f"{card.shape[0] * card.shape[1]} buffer rows "
+                             f"differ from the IDMAEngine's")
+    if not 0 < float(dropped) < 1:
+        raise AssertionError(f"MoE dispatch: dropped {float(dropped)}, "
+                             f"want some pairs dropped and some kept")
+    log(f"[moe] dispatch of {T} tokens (d {cfg.d_model}, bf16, "
+        f"{MOE_DISPATCH_PADS} one repeated row) to {mc.n_experts} experts top "
+        f"{mc.top_k}, capacity {r.capacity} a expert: {kept} of "
+        f"{T * mc.top_k} pairs kept (dropped {float(dropped):.4f}); the "
+        f"card's ({mc.n_experts}, {r.capacity}, {cfg.d_model}) buffer equals "
+        f"the IDMAEngine's gather of the same token bytes bit for bit "
+        f"({kept} descriptors of {rows.shape[1]} B, {plane_s:.2f} s on the "
+        f"host); a second call gives y, aux and dropped bit for bit")
+    del p, x, buf, built, again
+    free_card()
+
+
+def phase_moe_kernels(mods):
+    """Flash and decode attention at the MoE configs' head layouts, head
+    dim 128, no softcap: 16 q on 16 kv heads (qwen2-moe-a2.7b, GQA group
+    1), causal; 32 / 8 (mixtral-8x7b, group 4) with its window of 4,096;
+    each as `attention_layout_cases` says, with dynamo's cache reset for
+    each layout.  Returns the entries, named by the config."""
+    import torch
+    gen = torch.Generator("cuda").manual_seed(7)
+    entries = {}
+    for arch in MOE:
+        cfg = moe_config(arch)
+        for e in attention_layout_cases(cfg, mods, library_attention(), gen,
+                                        (cfg.window,)).values():
+            entries[e["name"]] = e
+    return entries
+
+
 def phase_dense_kernels(mods):
     """Flash and decode attention at head_dim 128 in the dense and VLM
     configs' three head layouts: 48 q / 8 kv heads (internlm2-20b, and
@@ -1271,7 +1445,9 @@ def phase_dma(mods):
         "; ".join(f"{k} {v}" for k, v in route_counts.items()))
 
     # timing, after the count: device time from the profiler, the kernel
-    # and its library call in turns; an entry for each kernel's first
+    # and its library call in turns; the plain version, at 0.25-90 ms a
+    # call, by CUDA events (3 profiled calls of one memcpy kept 1 record,
+    # or none in 5 sessions); an entry for each kernel's first
     # case, and one for the bf16 copy's bulk route ("copy_2d bulk", its
     # launches those of that route)
     entries = {}
@@ -1283,12 +1459,12 @@ def phase_dma(mods):
         turns = in_turns(fns, rounds=5)
         ms = turns["kernel"][0]
         lib_ms = turns["library"][0] if lib is not None else None
-        plain_ms = device_ms(lambda: plain(x), iters=3, warmup=1)
+        plain_ms = time_ms(lambda: plain(x), iters=3, warmup=1)
         b_ms, b_by = bound(flops, nbytes, "float32")
         spread = ", ".join(f"{n} {m:.4f} ({lo:.4f}-{hi:.4f})"
                            for n, (m, lo, hi) in turns.items())
         log(f"[dma] {label}: device ms in turns, median (min-max) of 5: "
-            f"{spread}; plain {plain_ms:.4f} ms; bound {b_ms:.4f} ms "
+            f"{spread}; plain {plain_ms:.4f} ms (events); bound {b_ms:.4f} ms "
             f"({b_by}, {nbytes / 1e9:.3f} GB), kernel {b_ms / ms:.1%} of "
             f"it" + (f", {ms / lib_ms:.3f}x the library"
                      if lib_ms is not None else ""))
@@ -1559,10 +1735,14 @@ def phase_matmul(mods):
     return entry
 
 
-def phase_serve(arch, mods):
-    """Full-width `arch` answers the traffic twice; returns the launches
-    of the first run.  The model, its engine and the allocator's cached
-    blocks are freed before it returns, so the next model has the card."""
+def phase_serve(arch, mods, cfg=None, held=False):
+    """Full-width `arch` (or `cfg`, a cut of its depth) answers the
+    traffic twice; returns the launches of the first run.  A MoE model
+    prints the dropped fraction of each layer's prefill.  With `held`, a
+    third run goes through `HeldKernels`: every flash and decode call of
+    the generate against its plain version.  The model, its engine and the
+    allocator's cached blocks are freed before it returns, so the next
+    model has the card."""
     import torch
     from repro_torch.configs import RunConfig, get
     from repro_torch.launch.profile_serve import (
@@ -1572,11 +1752,13 @@ def phase_serve(arch, mods):
     from repro_torch.models.common import dense, unembed
     from repro_torch.serve import ServeEngine
 
-    cfg = get(arch)
+    cfg = cfg or get(arch)
+    cut = get(arch).n_layers
+    cut = "" if cfg.n_layers == cut else f" of its {cut}"
     t0 = time.perf_counter()
     model = LM(cfg, RunConfig(dtype="bfloat16"), seed=0, device="cuda")
     torch.cuda.synchronize()
-    log(f"[serve] {arch} full width: {cfg.n_layers} layers, d "
+    log(f"[serve] {arch} full width: {cfg.n_layers} layers{cut}, d "
         f"{cfg.d_model}, vocab {cfg.vocab_size}, "
         f"{sum(p.numel() for p in model.parameters()) / 1e9:.3f} B params "
         f"(bf16), seeded init {time.perf_counter() - t0:.1f} s")
@@ -1638,6 +1820,30 @@ def phase_serve(arch, mods):
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | launches "
             + ", ".join(f"{k} {v}" for k, v in counts.items()) +
             f" (ssd on route tensor_cores {ssd_tc})")
+    # an untimed generate: each MoE layer's dropped share, and with `held`
+    # every kernel call held against its plain version
+    if held or cfg.moe is not None:
+        with MoeLog() as routed, \
+                (HeldKernels(mods) if held else contextlib.nullcontext()) \
+                as hk:
+            engine.generate(make_requests(cfg.vocab_size))
+    if cfg.moe is not None:
+        dropped = [float(d) for _, _, d in routed.calls]
+        L = cfg.n_layers
+        log(f"[serve] {arch} MoE ({cfg.moe.n_experts} experts top "
+            f"{cfg.moe.top_k}, capacity factor "
+            f"{cfg.moe.capacity_factor}): dropped share of (token, "
+            f"expert) pairs in each layer of the prefill: " +
+            " ".join(f"{d:.4f}" for d in dropped[:L]) +
+            f"; in the decode steps at most {max(dropped[L:]):.4f} (an "
+            f"untimed generate)")
+    if held:
+        calls = hk.report("serve", f"{arch} generate")
+        want = {"flash_attention": runs[0]["counts"]["flash_attention"],
+                "decode_attention": runs[0]["counts"]["decode_attention"],
+                "ssd": runs[0]["counts"]["ssd"]}
+        if calls != want:
+            raise AssertionError(f"{arch}: held {calls}, want {want}")
     for i in range(len(PROMPTS)):
         if i != HOT_ROW and runs[0]["outputs"][i] != runs[1]["outputs"][i]:
             raise AssertionError(f"{arch}: greedy row {i} differs on rerun")
@@ -1842,33 +2048,27 @@ def front_run(arch, cfg, model, layout, mods, max_running):
     return [r.output for r in reqs]
 
 
-def front_kernels(arch, cfg, model, mods):
-    """The front traffic's kernel shapes on the card, each call held
-    against its plain version on its own inputs, and a request's logits
-    against themselves.  Request 0 alone, then all six requests with
-    request 0 last, go through a `StepLM`: admission (a B = 1 prefill:
-    flash attention at each prompt's own length, the SSD at it padded to
-    the chunk), then FRONT_CHECK_STEPS decode steps (decode attention at
-    B = 1 over the FRONT_MAX_LEN-row cache, with its B = 1 key splits).
-    Each wrapper is swapped for one that launches the kernel and holds its
-    result against `attention_ref`, `decode_attention_ref` or
-    `ssd_chunked_ref` at TOL (flash row by row, as the kernels phase does);
-    request 0's logits must be `torch.equal` alone and among the others."""
-    import torch
-    from repro_torch.kernels.decode_attention import decode_attention_ref
-    from repro_torch.kernels.flash_attention import attention_ref
-    from repro_torch.kernels.ssd import ssd_chunked_ref
-    from repro_torch.serve import StepLM
+class HeldKernels:
+    """Within `with`, the flash, decode and SSD wrappers are swapped for
+    ones that launch the kernel and hold its result against
+    `attention_ref`, `decode_attention_ref` or `ssd_chunked_ref` on the
+    same inputs at TOL (flash row by row, as the kernels phase does);
+    `report` then fails on any call off its plain version and logs the
+    worst error and the shapes met.  The errors stay on the card until
+    `report`, so the held calls add no synchronization."""
 
-    fa, da, sk = (mods[n] for n in ("flash_attention", "decode_attention",
-                                    "ssd"))
-    kernels = {"flash_attention": fa.flash_attention_cuda,
-               "decode_attention": da.decode_attention_cuda,
-               "ssd": sk.ssd_cuda}
-    checks = {name: [] for name in kernels}    # (shape, rel, abs, tol)
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    def __init__(self, mods):
+        import torch
+        self.fa, self.da, self.sk = (mods[n] for n in (
+            "flash_attention", "decode_attention", "ssd"))
+        self.kernels = {"flash_attention": self.fa.flash_attention_cuda,
+                        "decode_attention": self.da.decode_attention_cuda,
+                        "ssd": self.sk.ssd_cuda}
+        self.checks = {name: [] for name in self.kernels}  # (shape, rel,
+        #                                                      abs, tol)
+        self.sms = torch.cuda.get_device_properties(0).multi_processor_count
 
-    def hold(name, shape, got, want, dtype, rows=False):
+    def hold(self, name, shape, got, want, dtype, rows=False):
         err = (got.float() - want.float()).abs()
         if rows:
             rel = (err.amax(-1) / want.float().abs().amax(-1)
@@ -1876,36 +2076,89 @@ def front_kernels(arch, cfg, model, mods):
         else:
             rel = err.max() / want.float().abs().max().clamp_min(1e-6)
         tol = TOL[str(dtype).removeprefix("torch.")]
-        checks[name].append((shape, rel, err.max(), tol))
+        self.checks[name].append((shape, rel, err.max(), tol))
 
-    def flash(q, k, v, **kw):
-        got = kernels["flash_attention"](q, k, v, **kw)
-        hold("flash_attention", f"B{q.shape[0]} S{q.shape[2]} "
-             f"w{kw['window']}", got, attention_ref(q, k, v, **kw),
-             q.dtype, rows=True)
+    def flash(self, q, k, v, **kw):
+        from repro_torch.kernels.flash_attention import attention_ref
+        got = self.kernels["flash_attention"](q, k, v, **kw)
+        self.hold("flash_attention", f"B{q.shape[0]} Hq{q.shape[1]} "
+                  f"Hkv{k.shape[1]} S{q.shape[2]} w{kw['window']}", got,
+                  attention_ref(q, k, v, **kw), q.dtype, rows=True)
         return got
 
-    def decode(q, k, v, kv_len=None, **kw):
-        got = kernels["decode_attention"](q, k, v, kv_len=kv_len, **kw)
+    def decode(self, q, k, v, kv_len=None, **kw):
+        from repro_torch.kernels.decode_attention import decode_attention_ref
+        got = self.kernels["decode_attention"](q, k, v, kv_len=kv_len, **kw)
         G = q.shape[1] // k.shape[1]
-        splits = da.num_splits(
-            q.shape[0] * k.shape[1] * (G // da.heads_per_block(G)),
-            k.shape[2], sms)
-        hold("decode_attention", f"B{q.shape[0]} cache {k.shape[2]} kv_len "
-             f"{int(kv_len)} w{kw['window']} splits {splits}", got,
-             decode_attention_ref(q, k, v, kv_len=kv_len, **kw), q.dtype)
+        splits = self.da.num_splits(
+            q.shape[0] * k.shape[1] * (G // self.da.heads_per_block(G)),
+            k.shape[2], self.sms)
+        self.hold("decode_attention", f"B{q.shape[0]} G{G} cache "
+                  f"{k.shape[2]} kv_len {int(kv_len)} w{kw['window']} "
+                  f"splits {splits}", got,
+                  decode_attention_ref(q, k, v, kv_len=kv_len, **kw),
+                  q.dtype)
         return got
 
-    def ssd(x, dt, A, D, B, C, chunk=128, **kw):
-        route = sk.route(x, B, C, chunk)
-        y, state = kernels["ssd"](x, dt, A, D, B, C, chunk=chunk, **kw)
+    def ssd(self, x, dt, A, D, B, C, chunk=128, **kw):
+        from repro_torch.kernels.ssd import ssd_chunked_ref
+        route = self.sk.route(x, B, C, chunk)
+        y, state = self.kernels["ssd"](x, dt, A, D, B, C, chunk=chunk, **kw)
         wy, wstate = ssd_chunked_ref(x, dt, A, D, B, C, chunk=chunk,
                                      return_state=True)
         shape = (f"B{x.shape[0]} S{x.shape[2]} "
                  f"{str(x.dtype).removeprefix('torch.')} {route}")
-        hold("ssd", shape + " y", y, wy, x.dtype)
-        hold("ssd", shape + " state", state, wstate, x.dtype)
+        self.hold("ssd", shape + " y", y, wy, x.dtype)
+        self.hold("ssd", shape + " state", state, wstate, x.dtype)
         return y, state
+
+    def __enter__(self):
+        self.fa.flash_attention_cuda, self.da.decode_attention_cuda, \
+            self.sk.ssd_cuda = self.flash, self.decode, self.ssd
+        return self
+
+    def __exit__(self, *exc):
+        self.fa.flash_attention_cuda, self.da.decode_attention_cuda, \
+            self.sk.ssd_cuda = self.kernels.values()
+
+    def report(self, tag, label):
+        """Fail on a call off its plain version; log each kernel's calls
+        as `[tag] label name: ...`.  Returns {name: calls held}."""
+        import torch
+        for name, rows in self.checks.items():
+            if not rows:
+                continue
+            got = torch.stack([torch.stack([r, a]) for _, r, a, _ in rows]
+                              ).tolist()
+            bad = [(shape, rel) for (shape, _, _, tol), (rel, _)
+                   in zip(rows, got) if not (math.isfinite(rel) and
+                                             rel < tol)]
+            if bad:
+                raise AssertionError(f"{label} {name}: {len(bad)} of "
+                                     f"{len(rows)} calls off their plain "
+                                     f"version, first {bad[0]}")
+            shapes = dict.fromkeys(shape for shape, _, _, _ in rows)
+            worst = max(range(len(rows)), key=lambda i: got[i][0])
+            log(f"[{tag}] {label} {name}: {len(rows)} calls held against "
+                f"the plain version, max rel err {got[worst][0]:.2e} (at "
+                f"{rows[worst][0]}), max abs err "
+                f"{max(a for _, a in got):.3e} (tol {rows[0][3]:.0e}) | "
+                f"shapes: " + "; ".join(shapes))
+        return {name: len(rows) for name, rows in self.checks.items()}
+
+
+def front_kernels(arch, cfg, model, mods):
+    """The front traffic's kernel shapes on the card, each call held
+    against its plain version on its own inputs, and a request's logits
+    against themselves.  Request 0 alone, then all six requests with
+    request 0 last, go through a `StepLM`: admission (a B = 1 prefill:
+    flash attention at each prompt's own length, the SSD at it padded to
+    the chunk), then FRONT_CHECK_STEPS decode steps (decode attention at
+    B = 1 over the FRONT_MAX_LEN-row cache, with its B = 1 key splits),
+    through `HeldKernels`; request 0's logits must be `torch.equal` alone
+    and among the others."""
+    import torch
+    from repro_torch.serve import StepLM
 
     def serve(rids):
         """`rids` admitted in that order and stepped together; the logits
@@ -1927,31 +2180,10 @@ def front_kernels(arch, cfg, model, mods):
                 r.tokens.append(tok)
         return rows
 
-    fa.flash_attention_cuda, da.decode_attention_cuda, sk.ssd_cuda = \
-        flash, decode, ssd
-    try:
+    with HeldKernels(mods) as held:
         alone = serve([0])
         among = serve(list(range(len(FRONT_PROMPTS)))[::-1])
-    finally:
-        fa.flash_attention_cuda, da.decode_attention_cuda, sk.ssd_cuda = \
-            kernels.values()
-    for name, rows in checks.items():
-        if not rows:
-            continue
-        got = torch.stack([torch.stack([r, a]) for _, r, a, _ in rows]
-                          ).tolist()
-        bad = [(shape, rel) for (shape, _, _, tol), (rel, _) in zip(rows, got)
-               if not (math.isfinite(rel) and rel < tol)]
-        if bad:
-            raise AssertionError(f"{arch} front {name}: {len(bad)} of "
-                                 f"{len(rows)} calls off their plain "
-                                 f"version, first {bad[0]}")
-        shapes = dict.fromkeys(shape for shape, _, _, _ in rows)
-        worst = max(range(len(rows)), key=lambda i: got[i][0])
-        log(f"[front] {arch} {name}: {len(rows)} checks on the front "
-            f"traffic's shapes, max rel err {got[worst][0]:.2e} (at "
-            f"{rows[worst][0]}), max abs err {max(a for _, a in got):.3e} "
-            f"(tol {rows[0][3]:.0e}) | shapes: " + "; ".join(shapes))
+    held.report("front", arch)
     keys = sorted(k for k in alone if k[0] == 0)
     if keys != sorted(k for k in among if k[0] == 0) or not all(
             torch.equal(alone[k], among[k]) for k in keys):
@@ -2001,6 +2233,16 @@ def seed_qkv_biases(model, seed):
                                           device=b.device))
 
 
+def log_routing(tag, label, cfg, a, b):
+    """Log `routing_changes` of two runs' MoeLog records."""
+    per_layer = routing_changes(cfg, a, b)
+    log(f"[{tag}] {label}: (token, expert) pairs routed differently in "
+        f"each layer over the prefill and decode steps, " + ", ".join(
+            f"layer {i} {n}" for i, (n, _, _) in enumerate(per_layer)) +
+        "; dropped share in each layer's prefill " + ", ".join(
+            f"{da:.4f} / {db:.4f}" for _, da, db in per_layer))
+
+
 def phase_card_vs_cpu(cfg, label, mods, S=600):
     """2 layers at full width in fp32, a prompt of S tokens and 3 decode
     steps: the card's logits against the CPU's over the real vocab rows,
@@ -2023,15 +2265,20 @@ def phase_card_vs_cpu(cfg, label, mods, S=600):
     max_len = S + steps
     reset(mods)
     worst = 0.0
-    lg, cg = lm_prefill(gpu, toks[:, :S].cuda(), max_len=max_len)
-    lc, cc = lm_prefill(cpu, toks[:, :S], max_len=max_len)
-    pairs = [(lg, lc)]
-    for i in range(steps):
-        t = toks[:, S + i:S + i + 1]
-        lg, cg = lm_decode_step(gpu, cg, t.cuda(), S + i)
-        lc, cc = lm_decode_step(cpu, cc, t, S + i)
-        pairs.append((lg, lc))
+    with MoeLog() as routed:
+        lg, cg = lm_prefill(gpu, toks[:, :S].cuda(), max_len=max_len)
+        lc, cc = lm_prefill(cpu, toks[:, :S], max_len=max_len)
+        pairs = [(lg, lc)]
+        for i in range(steps):
+            t = toks[:, S + i:S + i + 1]
+            lg, cg = lm_decode_step(gpu, cg, t.cuda(), S + i)
+            lc, cc = lm_decode_step(cpu, cc, t, S + i)
+            pairs.append((lg, lc))
     counts, want = read(mods), expected_launches(cfg, steps)
+    if cfg.moe is not None:
+        log_routing("card-vs-cpu", f"2 layers ({label}) fp32, card vs CPU",
+                    cfg, [c for c in routed.calls if c[0] == "cuda"],
+                    [c for c in routed.calls if c[0] == "cpu"])
     for g, c in pairs:
         # the padded vocab rows hold -1e30 on both sides: leave them out
         g, c = g[:, :cfg.vocab_size].cpu(), c[:, :cfg.vocab_size]
@@ -2081,7 +2328,8 @@ def phase_bf16_vs_plain(cfg, label, mods, S=600):
         return out
 
     reset(mods)
-    got = run()
+    with MoeLog() as routed:
+        got = run()
     counts, want_counts = read(mods), expected_launches(cfg, steps)
     if counts != want_counts:
         raise AssertionError(f"bf16 card path launches {counts}, want "
@@ -2092,10 +2340,14 @@ def phase_bf16_vs_plain(cfg, label, mods, S=600):
     fa.flash_attention_cuda, da.decode_attention_cuda, sk.ssd_cuda = \
         attention_ref, decode_attention_ref, ssd_plain
     try:
-        want = run()
+        with MoeLog() as plain_routed:
+            want = run()
     finally:
         fa.flash_attention_cuda, da.decode_attention_cuda, sk.ssd_cuda = \
             kernels
+    if cfg.moe is not None:
+        log_routing("card-vs-cpu", f"2 layers ({label}) bf16, kernels vs "
+                    f"plain", cfg, routed.calls, plain_routed.calls)
     worst = 0.0
     for g, w in zip(got, want):
         g, w = g[:, :cfg.vocab_size].float(), w[:, :cfg.vocab_size].float()
@@ -2133,6 +2385,7 @@ def main() -> int:
     entries["ssd"] = phase_ssd_kernel(mods["ssd"])
     hymba_entries = phase_hymba_kernels(mods)
     dense_entries = phase_dense_kernels(mods)
+    dense_entries.update(phase_moe_kernels(mods))
     entries.update(phase_dma(mods))
     entries["matmul_dma"] = phase_matmul(mods)
     gemma = phase_serve("gemma2-2b", mods)
@@ -2140,6 +2393,10 @@ def main() -> int:
     hymba = phase_serve(HYMBA, mods)
     served = {arch: phase_serve(arch, mods) for arch in DENSE}
     phase_vlm_prefill(mods)
+    for arch in MOE:
+        served[arch] = phase_serve(arch, mods, moe_config(arch),
+                                   held=arch == "qwen2-moe-a2.7b")
+    phase_moe_dispatch()
     entries["flash_attention"]["launches"] = gemma["flash_attention"]
     entries["decode_attention"]["launches"] = gemma["decode_attention"]
     entries["ssd"]["launches"] = mamba["ssd"]
@@ -2170,6 +2427,11 @@ def main() -> int:
         cfg2 = dataclasses.replace(get(arch), n_layers=2)
         phase_card_vs_cpu(cfg2, label, mods)
         phase_bf16_vs_plain(cfg2, label, mods)
+    # 60 experts top 4 and shared experts at the real capacity factor,
+    # GQA group 1, qkv biases seeded non-zero
+    qwen_moe2 = dataclasses.replace(get("qwen2-moe-a2.7b"), n_layers=2)
+    phase_card_vs_cpu(qwen_moe2, "qwen2-moe-a2.7b FULL, FULL", mods)
+    phase_bf16_vs_plain(qwen_moe2, "qwen2-moe-a2.7b FULL, FULL", mods)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(smi)

@@ -1,8 +1,8 @@
 """Architecture configs of the port.
 
 `get(name)` returns the full ArchConfig; gemma2-2b, mamba2-1.3b,
-hymba-1.5b, internlm2-20b, chatglm3-6b, qwen2.5-32b and internvl2-26b
-are ported so far.
+hymba-1.5b, internlm2-20b, chatglm3-6b, qwen2.5-32b, internvl2-26b and
+the MoE pair qwen2-moe-a2.7b and mixtral-8x7b are ported so far.
 `reduced` (from .base) shrinks it for CPU tests.
 """
 
@@ -20,11 +20,13 @@ from .hymba_1_5b import CONFIG as hymba_1_5b
 from .internlm2_20b import CONFIG as internlm2_20b
 from .internvl2_26b import CONFIG as internvl2_26b
 from .mamba2_1_3b import CONFIG as mamba2_1_3b
+from .mixtral_8x7b import CONFIG as mixtral_8x7b
 from .qwen2_5_32b import CONFIG as qwen2_5_32b
+from .qwen2_moe_a2_7b import CONFIG as qwen2_moe_a2_7b
 
 REGISTRY: Dict[str, ArchConfig] = {c.name: c for c in [
     gemma2_2b, mamba2_1_3b, hymba_1_5b, internlm2_20b, chatglm3_6b,
-    qwen2_5_32b, internvl2_26b]}
+    qwen2_5_32b, internvl2_26b, qwen2_moe_a2_7b, mixtral_8x7b]}
 
 
 def get(name: str) -> ArchConfig:

@@ -9,9 +9,10 @@ the Init pseudo-protocol, an error handler, and area/timing/latency models.
 The descriptor plane is host code in NumPy in both packages: `descriptor`,
 `legalizer`, `midend`, `simulator`, `backend`, `plan`, `frontend`, `engine`
 and `spec` are copies of the reference modules (the engine refuses
-`sanitize=`, whose analyzer is not in this package), and `instream` works
-on torch tensors.  `repro.core.vm` and `repro.core.analytics` have no copy
-yet.
+`sanitize=`, whose analyzer is not in this package), as are `vm` (page
+tables, TLB, the translating mid-end, scatter-gather lists and the MoE
+expert gather) and `analytics` (the area, timing and latency models);
+`instream` works on torch tensors.
 """
 
 from .descriptor import (CODE_PROTO, PROTO_CODE, BackendOptions,
@@ -51,7 +52,10 @@ from .spec import (PRESETS, VMEM_ENDPOINT, BackendSpec, ChannelSpec,
                    RtReplicateStage, build_engine, build_engines,
                    build_frontend, cheshire, edge_ai, manticore, preset,
                    pulp_cluster, spec_of)
-from . import instream
+from .vm import (MIN_PAGE_SIZE, PageTable, Tlb, TlbStats, TranslateStage,
+                 expert_gather_batch, read_sg_list, sg_gather_batch,
+                 write_sg_list)
+from . import analytics, instream
 
 __all__ = [
     "BackendOptions", "CODE_PROTO", "DescriptorBatch", "InitPattern",
@@ -86,5 +90,8 @@ __all__ = [
     "build_engine", "build_engines",
     "build_frontend", "cheshire", "edge_ai", "manticore", "preset",
     "pulp_cluster", "spec_of",
-    "instream",
+    "MIN_PAGE_SIZE", "PageTable", "Tlb", "TlbStats", "TranslateStage",
+    "expert_gather_batch", "read_sg_list", "sg_gather_batch",
+    "write_sg_list",
+    "analytics", "instream",
 ]

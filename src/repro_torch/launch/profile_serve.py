@@ -3,8 +3,9 @@
   PYTHONPATH=src python -m repro_torch.launch.profile_serve [--arch ARCH]
 
 A full-width model (`--arch`, default gemma2-2b; also mamba2-1.3b,
-hymba-1.5b, internlm2-20b, chatglm3-6b, qwen2.5-32b and internvl2-26b;
-random weights from seed 0, bf16) answers the smoke test's
+hymba-1.5b, internlm2-20b, chatglm3-6b, qwen2.5-32b, internvl2-26b and
+qwen2-moe-a2.7b; mixtral-8x7b's 87 GiB of bf16 weights do not fit one
+card; random weights from seed 0, bf16) answers the smoke test's
 requests (`chip_smoke.py`'s serve phases, defined here as
 `make_requests`) through `ServeEngine.generate`: once to warm up, once
 timed, once under `torch.profiler`.  For prefill and for the decode step
@@ -109,7 +110,9 @@ def _kernel_table(prof, n_steps: int, top: int = 12):
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="gemma2-2b")
+    ap.add_argument("--arch", default="gemma2-2b",
+                    help="a name of repro_torch.configs.REGISTRY, e.g. "
+                         "qwen2-moe-a2.7b")
     args = ap.parse_args()
     dev = resolve_device("cuda")
     cfg = get(args.arch)

@@ -4,9 +4,11 @@
       --batch 4 --prompt-len 32 --new-tokens 16 [--device cpu] [--full]
 
 `--arch` is gemma2-2b, mamba2-1.3b, hymba-1.5b, internlm2-20b,
-chatglm3-6b, qwen2.5-32b or internvl2-26b (whose backbone serves text
+chatglm3-6b, qwen2.5-32b, internvl2-26b (whose backbone serves text
 prompts here: `ServeEngine` passes no patch embeddings, as the
-reference's engine does not).
+reference's engine does not), qwen2-moe-a2.7b or mixtral-8x7b (mixture
+of experts; mixtral's 46.7 B bf16 params, about 87 GiB, do not fit one
+80 GB card with `--full`).
 
 Without `--full` the config is `reduced()` and computes in float32, as
 the reference `repro.launch.serve` does; `--full` serves the published
@@ -32,7 +34,9 @@ from repro_torch.serve import Request, ServeEngine
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="gemma2-2b")
+    ap.add_argument("--arch", default="gemma2-2b",
+                    help="a name of repro_torch.configs.REGISTRY, e.g. "
+                         "qwen2-moe-a2.7b or mixtral-8x7b")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--new-tokens", type=int, default=16)

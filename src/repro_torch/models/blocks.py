@@ -2,7 +2,7 @@
 `repro.models.blocks` for the attention, SSM and hybrid kinds).
 
 A block is one residual layer:
-  attn_full / attn_swa — [norm → attention → (+)] [norm → FFN → (+)]
+  attn_full / attn_swa — [norm → attention → (+)] [norm → FFN|MoE → (+)]
   ssm                  — [norm → mamba2 → (+)]      (no FFN in Mamba-2)
   hybrid / hybrid_full — [norm → ½(attn ⊕ ssm) → (+)] [norm → FFN → (+)]
 with gemma2's optional post-norms on each branch.  A hybrid layer (hymba)
@@ -24,6 +24,7 @@ from repro_torch.configs.base import (ArchConfig, ATTN_FULL, ATTN_SWA,
 from .attention import Attention, attention_decode_step, attention_forward
 from .common import rmsnorm
 from .ffn import FFN, ffn_forward
+from .moe import MoE, moe_forward
 from .ssm import SSM as SSMMixer, ssm_decode_step, ssm_forward
 
 HYBRID_KINDS = (HYBRID, HYBRID_FULL)
@@ -66,7 +67,10 @@ class Block(nn.Module):
             self.ssm_out_norm = _norm(d, device)
         if self.has_ffn:
             self.ln2 = _norm(d, device)
-            self.ffn = FFN(d, cfg.d_ff, dtype, device)
+            if cfg.moe is not None:
+                self.moe = MoE(cfg, dtype, device)
+            else:
+                self.ffn = FFN(d, cfg.d_ff, dtype, device)
         if cfg.post_block_norm:
             self.post_ln1 = _norm(d, device)
             if self.has_ffn:
@@ -74,9 +78,13 @@ class Block(nn.Module):
 
 
 def _ffn_branch(p: Block, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """x + the FFN or MoE branch; serving drops the MoE's aux loss, as the
+    reference does."""
     if not p.has_ffn:
         return x
-    h = ffn_forward(p.ffn, rmsnorm(p.ln2, x), cfg.act)
+    h = rmsnorm(p.ln2, x)
+    h = moe_forward(p.moe, h, cfg)[0] if cfg.moe is not None else \
+        ffn_forward(p.ffn, h, cfg.act)
     if cfg.post_block_norm:
         h = rmsnorm(p.post_ln2, h)
     return x + h

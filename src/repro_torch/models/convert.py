@@ -35,6 +35,14 @@ _LAYER_LEAVES = {
     ("ffn", "w_gate", "kernel"): "ffn.w_gate",
     ("ffn", "w_up", "kernel"): "ffn.w_up",
     ("ffn", "w_down", "kernel"): "ffn.w_down",
+    ("moe", "router", "kernel"): "moe.router",
+    ("moe", "w_gate"): "moe.w_gate",
+    ("moe", "w_up"): "moe.w_up",
+    ("moe", "w_down"): "moe.w_down",
+    ("moe", "shared", "w_gate", "kernel"): "moe.shared.w_gate",
+    ("moe", "shared", "w_up", "kernel"): "moe.shared.w_up",
+    ("moe", "shared", "w_down", "kernel"): "moe.shared.w_down",
+    ("moe", "shared_gate", "kernel"): "moe.shared_gate",
     ("ssm", "in_proj", "kernel"): "ssm.in_proj",
     ("ssm", "out_proj", "kernel"): "ssm.out_proj",
     ("ssm", "conv_w"): "ssm.conv_w",

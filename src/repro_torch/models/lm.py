@@ -1,6 +1,6 @@
 """Decoder-only LM (the port of `repro.models.lm` for dense attention,
-pure SSM and hybrid models, with a tied or an untied unembedding, qkv
-biases, and the VLM's patch-embedding projector).
+mixture-of-experts, pure SSM and hybrid models, with a tied or an untied
+unembedding, qkv biases, and the VLM's patch-embedding projector).
 
   LM             — the module; weights drawn from a seeded torch.Generator
   lm_prefill     — tokens (+ optional patch embeddings) → last-position
@@ -31,21 +31,18 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 def _check_supported(cfg: ArchConfig) -> None:
-    missing = [name for name, on in (
-        ("moe", cfg.moe is not None), ("encoder", cfg.encoder is not None))
-        if on]
-    if missing:
+    if cfg.encoder is not None:
         raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} not ported yet (ROADMAP.md, "
-            f"queue 1)")
+            f"{cfg.name}: encoder not ported yet (ROADMAP.md, queue 1)")
 
 
 class LM(nn.Module):
     """`rcfg.dtype` is the compute dtype ("bfloat16" or "float32");
     `device` defaults to the card.  Weights follow the reference's
     initializers (truncated normal at ±2σ; σ = 1/sqrt(fan_in), 0.02 for
-    the embedding and the untied head; norm scales and qkv biases 0; the
-    SSM leaves by `init_ssm`'s law) but are drawn from
+    the embedding, the untied head, the MoE router and the shared-expert
+    gate; norm scales and qkv biases 0; the SSM leaves by `init_ssm`'s
+    law) but are drawn from
     `torch.Generator(device)` seeded with `seed`, so they are not the
     reference's numbers.  `init=False` leaves them unset for a caller
     that copies weights in (the qkv biases are then 0)."""
@@ -105,6 +102,11 @@ class LM(nn.Module):
             dt = torch.exp(u * (hi - lo) + lo)
             p.dt_bias.copy_(dt + torch.log(-torch.expm1(-dt)))
 
+        def init_ffn(f: nn.Module, d_ff: int) -> None:
+            for w in (f.w_gate, f.w_up):
+                fill(w, 1.0 / math.sqrt(cfg.d_model))
+            fill(f.w_down, 1.0 / math.sqrt(d_ff))
+
         cfg = self.cfg
         dh = cfg.resolved_head_dim
         fill(self.embed, 0.02)
@@ -120,11 +122,15 @@ class LM(nn.Module):
                 for w in (a.wq, a.wk, a.wv):
                     fill(w, 1.0 / math.sqrt(cfg.d_model))
                 fill(a.wo, 1.0 / math.sqrt(cfg.n_heads * dh))
-            if layer.has_ffn:
-                f = layer.ffn
-                for w in (f.w_gate, f.w_up):
-                    fill(w, 1.0 / math.sqrt(cfg.d_model))
-                fill(f.w_down, 1.0 / math.sqrt(cfg.d_ff))
+            if hasattr(layer, "moe"):
+                m, mc = layer.moe, cfg.moe
+                fill(m.router, 0.02)
+                init_ffn(m, mc.d_ff_expert)     # the stacked experts
+                if mc.n_shared_experts:
+                    init_ffn(m.shared, mc.d_ff_shared)
+                    fill(m.shared_gate, 0.02)
+            elif layer.has_ffn:
+                init_ffn(layer.ffn, cfg.d_ff)
 
 
 def _embed_in(model: LM, tokens: torch.Tensor,

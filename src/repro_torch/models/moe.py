@@ -1,0 +1,194 @@
+"""Mixture-of-experts FFN with sort-based capacity dispatch (the port of
+`repro.models.moe` on one device).
+
+Dispatch is the `mp_split` + `mp_dist` story (paper §2.2/§3.4) applied to
+tokens: the router splits the token stream along expert boundaries
+(mp_split ≡ grouping by expert id via one stable argsort) and distributes
+the groups to per-expert buffers (mp_dist ≡ scatter into the (E, C, d)
+capacity buffer) that the batched expert GEMMs consume.  Top-k routing
+with a capacity factor; overflowed (token, expert) pairs are dropped
+(contribution zero) and counted; a Switch-style load-balancing loss is
+returned.
+
+Three choices keep the port's results equal to the reference's and the
+same from run to run on the card:
+  * top-k is a stable descending sort, so equal router probabilities go
+    to the lower expert id, as `jax.lax.top_k` breaks ties;
+  * the dispatch writes each kept pair by index assignment: the kept
+    slots are unique, so the buffer is exact;
+  * the combine adds a token's k expert outputs one at a time, in
+    ascending expert id (the order the reference's scatter-add visits
+    them), in the compute dtype, with no atomics.
+
+The reference's `shard_map` dispatch and its `psum` / `scatter` /
+`combine_first` reductions need a mesh and are not ported.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ArchConfig, MoEConfig
+from repro_torch.core.vm import expert_gather_batch
+from .common import activate, dense
+from .ffn import FFN, ffn_forward
+
+
+class MoE(nn.Module):
+    """The router (d, E), the stacked expert weights `w_gate` / `w_up`
+    (E, d, f) and `w_down` (E, f, d), and with shared experts the
+    always-on `shared` FFN of `d_ff_shared` and its sigmoid gate
+    `shared_gate` (d, 1).  All in the compute dtype."""
+
+    def __init__(self, cfg: ArchConfig, dtype: torch.dtype,
+                 device: torch.device) -> None:
+        super().__init__()
+        mc, d = cfg.moe, cfg.d_model
+        E, f = mc.n_experts, mc.d_ff_expert
+        kw = dict(dtype=dtype, device=device)
+        self.router = nn.Parameter(torch.empty(d, E, **kw))
+        self.w_gate = nn.Parameter(torch.empty(E, d, f, **kw))
+        self.w_up = nn.Parameter(torch.empty(E, d, f, **kw))
+        self.w_down = nn.Parameter(torch.empty(E, f, d, **kw))
+        if mc.n_shared_experts:
+            self.shared = FFN(d, mc.d_ff_shared, dtype, device)
+            self.shared_gate = nn.Parameter(torch.empty(d, 1, **kw))
+
+
+def _capacity(tokens: int, mc: MoEConfig) -> int:
+    cap = int(mc.capacity_factor * tokens * mc.top_k / mc.n_experts)
+    return max(8, -(-cap // 8) * 8)
+
+
+class Routing(NamedTuple):
+    """One routing of T tokens to k of E experts with capacity C.  The
+    pair columns (`e_s`, `t_s`, `g_s`, `keep`, `slot`) are in the stable
+    order of their expert id; `slot` is e·C + rank, E·C (the trash row)
+    where the pair is dropped."""
+
+    logits: torch.Tensor      # (T, E) fp32
+    probs: torch.Tensor       # (T, E) fp32
+    expert_idx: torch.Tensor  # (T, k) int64, by falling probability
+    e_s: torch.Tensor         # (T·k,)
+    t_s: torch.Tensor
+    g_s: torch.Tensor         # gates, normalised over a token's k
+    keep: torch.Tensor        # (T·k,) bool
+    slot: torch.Tensor        # (T·k,) int64
+    capacity: int
+
+
+def route(router: torch.Tensor, x2: torch.Tensor, mc: MoEConfig) -> Routing:
+    """mp_split: the router's top-k of x2 (T, d), grouped by expert id."""
+    T = x2.shape[0]
+    E, k = mc.n_experts, mc.top_k
+    C = _capacity(T, mc)
+    logits = dense(x2, router).float()
+    probs = torch.softmax(logits, dim=-1)
+    # stable descending sort: ties go to the lower expert id
+    gate, expert_idx = torch.sort(probs, dim=-1, descending=True,
+                                  stable=True)
+    gate, expert_idx = gate[:, :k], expert_idx[:, :k]
+    gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+    flat_e = expert_idx.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)
+    e_s = flat_e[order]
+    t_s = torch.div(order, k, rounding_mode="floor")   # repeat(arange(T), k)
+    g_s = gate.reshape(-1)[order]
+    first = torch.searchsorted(e_s, e_s, side="left")
+    rank = torch.arange(T * k, device=x2.device) - first
+    keep = rank < C
+    slot = torch.where(keep, e_s * C + rank, torch.full_like(e_s, E * C))
+    return Routing(logits, probs, expert_idx, e_s, t_s, g_s, keep, slot, C)
+
+
+def dispatch(x2: torch.Tensor, r: Routing, n_experts: int) -> torch.Tensor:
+    """mp_dist: the (E, C, d) capacity buffer, each kept pair's token row
+    at its slot, zero elsewhere.  Kept slots are unique, so plain index
+    assignment writes exactly what the reference's scatter-add does;
+    dropped pairs all land on the trash row past the buffer, which is
+    cut off (no boolean mask, so the host never waits for the card)."""
+    d = x2.shape[1]
+    buf = x2.new_zeros(n_experts * r.capacity + 1, d)
+    buf[r.slot] = x2[r.t_s]
+    return buf[:-1].view(n_experts, r.capacity, d)
+
+
+def _combine(out_flat: torch.Tensor, r: Routing, k: int) -> torch.Tensor:
+    """y (T, d): each token's k gated expert outputs added one at a time
+    in ascending expert id, in the compute dtype."""
+    T, EC = r.expert_idx.shape[0], out_flat.shape[0]
+    # the pairs token-major, each token's k by ascending expert id (a
+    # token's experts are distinct, so the key is unique)
+    by_token = torch.argsort(r.t_s * EC + r.e_s)
+    slot = r.slot[by_token].view(T, k)
+    keep = r.keep[by_token].view(T, k)
+    gates = r.g_s[by_token].view(T, k).to(out_flat.dtype)
+    y = out_flat.new_zeros(T, out_flat.shape[1])
+    for j in range(k):
+        yb = out_flat[slot[:, j].clamp(max=EC - 1)]
+        yb = torch.where(keep[:, j, None], yb, yb.new_zeros(()))
+        y = y + yb * gates[:, j, None]
+    return y
+
+
+def moe_dispatch_compute(p: MoE, x2: torch.Tensor, mc: MoEConfig, act: str,
+                         psum_axis: Optional[str] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor,
+                                    torch.Tensor]:
+    """Routed experts over flat tokens x2 (T, d), in the weights' dtype.
+    Returns (y (T, d), aux loss, dropped fraction), both fp32 scalars."""
+    if psum_axis is not None:
+        raise NotImplementedError(
+            "the expert contraction reduced over a mesh axis needs the "
+            "`dist` port (ROADMAP.md, queue 1 item 8)")
+    E, k = mc.n_experts, mc.top_k
+    x2 = x2.to(p.router.dtype)
+    r = route(p.router, x2, mc)
+    buf = dispatch(x2, r, E)
+    h = activate(torch.bmm(buf, p.w_gate), act) * torch.bmm(buf, p.w_up)
+    out_buf = torch.bmm(h, p.w_down)                      # (E, C, d)
+    y = _combine(out_buf.view(E * r.capacity, -1), r, k)
+
+    T = x2.shape[0]
+    me = r.probs.mean(dim=0)
+    top1 = torch.argmax(r.logits, dim=-1)
+    ce = (top1[:, None] == torch.arange(E, device=top1.device)).float() \
+        .mean(dim=0)                                      # one-hot mean
+    aux = E * torch.sum(me * ce)
+    dropped = 1.0 - r.keep.float().sum() / (T * k)
+    return y, aux, dropped
+
+
+def moe_expert_gather(token_va: np.ndarray, expert_idx: np.ndarray,
+                      mc: MoEConfig, d_bytes: int, expert_buf_va: int,
+                      capacity: Optional[int] = None):
+    """Descriptor-plane twin of `moe_dispatch_compute`'s dispatch: the
+    routed gather as one virtual-address `DescriptorBatch` for the DMA
+    engine (`core.vm.expert_gather_batch`), with the same sort-based
+    capacity and rank math.  ``token_va`` are per-token source VAs;
+    overflowed (token, expert) pairs are dropped as the compute path's
+    trash row drops them."""
+    tokens = int(np.asarray(token_va).shape[0])
+    cap = capacity if capacity is not None else _capacity(tokens, mc)
+    return expert_gather_batch(
+        token_va, expert_idx, n_experts=mc.n_experts, capacity=cap,
+        d_bytes=d_bytes, expert_buf_va=expert_buf_va)
+
+
+def moe_forward(p: MoE, x: torch.Tensor, cfg: ArchConfig
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B, S, d) → (y (B, S, d), aux loss · router_aux_weight)."""
+    mc = cfg.moe
+    B, S, d = x.shape
+    y2, aux, _dropped = moe_dispatch_compute(p, x.reshape(B * S, d), mc,
+                                             cfg.act)
+    y = y2.view(B, S, d)
+    if mc.n_shared_experts:
+        shared = ffn_forward(p.shared, x, cfg.act)
+        sg = torch.sigmoid(dense(x, p.shared_gate).float())
+        y = y + sg.to(y.dtype) * shared
+    return y, aux * mc.router_aux_weight

@@ -55,6 +55,9 @@ def test_every_module_imports_without_jax_or_repro():
             repro_torch.__path__, "repro_torch.")]
         assert "repro_torch.configs.hymba_1_5b" in names
         assert "repro_torch.configs.qwen2_5_32b" in names
+        for n in ("core.vm", "core.analytics", "models.moe",
+                  "configs.qwen2_moe_a2_7b", "configs.mixtral_8x7b"):
+            assert "repro_torch." + n in names, n
         for n in names:
             importlib.import_module(n)
         spec = importlib.util.spec_from_file_location("chip_smoke",
@@ -64,11 +67,12 @@ def test_every_module_imports_without_jax_or_repro():
                        for m in sys.modules)
         print(len(names))
     """)
-    assert int(out.split()[-1]) >= 56
+    assert int(out.split()[-1]) >= 61
 
 
 @pytest.mark.parametrize("arch", ["gemma2-2b", "mamba2-1.3b", "hymba-1.5b",
-                                  "qwen2.5-32b", "internvl2-26b"])
+                                  "qwen2.5-32b", "internvl2-26b",
+                                  "qwen2-moe-a2.7b", "mixtral-8x7b"])
 def test_serve_entry_point_runs_on_cpu_without_jax(arch):
     out = _run(f"""
         import runpy
@@ -154,3 +158,37 @@ def test_front_door_runs_without_jax():
         print("front ok", step.decode_calls)
     """)
     assert "front ok" in out
+
+
+def test_moe_dispatch_on_the_engine_runs_without_jax():
+    """The MoE path and its descriptor-plane twin run where JAX cannot be
+    imported: reduced qwen2-moe-a2.7b's routing at the real capacity
+    factor, its dispatch buffer and the `IDMAEngine`'s gather of the same
+    token bytes, equal byte for byte."""
+    out = _run("""
+        import dataclasses
+        import numpy as np
+        import torch
+        from repro_torch.configs import get
+        from repro_torch.configs.base import reduced
+        from repro_torch.core.vm import expert_gather_on_engine
+        from repro_torch.models import moe
+        cfg = reduced(get("qwen2-moe-a2.7b"))
+        mc = dataclasses.replace(cfg.moe, capacity_factor=1.25)
+        g = torch.Generator().manual_seed(0)
+        router = torch.randn(cfg.d_model, mc.n_experts, generator=g)
+        x = torch.randn(64, cfg.d_model, generator=g)
+        x[:40] = x[0]
+        r = moe.route(router, x, mc)
+        buf = moe.dispatch(x, r, mc.n_experts)
+        rows = x.view(torch.uint8).numpy().reshape(64, -1)
+        got = expert_gather_on_engine(rows, r.expert_idx.numpy(),
+                                      mc.n_experts, r.capacity)
+        assert np.array_equal(got, buf.view(torch.uint8).numpy().reshape(
+            got.shape))
+        assert not bool(r.keep.all())
+        assert not any(m.split(".")[0] in ("jax", "repro")
+                       for m in sys.modules)
+        print("moe ok")
+    """)
+    assert "moe ok" in out

@@ -102,6 +102,14 @@ FLASH_CASES = [
     dict(B=2, Hq=32, Hkv=2, S=257, D=128, causal=True, window=0, cap=0.0),
     dict(B=1, Hq=16, Hkv=1, S=190, Sk=321, D=128, causal=False, window=0,
          cap=0.0),
+    # the MoE configs' main paths at head_dim 128: qwen2-moe-a2.7b's GQA
+    # group 1 (16 q on 16 kv heads), causal, and mixtral-8x7b's group 4
+    # with its window of 4,096, over a 4,608-token prefill; group 1 off
+    # the q tile too
+    dict(B=4, Hq=16, Hkv=16, S=4608, D=128, causal=True, window=0, cap=0.0),
+    dict(B=4, Hq=32, Hkv=8, S=4608, D=128, causal=True, window=4096,
+         cap=0.0),
+    dict(B=2, Hq=4, Hkv=4, S=333, D=128, causal=True, window=0, cap=0.0),
 ]
 DECODE_CASES = [
     dict(B=2, Hq=8, Hkv=2, S=512, D=64, kvlen=300, win=0, cap=0.0),
@@ -129,6 +137,15 @@ DECODE_CASES = [
     # hymba-1.5b main path: group 5 at head_dim 64 over a 4,640-row cache
     dict(B=4, Hq=25, Hkv=5, S=4640, D=64, kvlen=n, win=w, cap=0.0)
     for n in (1, 4608) for w in (1024, 0)
+] + [
+    # the MoE configs' main paths over a 4,640-row cache: qwen2-moe-a2.7b
+    # at GQA group 1 (16 / 16 heads of 128), mixtral-8x7b at group 4
+    # (32 / 8) with its window of 4,096
+    dict(B=4, Hq=16, Hkv=16, S=4640, D=128, kvlen=n, win=0, cap=0.0)
+    for n in (1, 4097, 4608)
+] + [
+    dict(B=4, Hq=32, Hkv=8, S=4640, D=128, kvlen=n, win=4096, cap=0.0)
+    for n in (17, 4608)
 ]
 
 SSD_CASES = [
@@ -1012,3 +1029,30 @@ def test_matmul_never_reaches_the_plain_version(cuda, monkeypatch):
     x = _randn((64, 96), torch.bfloat16, cuda, 37)
     assert matmul(x, x.t()).shape == (64, 64)
     assert matmul(x.float(), x.t(), torch.float32).dtype == torch.float32
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_moe_dispatch_gives_equal_bits_twice(cuda, dtype):
+    """No atomics in the MoE combine: one full-width qwen2-moe-a2.7b MoE
+    layer (60 experts top 4, capacity factor 1.25) over 512 tokens, the
+    first 200 one repeated row so that pairs are dropped, twice on the
+    card: y, the aux loss and the dropped share equal bit for bit."""
+    from repro_torch.configs import get
+    from repro_torch.models import moe
+    cfg = get("qwen2-moe-a2.7b")
+    mc = cfg.moe
+    assert mc.capacity_factor == 1.25
+    p = moe.MoE(cfg, dtype, cuda)
+    g = torch.Generator(cuda).manual_seed(41)
+    with torch.no_grad():
+        for w in p.parameters():
+            w.copy_(torch.randn(w.shape, generator=g, device=cuda)
+                    * w.shape[-2] ** -0.5)
+    x = _randn((512, cfg.d_model), dtype, cuda, 42)
+    x[:200] = x[0]
+    with torch.no_grad():
+        a = moe.moe_dispatch_compute(p, x, mc, cfg.act)
+        b = moe.moe_dispatch_compute(p, x, mc, cfg.act)
+    assert 0 < float(a[2]) < 1
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)

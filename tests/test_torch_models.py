@@ -247,16 +247,19 @@ def test_seeded_init_is_reproducible():
 
 def test_unported_kinds_raise():
     """Every layer kind of the reference is ported (attention, SSM and,
-    since hymba-1.5b, hybrid); a kind outside them, and the MoE blocks,
-    which are a config's `moe` and not a kind, still raise."""
+    since hymba-1.5b, hybrid), and since qwen2-moe-a2.7b the MoE blocks,
+    a config's `moe`; a kind outside them, and the encoder of an
+    encoder-decoder config, still raise."""
     base = port_cfg(j_reduced(j_get("gemma2-2b")))
     cfg = dataclasses.replace(base, layer_pattern=(
         (("cross_attn",), 1), ((ATTN_FULL,), 1)))
     with pytest.raises(NotImplementedError, match="cross_attn"):
         LM(cfg, RunConfig(dtype="float32"), device="cpu")
+    encdec = port_cfg(j_reduced(j_get("seamless-m4t-large-v2")))
+    with pytest.raises(NotImplementedError, match="encoder"):
+        LM(encdec, RunConfig(dtype="float32"), device="cpu")
     moe = port_cfg(j_reduced(j_get("mixtral-8x7b")))
-    with pytest.raises(NotImplementedError, match="moe"):
-        LM(moe, RunConfig(dtype="float32"), device="cpu")
+    assert LM(moe, RunConfig(dtype="float32"), device="cpu").layers[0].moe
 
 
 def _layer(params, layer=0):
