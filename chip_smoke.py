@@ -16,6 +16,12 @@ lines tagged with its name:
                must hold wgmma (`HGMMA`) and TMA loads (`UTMALDG`), the
                copy library's the bulk copy (`UBLKCP`), the SSD library's
                mma.sync (`HMMA`) and cp.async (`LDGSTS`);
+     sanitize — the correctness tools, host NumPy: `python -m
+               repro_torch.sanitize --demo --corpus --fuzz-racy 64` (the
+               racy demo flagged, the in-repo corpus clean, 64 racy
+               programs flagged with their codes) and `python -m
+               repro_torch.verify --seeds 32`, then with `--differential`,
+               each through its `main`, each returning 0, with its seconds;
   3. kernels — each CUDA kernel against its plain PyTorch version on the
                card (tolerance relative to max|plain|: 2e-2 bf16, 1e-4
                fp32; for flash attention, each output row's error against
@@ -58,7 +64,11 @@ lines tagged with its name:
                presets' 4 KiB cycles), a `plan_nd_copy` plan whose
                `copy_2d` on the card equals `copy_2d_reference` byte for
                byte, an engine's Init PRNG stream equal to `prng_fill` on
-               the card; then the Init and copy kernels at real sizes
+               the card, the quickstart engine built with
+               `sanitize="raise"` and its drains' reports all clean, and
+               the sanitizer demo's racy pair (two overlapping 256-B
+               writes on two channels) raising `SanitizeError` before a
+               byte moves; then the Init and copy kernels at real sizes
                from gemma2-2b and mamba2-1.3b (2.4 GB casts and fills, the
                SSD input's strided view) and small edge cases in every
                dtype (the bulk copy's chunk edges and memset's block
@@ -117,15 +127,21 @@ lines tagged with its name:
                on the card for 512 tokens of d 2,048 (bf16, 200 of them
                one repeated row) equals, bit for bit, the one the port's
                `IDMAEngine` fills on the host from `expert_gather_batch`'s
-               descriptors at the capacity `moe_expert_gather` uses, and a
-               second call gives y, aux and dropped bit for bit;
+               descriptors at the capacity `moe_expert_gather` uses, the
+               sanitizer's `check_batch` of those descriptors is clean
+               (each capacity slot written once), and a second call gives
+               y, aux and dropped bit for bit;
   7. front   — the same two full-width models behind the continuous-
                batching front door, `ServeFrontDoor(StepLM(model, ...),
                layout).submit(req) ... .run()`: six requests of 33 to
                4,608 prompt tokens, 32 new tokens each, every other one at
                T=0.8, chunked prefill of 256 rows, over a pool of 420 pages
                of one gemma2-2b layer's KV rows; once at max_running 4 and
-               once at 1 (all streams, hot ones included, must be equal);
+               once at 1 (all streams, hot ones included, must be equal),
+               and for gemma2-2b a third time at max_running 4 through
+               `ServeFrontDoor(..., sanitize=True)`, every drain swept and
+               every plan-cache hit audited: its streams and launches
+               must equal the first run's and its reports be all clean;
                the launch counters, set to 0 before each run, must read
                flash attention once a layer an admission, decode attention
                once a layer a decode call (one request a call), the SSD
@@ -271,6 +287,29 @@ def flash_live_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
         lo = max(0, r - window + 1) if window > 0 else 0
         n += max(0, hi - lo + 1)
     return n
+
+
+def phase_sanitize():
+    """The correctness tools on the host: the static sanitizer's CLI
+    (``--demo --corpus --fuzz-racy 64``: the racy demo flagged, every
+    corpus program clean, 64 racy programs flagged with their codes) and
+    the verifier's (``--seeds 32``, then ``--seeds 32 --differential``),
+    each of which must return 0."""
+    from repro_torch.sanitize.__main__ import main as sanitize_main
+    from repro_torch.verify.__main__ import main as verify_main
+    for label, fn, argv in (
+            ("sanitize", sanitize_main,
+             ["--demo", "--corpus", "--fuzz-racy", "64"]),
+            ("verify", verify_main, ["--seeds", "32"]),
+            ("verify", verify_main, ["--seeds", "32", "--differential"])):
+        t = time.perf_counter()
+        rc = fn(argv)
+        took = time.perf_counter() - t
+        if rc != 0:
+            raise AssertionError(f"python -m repro_torch.{label} "
+                                 f"{' '.join(argv)} returned {rc}")
+        log(f"[sanitize] python -m repro_torch.{label} {' '.join(argv)}: "
+            f"exit 0 in {took:.2f} s on the host")
 
 
 def phase_device():
@@ -1075,6 +1114,10 @@ def phase_moe_dispatch():
     plane = expert_gather_on_engine(rows, r.expert_idx.cpu().numpy(),
                                     mc.n_experts, r.capacity)
     plane_s = time.perf_counter() - t
+    t = time.perf_counter()
+    swept = moe_gather_report(rows.shape, r.expert_idx.cpu().numpy(),
+                              mc.n_experts, r.capacity)
+    sweep_s = time.perf_counter() - t
     card = buf.view(torch.uint8).cpu().numpy().reshape(plane.shape)
     kept = int(r.keep.sum())
     if not np.array_equal(card, plane):
@@ -1092,9 +1135,29 @@ def phase_moe_dispatch():
         f"card's ({mc.n_experts}, {r.capacity}, {cfg.d_model}) buffer equals "
         f"the IDMAEngine's gather of the same token bytes bit for bit "
         f"({kept} descriptors of {rows.shape[1]} B, {plane_s:.2f} s on the "
-        f"host); a second call gives y, aux and dropped bit for bit")
+        f"host); a second call gives y, aux and dropped bit for bit; "
+        f"check_batch of the gather's {swept.checked_rows} rows clean (each "
+        f"capacity slot written once; {sweep_s:.3f} s on the host)")
     del p, x, buf, built, again
     free_card()
+
+
+def moe_gather_report(shape, expert_idx, n_experts, capacity):
+    """`check_batch` of the descriptor batch `expert_gather_on_engine`
+    runs for this routing: token rows at VA 0, the capacity buffer on the
+    next page.  Each capacity slot is written once and a token row is
+    only read, so the report must be clean (no H002, no H003)."""
+    import numpy as np
+    from repro_torch.core.vm import MIN_PAGE_SIZE, expert_gather_batch
+    from repro_torch.sanitize import check_batch
+    T, row = shape
+    report = check_batch(expert_gather_batch(
+        np.arange(T, dtype=np.int64) * row, expert_idx,
+        n_experts=n_experts, capacity=capacity, d_bytes=row,
+        expert_buf_va=-(-T * row // MIN_PAGE_SIZE) * MIN_PAGE_SIZE))
+    if not report.clean or report.codes:
+        raise AssertionError(f"MoE gather batch: {report.format(limit=5)}")
+    return report
 
 
 def phase_moe_kernels(mods):
@@ -1136,7 +1199,8 @@ def dma_plane():
     """Quickstart steps 1 and 7 through the port's descriptor plane, on
     the host in NumPy: a 3-D strided gather programmed on a register
     front-end, then a 4 KiB transfer on each named preset.  Returns the
-    quickstart engine."""
+    quickstart engine, built with ``sanitize="raise"``: every drain is
+    swept by `repro_torch.sanitize` before a byte moves."""
     import numpy as np
     from repro_torch.core import (BackendSpec, EngineSpec, FrontendSpec,
                                   NdTransfer, Protocol, TensorDim,
@@ -1148,7 +1212,7 @@ def dma_plane():
         backend=BackendSpec(bus_width=8,
                             protocols=(Protocol.AXI4, Protocol.OBI)),
         mem_spaces=((Protocol.AXI4, 1 << 16), (Protocol.OBI, 1 << 16)))
-    engine = build_engine(spec)
+    engine = build_engine(spec, sanitize="raise")
     src = np.arange(4096, dtype=np.uint8)
     engine.mem.spaces[Protocol.AXI4][:4096] = src
     fe = build_frontend(spec, engine)
@@ -1174,6 +1238,41 @@ def dma_plane():
             f"({ps.src_system.name} -> {ps.dst_system.name}, "
             f"{ps.backend.bus_width * 8}-bit bus)")
     return engine
+
+
+def dma_racy_pair():
+    """The sanitizer demo's racy pair on a two-channel engine built with
+    ``sanitize="raise"``: two 256-B writes overlapping at [0x8080,
+    0x8100), dealt round-robin to channels 0 and 1.  `wait_all` must
+    raise `SanitizeError` (H003) before a byte moves: the engine's memory
+    is unchanged after the raise."""
+    import numpy as np
+    from repro_torch.core import (BackendSpec, ChannelSpec, EngineSpec,
+                                  Protocol, Transfer1D, build_engine)
+    from repro_torch.sanitize import SanitizeError
+    engine = build_engine(EngineSpec(
+        name="demo", backend=BackendSpec(protocols=(Protocol.AXI4,)),
+        channels=ChannelSpec(count=2),
+        mem_spaces=((Protocol.AXI4, 1 << 16),)), sanitize="raise")
+    mem = engine.mem.spaces[Protocol.AXI4]
+    mem[:] = np.random.default_rng(3).integers(0, 256, mem.size, np.uint8)
+    before = mem.copy()
+    engine.submit_async(Transfer1D(src_addr=0x0000, dst_addr=0x8000,
+                                   length=256))
+    engine.submit_async(Transfer1D(src_addr=0x1000, dst_addr=0x8080,
+                                   length=256))
+    try:
+        engine.wait_all()
+    except SanitizeError as err:
+        codes = err.report.codes
+    else:
+        raise AssertionError("racy pair drained without SanitizeError")
+    if codes != ("H003",) or not np.array_equal(mem, before):
+        raise AssertionError(f"racy pair: codes {codes}, memory changed "
+                             f"{not np.array_equal(mem, before)}")
+    log("[dma] racy pair (two 256-B writes overlapping at [0x8080, "
+        "0x8100) on channels 0 and 1): SanitizeError H003 before a byte "
+        "moved, the 64 KiB space unchanged")
 
 
 def dma_cases(dev):
@@ -1403,6 +1502,14 @@ def phase_dma(mods):
                              "stream")
     log("[dma] Init PSEUDORANDOM 4096 B, value 42: engine bytes == "
         "prng_fill((8, 128), 42, uint32) on the card")
+    reports = engine.sanitize_reports
+    if not reports or not all(r.clean for r in reports):
+        raise AssertionError(f"sanitized quickstart engine: reports "
+                             f"{[r.codes for r in reports]}, want clean")
+    log(f"[dma] sanitize='raise': {len(reports)} drains of the quickstart "
+        f"and the Init stream certified clean "
+        f"({sum(r.checked_rows for r in reports)} rows swept)")
+    dma_racy_pair()
 
     # real sizes, then edge cases: kernel == plain, bit for bit; each real
     # copy_2d call on its route, by the counters by route
@@ -1994,17 +2101,21 @@ def timed_steplm(model, layout):
     return lm
 
 
-def front_run(arch, cfg, model, layout, mods, max_running):
+def front_run(arch, cfg, model, layout, mods, max_running, sanitize=False):
     """One `ServeFrontDoor.run()` of the traffic; the launch counters, set
     to 0 just before it, must show flash attention once a layer an
     admission, decode attention once a layer a decode call, the SSD once a
-    layer an admission on the tensor cores, and no other kernel.  Returns
-    the requests' outputs."""
+    layer an admission on the tensor cores, and no other kernel.  With
+    ``sanitize``, the front door's engine sweeps every drain and audits
+    every plan-cache hit, and its reports must all be clean.  Returns the
+    requests' outputs, the launch counts, the wall and the host seconds
+    outside `StepLM`."""
     import torch
     from repro_torch.serve import ServeFrontDoor
     lm = timed_steplm(model, layout)
     fd = ServeFrontDoor(lm, layout, max_seq_len=FRONT_MAX_LEN,
-                        max_running=max_running, prefill_chunk=FRONT_CHUNK)
+                        max_running=max_running, prefill_chunk=FRONT_CHUNK,
+                        sanitize=sanitize)
     reqs = front_requests(cfg.vocab_size)
     for r in reqs:
         fd.submit(r)
@@ -2036,7 +2147,16 @@ def front_run(arch, cfg, model, layout, mods, max_running):
             raise AssertionError(f"bad output {r.output}")
     n_new = sum(len(r.output) for r in reqs)
     st = fd.alloc.stats
-    log(f"[front] {arch} max_running {max_running}: run() {wall:.2f} s "
+    reports = fd.engine.sanitize_reports
+    if sanitize and (not reports or not all(r.clean for r in reports)):
+        raise AssertionError(f"{arch} sanitized front: reports "
+                             f"{sorted({c for r in reports for c in r.codes})}"
+                             f" of {len(reports)}, want all clean")
+    tag = (f"sanitized, {len(reports)} reports clean "
+           f"({sum(r.checked_rows for r in reports)} rows swept, "
+           f"{fd.plan_cache.stats.hits} plan-cache hits audited) | "
+           if sanitize else "")
+    log(f"[front] {arch} max_running {max_running}: {tag}run() {wall:.2f} s "
         f"wall, StepLM {lm.seconds:.2f} s, the rest (descriptor plane, "
         f"scheduler) {wall - lm.seconds:.2f} s, {n_new / wall:.1f} generated "
         f"tokens/s | {metrics.steps} steps, {metrics.cycles} simulated "
@@ -2045,7 +2165,8 @@ def front_run(arch, cfg, model, layout, mods, max_running):
         f"{lm.decode_calls} decode calls of one request each | peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | launches "
         + ", ".join(f"{k} {v}" for k, v in counts.items() if v))
-    return [r.output for r in reqs]
+    return {"outputs": [r.output for r in reqs], "counts": counts,
+            "wall": wall, "host": wall - lm.seconds}
 
 
 class HeldKernels:
@@ -2194,8 +2315,10 @@ def front_kernels(arch, cfg, model, mods):
         f"after the other {len(FRONT_PROMPTS) - 1} requests")
 
 
-def phase_front(arch, mods):
-    """Full-width `arch` behind the continuous-batching front door."""
+def phase_front(arch, mods, sanitize=False):
+    """Full-width `arch` behind the continuous-batching front door; with
+    ``sanitize``, a third run at max_running 4 through a sanitized front
+    door must give the same streams and the same launches."""
     from repro_torch.configs import RunConfig, get
     from repro_torch.models import LM
     from repro_torch.serve import KVLayout
@@ -2208,14 +2331,26 @@ def phase_front(arch, mods):
         f"prompts {FRONT_PROMPTS}, {FRONT_NEW_TOKENS} new tokens each, every "
         f"other request at T=0.8; pool of {FRONT_PAGES} pages of 16 rows of "
         f"{layout.row_bytes} B, prefill_chunk {FRONT_CHUNK}")
-    out4 = front_run(arch, cfg, model, layout, mods, 4)
-    out1 = front_run(arch, cfg, model, layout, mods, 1)
+    run4 = front_run(arch, cfg, model, layout, mods, 4)
+    out4 = run4["outputs"]
+    out1 = front_run(arch, cfg, model, layout, mods, 1)["outputs"]
     if out4 != out1:
         bad = [i for i, (a, b) in enumerate(zip(out4, out1)) if a != b]
         raise AssertionError(f"{arch}: streams of requests {bad} differ "
                              f"between max_running 4 and 1")
     log(f"[front] {arch}: all {len(out4)} streams, hot ones included, equal "
         f"at max_running 4 and 1; request 0 starts {out4[0][:8]}")
+    if sanitize:
+        san = front_run(arch, cfg, model, layout, mods, 4, sanitize=True)
+        if san["outputs"] != out4 or san["counts"] != run4["counts"]:
+            raise AssertionError(f"{arch}: the sanitized run's streams or "
+                                 f"launches {san['counts']} differ from the "
+                                 f"unsanitized run's {run4['counts']}")
+        log(f"[front] {arch}: sanitized run at max_running 4 == unsanitized, "
+            f"all {len(out4)} streams and the launches; run() "
+            f"{san['wall']:.2f} s vs {run4['wall']:.2f} s wall, host outside "
+            f"StepLM {san['host']:.2f} s vs {run4['host']:.2f} s "
+            f"(sweep and audit {san['host'] - run4['host']:+.2f} s)")
     front_kernels(arch, cfg, model, mods)
     del model
     free_card()
@@ -2379,6 +2514,7 @@ def main() -> int:
                                      get)
     smi = phase_device()
     phase_build()
+    phase_sanitize()
     mods = {name: importlib.import_module(k[0])
             for name, k in KERNELS.items()}
     entries = phase_kernels(mods["flash_attention"], mods["decode_attention"])
@@ -2407,7 +2543,7 @@ def main() -> int:
         kernel, arch = name.split()
         e["launches"] = served[arch][kernel]
         entries[name] = e
-    phase_front("gemma2-2b", mods)
+    phase_front("gemma2-2b", mods, sanitize=True)
     phase_front("mamba2-1.3b", mods)
     gemma2 = dataclasses.replace(get("gemma2-2b"), n_layers=2,
                                  layer_pattern=(((ATTN_SWA, ATTN_FULL), 1),))

@@ -8,8 +8,8 @@ the Init pseudo-protocol, an error handler, and area/timing/latency models.
 
 The descriptor plane is host code in NumPy in both packages: `descriptor`,
 `legalizer`, `midend`, `simulator`, `backend`, `plan`, `frontend`, `engine`
-and `spec` are copies of the reference modules (the engine refuses
-`sanitize=`, whose analyzer is not in this package), as are `vm` (page
+and `spec` are copies of the reference modules (the engine's opt-in
+``sanitize=`` runs `repro_torch.sanitize` on every drain), as are `vm` (page
 tables, TLB, the translating mid-end, scatter-gather lists and the MoE
 expert gather) and `analytics` (the area, timing and latency models);
 `instream` works on torch tensors.

@@ -68,7 +68,7 @@ class ErrorPolicy:
     continue / abort / replay / pin / retry.
 
     The two virtual-memory verbs act on *page faults* raised by a
-    translating mid-end stage (`repro.core.vm.TranslateStage`):
+    translating mid-end stage (`repro_torch.core.vm.TranslateStage`):
     ``"pin"`` maps the faulting page on demand through the page table's
     pin allocator and re-lowers; ``"retry"`` invokes the engine's
     ``page_fault_handler`` (the OS model) and re-lowers, up to
@@ -281,17 +281,19 @@ class IDMAEngine:
             coalesce_count=getattr(irq, "coalesce_count", 1),
             coalesce_cycles=getattr(irq, "coalesce_cycles", 0))
         self.irq.register(self._irq_complete)
-        #: the reference's opt-in static sanitizer (`repro.sanitize`) has
-        #: no counterpart in this package yet: asking for it raises rather
-        #: than draining unchecked.
+        #: opt-in static sanitizer (`repro_torch.sanitize`): when truthy,
+        #: every `wait_all` sweeps the queued programs for hazards before
+        #: the drain touches memory, and plan-cache hits are audited
+        #: against a from-scratch lowering.  ``"raise"`` (or ``True``) raises
+        #: `SanitizeError` on an error-severity finding; ``"warn"`` emits
+        #: a warning and drains anyway.
         if sanitize not in (False, True, "raise", "warn"):
             raise ValueError(
                 f"sanitize must be False, True, 'raise' or 'warn', "
                 f"got {sanitize!r}")
-        if sanitize:
-            raise NotImplementedError("sanitize is not ported yet")
-        self.sanitize = False
-        #: always empty: kept for the reference's attribute surface
+        self.sanitize = "raise" if sanitize is True else sanitize
+        #: sanitizer reports of this engine's drains / plan audits (only
+        #: populated when `sanitize` is enabled)
         self.sanitize_reports: List[object] = []
         #: verification fault-injection hook (`backend.FaultInjector`):
         #: seeded deterministic fault sites consulted by the drain loop,
@@ -398,6 +400,16 @@ class IDMAEngine:
             raise KeyError(f"unknown transfer id {tid}")
         return rec.status
 
+    def _sanitize_verdict(self, report) -> None:
+        """Apply the configured ``sanitize`` mode to one report."""
+        if report.clean:
+            return
+        if self.sanitize == "warn":
+            warnings.warn(report.format(), RuntimeWarning, stacklevel=3)
+            return
+        from repro_torch.sanitize import SanitizeError
+        raise SanitizeError(report)
+
     def _drain_order(self, schedule: Optional[Union[str, int]]
                      ) -> List[Tuple[int, int, object]]:
         """Functional drain order over the queued items.
@@ -472,10 +484,16 @@ class IDMAEngine:
         random channel pick per step).  Per-channel FIFO order is always
         preserved, so programs with no cross-channel hazards produce
         byte-identical memory under every schedule — the differential
-        contract `repro.verify` checks against the sanitizer's verdict.
+        contract `repro_torch.verify` checks against the sanitizer's
+        verdict.
         ``tie_seed`` is forwarded to `simulate_channels` (timing-only
         heap tie-breaking, never functional).
         """
+        if self.sanitize and any(self._queues):
+            from repro_torch.sanitize import check_engine
+            report = check_engine(self)
+            self.sanitize_reports.append(report)
+            self._sanitize_verdict(report)
         items = self._drain_order(schedule)
         if not items:
             return sim.ChannelSimResult(
@@ -793,6 +811,17 @@ class IDMAEngine:
         pc = self.plan_cache
         if pc is not None:
             if self._plannable:
+                if self.sanitize:
+                    # audit the hit (if any) *before* serving it: rebind
+                    # the frozen plan to this submission's addresses and
+                    # compare against a from-scratch lowering (P0xx)
+                    from repro_torch.sanitize import audit_replay
+                    report = audit_replay(pc, transfer,
+                                          bus_width=self.bus_width,
+                                          pipeline=self.pipeline)
+                    if report is not None:
+                        self.sanitize_reports.append(report)
+                        self._sanitize_verdict(report)
                 if isinstance(transfer, NdTransfer):
                     legal, plan = pc.replay_nd(transfer,
                                                bus_width=self.bus_width,

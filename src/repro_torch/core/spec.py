@@ -97,8 +97,8 @@ class MidendStage:
     addresses are the input addresses plus per-row offsets, which is the
     linear relation plan replay's ``rebind`` assumes.  A stage that
     rewrites address *values* non-linearly (the canonical example is
-    `repro.core.vm.TranslateStage`, whose VA→PA mapping is piecewise per
-    page) splits its work across two hooks so it stays plan-cacheable:
+    `repro_torch.core.vm.TranslateStage`, whose VA→PA mapping is piecewise
+    per page) splits its work across two hooks so it stays plan-cacheable:
 
     * ``apply_structure(batch)`` — only the structural part (row splits/
       routing), leaving addresses on the input (virtual) plane.  Plan
@@ -522,9 +522,9 @@ def build_engine(spec: EngineSpec,
     ``plan_cache`` — override the spec's plan-cache choice: ``None`` keeps
     the spec default, ``False`` disables, ``True``/int builds a fresh
     `PlanCache`, an existing `PlanCache` is shared as-is;
-    ``sanitize``   — the reference's `repro.sanitize` static analyzer,
-    not in this package yet: any truthy value raises
-    `NotImplementedError`.
+    ``sanitize``   — opt into the `repro_torch.sanitize` static analyzer
+    on every drain (``True``/``"raise"`` raises `SanitizeError` on a hazard,
+    ``"warn"`` warns and drains anyway).
     """
     from .backend import MemoryMap
     if mem is None and spec.mem_spaces:
@@ -567,7 +567,7 @@ def build_engines(spec: EngineSpec, n: int,
     """Instantiate ``n`` engines of one spec as a shared-memory cluster.
 
     This is the multi-engine construction path of the paper's §V
-    multi-cluster instantiations (and the `repro.dist` collective
+    multi-cluster instantiations (and the `repro_torch.dist` collective
     fabric): all ``n`` engines share
 
     * one `MemoryMap` (built from ``spec.mem_spaces`` unless ``mem`` is

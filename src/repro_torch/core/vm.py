@@ -14,8 +14,7 @@ This module is that stage on the repo's vectorized descriptor plane:
 * :class:`Tlb`           — a small LRU translation cache consulted per
   unique page, flushed by page-table shootdowns (a ``shootdown=False``
   stage models a missed IPI — the stale entries it then serves are what
-  the reference's `repro.sanitize.planaudit` flags as P003; the
-  sanitizer is not in this package);
+  `repro_torch.sanitize.planaudit` flags as P003);
 * :class:`TranslateStage`— the typed `MidendStage`.  Structure (page
   splitting, like ``mp_split``) and value rewriting (VA→PA) are split
   across ``apply_structure``/``rebind_values`` so plan capture stays on

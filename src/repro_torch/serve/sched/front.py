@@ -12,9 +12,10 @@ ONE `IDMAEngine` and drains it in two phases:
 
 The two-phase shape keeps every drain free of cross-channel hazards
 (nothing written in a drain is read in the same drain), so the step is
-byte-deterministic under *any* channel schedule — in the reference,
-`sanitize=True` certifies it; this package has no copy of the
-analyzer yet, so `build_engine` raises `NotImplementedError` for it.
+byte-deterministic under *any* channel schedule, and ``sanitize=True``
+certifies it: every drain is swept by `repro_torch.sanitize` before a
+byte moves, and every plan-cache hit is audited against a fresh
+lowering.
 
 Completion is interrupt-driven by default: the engine's `IrqController`
 delivers `CompletionEvent`s during the drain, the front door maps each

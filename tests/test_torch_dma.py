@@ -13,6 +13,7 @@ accelerators against JAX's, bit for bit.
 import dataclasses
 import functools
 import importlib
+import warnings
 
 import jax.numpy as jnp
 import numpy as np
@@ -164,10 +165,48 @@ def test_quickstart_register_frontend_gather():
 
 
 def test_engine_refuses_sanitize():
-    with pytest.raises(NotImplementedError, match="sanitize"):
-        T.build_engine(T.preset("cheshire"), sanitize=True)
-    with pytest.raises(ValueError):
-        T.IDMAEngine(sanitize="loud")
+    """``sanitize=True`` / ``"warn"`` on the cheshire preset (two
+    channels, so the overlapping pair lands on both) give the reference's
+    reports and warnings on a clean and a racy drain; an
+    unknown mode is refused with the reference's `ValueError`; off, the
+    engine keeps no reports."""
+    def run(C, mode):
+        engine = C.build_engine(C.preset("cheshire", num_channels=2),
+                                sanitize=mode)
+        out = [engine.sanitize]
+        for dsts in ((0x8000, 0x9000), (0x8000, 0x8080)):
+            for k, dst in enumerate(dsts):
+                engine.submit_async(C.Transfer1D(
+                    src_addr=0x1000 * k, dst_addr=dst, length=256,
+                    src_protocol=C.Protocol.AXI4,
+                    dst_protocol=C.Protocol.AXI4))
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                try:
+                    engine.wait_all()
+                    out.append("drained")
+                except RuntimeError as e:
+                    out.append((type(e).__name__, str(e)))
+            out.append([(w.category.__name__, str(w.message))
+                        for w in caught])
+            out.append([(r.codes, r.clean, r.checked_rows,
+                         dataclasses.astuple(r))
+                        for r in engine.sanitize_reports])
+        return out
+
+    for mode in (True, "warn", False):
+        got, want = run(T, mode), run(J, mode)
+        assert got == want, mode
+    assert got[0] is False and got[4] == "drained" and got[6] == []
+    raised = run(T, True)
+    assert raised[0] == "raise" and raised[1] == "drained"
+    assert raised[4][0] == "SanitizeError" and "H003" in raised[4][1]
+    assert [r[1] for r in raised[6]] == [True, False]
+    warned = run(T, "warn")
+    assert warned[4] == "drained" and "H003" in warned[5][0][1]
+    for C in (T, J):
+        with pytest.raises(ValueError, match="sanitize must be"):
+            C.IDMAEngine(sanitize="loud")
     assert T.build_engine(T.preset("cheshire")).sanitize_reports == []
 
 

@@ -1,7 +1,8 @@
 """The port stands alone: every module of `repro_torch`, and
 `chip_smoke.py`, import in a process whose import system refuses `jax` and
 `repro`, as on the machine with the card, which has no JAX.  The serving
-entry point also runs there on the CPU."""
+entry point, the front door, the MoE gather and the sanitizer's and the
+verifier's CLIs also run there on the CPU."""
 
 import os
 import subprocess
@@ -56,7 +57,14 @@ def test_every_module_imports_without_jax_or_repro():
         assert "repro_torch.configs.hymba_1_5b" in names
         assert "repro_torch.configs.qwen2_5_32b" in names
         for n in ("core.vm", "core.analytics", "models.moe",
-                  "configs.qwen2_moe_a2_7b", "configs.mixtral_8x7b"):
+                  "configs.qwen2_moe_a2_7b", "configs.mixtral_8x7b",
+                  "sanitize", "sanitize.__main__", "sanitize.diagnostics",
+                  "sanitize.hazards", "sanitize.planaudit",
+                  "sanitize.speccheck", "dist", "dist.fabric",
+                  "dist.collectives", "verify", "verify.__main__",
+                  "verify.adversary", "verify.collective",
+                  "verify.generator", "verify.harness", "verify.serve",
+                  "verify.shrink", "verify.vm"):
             assert "repro_torch." + n in names, n
         for n in names:
             importlib.import_module(n)
@@ -67,7 +75,7 @@ def test_every_module_imports_without_jax_or_repro():
                        for m in sys.modules)
         print(len(names))
     """)
-    assert int(out.split()[-1]) >= 61
+    assert int(out.split()[-1]) >= 80
 
 
 @pytest.mark.parametrize("arch", ["gemma2-2b", "mamba2-1.3b", "hymba-1.5b",
@@ -192,3 +200,28 @@ def test_moe_dispatch_on_the_engine_runs_without_jax():
         print("moe ok")
     """)
     assert "moe ok" in out
+
+
+@pytest.mark.parametrize("argv", [
+    ["repro_torch.sanitize", "--demo", "--corpus", "--fuzz-racy", "8"],
+    ["repro_torch.verify", "--seeds", "4"]], ids=["sanitize", "verify"])
+def test_correctness_clis_run_without_jax(argv):
+    """``python -m repro_torch.sanitize --demo --corpus --fuzz-racy 8``
+    and ``python -m repro_torch.verify --seeds 4`` exit 0 where JAX and
+    the reference cannot be imported."""
+    out = _run(f"""
+        import runpy
+        sys.argv = {argv!r}
+        try:
+            runpy.run_module(sys.argv[0], run_name="__main__")
+        except SystemExit as e:
+            assert e.code == 0, e.code
+        assert not any(m.split(".")[0] in ("jax", "repro")
+                       for m in sys.modules)
+        print("cli ok")
+    """)
+    assert "cli ok" in out
+    if argv[0] == "repro_torch.sanitize":
+        assert "corpus: 0 hazardous" in out and "8/8 flagged" in out
+    else:
+        assert "0 divergence(s)" in out

@@ -5,8 +5,8 @@ the CPU, against the JAX package's (`repro.serve.sched`).
 the same requests, made from a seed, must give the same outputs, the same
 simulated cycles step by step and the same allocator stats, under irq and
 poll completion and in a pool starved enough to preempt and swap.  The
-cases of tests/test_serve_sched.py are held here on the port (the
-sanitizer's is replaced by its refusal: `repro.sanitize` has no copy yet).
+cases of tests/test_serve_sched.py are held here on the port, the
+sanitized one included (`repro_torch.sanitize` certifies every drain).
 
 `StepLM` is rewritten in PyTorch.  On reduced gemma2-2b, mamba2-1.3b and
 hymba-1.5b (2 layers, fp32, the same weights in both packages) its greedy
@@ -273,9 +273,30 @@ class TestFrontDoor:
         assert fd.plan_cache.stats.hits == jfd.plan_cache.stats.hits
 
     def test_sanitize_raises_until_ported(self):
-        lay = KVLayout(**LAYOUT)
-        with pytest.raises(NotImplementedError, match="sanitize"):
-            TS.ServeFrontDoor(TS.HashLM(lay.row_bytes), lay, sanitize=True)
+        """The reference's sanitized case (tests/test_serve_sched.py:131):
+        with ``sanitize=True`` the starved pool's run, preemptions and
+        swaps included, gives the reference's outputs, cycles and stats,
+        every drain and plan-cache hit is certified clean, and the report
+        count equals the reference's."""
+        runs, counts = [], []
+        for S in (JS, TS):
+            reqs = _requests(S, 14, seed=2)
+            fd, model = _run_front(reqs, S=S, layout=SMALL, max_running=6,
+                                   low_watermark=1, sanitize=True)
+            runs.append(_record(fd, reqs))
+            reports = fd.engine.sanitize_reports
+            assert reports and all(r.clean for r in reports)
+            counts.append((len(reports), sum(r.checked_rows
+                                             for r in reports)))
+        assert fd.engine.sanitize == "raise"
+        assert fd.alloc.stats.preemptions > 0
+        assert fd.alloc.stats.swapped_out == fd.alloc.stats.swapped_in > 0
+        for r in reqs:
+            assert r.output == TS.oracle_generate(
+                model, r.seed, r.prompt, r.max_new_tokens,
+                r.temperature, r.stop_tokens), f"rid {r.rid}"
+        assert runs[0] == runs[1]
+        assert counts[0] == counts[1]
 
 
 class TestHashLM:

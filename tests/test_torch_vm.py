@@ -7,13 +7,14 @@ stages, engines and batches from the same NumPy inputs, checks what the
 reference test checks, and returns what it saw: batches, translated
 addresses, `TlbStats`, `PageFault` fields and messages, engine stats,
 records and memory bytes.  The two packages must return equal
-snapshots.  The sanitizer (`repro.sanitize`) has no port yet: its two H007
-cases compare the bytes the aliased and the racy batches leave, its two
-P003 cases the stage's own `audit_translations`.
+snapshots.  The sanitizer cases (H007, P003) also run each package's own
+sanitizer (`repro.sanitize` / `repro_torch.sanitize`) beside the bytes
+and the stage's `audit_translations`, and compare its reports.
 """
 
 import dataclasses
 import enum
+import importlib
 import struct
 
 import numpy as np
@@ -72,6 +73,12 @@ def _batch(C, rows):
         src_addr=np.asarray([r[0] for r in rows], dtype=np.int64),
         dst_addr=np.asarray([r[1] for r in rows], dtype=np.int64),
         length=np.asarray([r[2] for r in rows], dtype=np.int64))
+
+
+def _sanitizer(C):
+    """The sanitizer of the package whose core is ``C``."""
+    return importlib.import_module(C.__name__.rsplit(".", 1)[0]
+                                   + ".sanitize")
 
 
 def _raised(fn):
@@ -342,8 +349,9 @@ def translate_stage_modulus_folds_into_plan_residues(C):
 
 
 def alias_batch_executes(C):
-    """test_vm's H007 case without the sanitizer: two virtual pages map
-    to one frame, so the two writes land on the same physical bytes."""
+    """test_vm's H007 case: two virtual pages map to one frame, so the
+    two writes land on the same physical bytes; the sanitizer flags the
+    aliasing (H007) and the batch still executes."""
     t, AXI = _table(C), C.Protocol.AXI4
     for v, p in ((0, 2), (1, 2), (4, 4), (5, 5)):
         t.map(AXI, v, p)
@@ -353,21 +361,27 @@ def alias_batch_executes(C):
                                                dtype=np.uint8)
     engine.dispatch_batch(_batch(C, [(4 * PAGE, 0, 64),
                                      (5 * PAGE, PAGE, 64)]))
+    report = _sanitizer(C).check_engine(engine)
+    assert report.has("H007") and not report.clean
     engine.wait_all()
-    return buf, engine.stats
+    return buf, engine.stats, report
 
 
 def virtual_plane_race_executes(C):
-    """test_vm's second H007 case without the sanitizer: a write-write
-    race on the virtual plane."""
+    """test_vm's second H007 case: a write-write race on the virtual
+    plane is flagged as such (H002 or H003), not as aliasing (no H007),
+    and executes."""
     engine = C.build_engine(_spec(C, _identity(C, 8)), plan_cache=False)
     buf = engine.mem.spaces[C.Protocol.AXI4]
     buf[:] = np.random.default_rng(7).integers(0, 256, size=buf.size,
                                                dtype=np.uint8)
     engine.dispatch_batch(_batch(C, [(0, 4 * PAGE, 64),
                                      (PAGE, 4 * PAGE, 64)]))
+    report = _sanitizer(C).check_engine(engine)
+    assert report.has("H002") or report.has("H003")
+    assert not report.has("H007")
     engine.wait_all()
-    return buf, engine.stats
+    return buf, engine.stats, report
 
 
 def stale_tlb_found_by_audit_translations(C):
@@ -382,7 +396,14 @@ def stale_tlb_found_by_audit_translations(C):
     t.map(AXI, 0, 9)                # remap; TLB not shot down
     audit = stage.audit_translations()
     assert audit != []
-    return audit, stage.tlb.stats, engine.plan_cache.stats
+    S = _sanitizer(C)
+    assert S.audit_replay(engine.plan_cache, _batch(C, [(0, 8 * PAGE, 64)]),
+                          bus_width=8, pipeline=engine.pipeline) is None
+    plan = next(iter(engine.plan_cache._plans.values()))
+    report = S.audit_plan(plan, _batch(C, [(0, 8 * PAGE, 64)]),
+                          bus_width=8, pipeline=engine.pipeline)
+    assert report.has("P003")
+    return audit, stage.tlb.stats, engine.plan_cache.stats, report
 
 
 def audit_clean_when_shootdown_wired(C):
