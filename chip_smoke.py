@@ -172,6 +172,49 @@ lines tagged with its name:
                pairs print how many (token, expert) pairs each layer
                routed differently between the two runs.
 
+  9. encdec kernels — flash and decode attention at seamless-m4t-large-
+               v2's serving shapes (D 64, 16 q on 16 kv heads, bf16, no
+               softcap): flash non-causal over the encoder's B 4 x 1,152
+               frames, flash with one query row against the 1,152 frames
+               (the cross-attention of a decode step; its q the transposed
+               view the model hands it, which `runtime.aligned16` must pass
+               as it is), decode over a 256-row cache at `kv_len` 64; each
+               against its plain version at TOL, then by device time in
+               turns with `flex_attention` (the one-row flash also with the
+               decode kernel on the same K/V), each its own kernels-line
+               entry;
+ 10. encdec  — full-width seamless-m4t-large-v2 (24 + 24 layers, d 1,024,
+               vocab 256,206, 2.035 B bf16 params): B 4 x 1,152 seeded
+               frames through `make_prefill_step`, then 64
+               `make_decode_step` calls over `init_encdec_cache(4, 256)` (a
+               16-token seeded prompt fed one token a step, then 48 greedy
+               tokens): launches counted from 0 over the prefill (flash 24)
+               and over the steps (flash and decode 24 x 64), nothing else;
+               prefill s, ms a step, peak; a second, untimed run holds every
+               flash and decode call against its plain version; then 2 + 2
+               layers in fp32, `encdec_forward` with the kernels on the card
+               against the plain versions on the CPU (rel 1e-4); then one
+               full-width fp32 `make_train_step` step (B 2, 256 tokens, 64
+               frames): finite loss within 1.0 of ln(256,206), finite grad
+               norm > 0, no kernel launched;
+ 11. train   — full-width gemma2-2b through `Trainer` on the card,
+               `RunConfig(kernels="xla", dtype="float32", remat=False)` (the
+               reference's launcher's), B 4 x 512 tokens, 5 steps, a step
+               fault injected at step 2 and replayed: one replay, finite
+               losses (the first within 1.0 of ln(256,000) + 0.5), finite
+               grad norms > 0, every weight moved, no kernel launched (the
+               plain attention and SSD, as the reference's "xla" path);
+               s a step, tokens/s, peak; the replayed run against a fresh
+               run without the fault (bit for bit, or logged as not and
+               held within loss 1e-5, grad norm 1e-4 of their largest and
+               weights 2·Σlr); a step split into forward, backward and
+               AdamW, profiled by kernel, and the plain attention and the
+               logits timed alone; then 2 layers of mamba2-1.3b at full
+               width, 6 steps, a checkpoint every 2 into a temporary
+               directory and a node failure at step 3: it restores step
+               2's checkpoint, ends at step 6 and is held against an
+               uninterrupted run the same way.
+
 Any failure raises and exits non-zero.  The second-to-last line is a JSON
 object with one entry per kernel; the last is the device line.
 """
@@ -227,13 +270,14 @@ def device_ms(fn, iters: int = 20, warmup: int = 3, tries: int = 5
     launch them, which CUDA events around back-to-back calls show once a
     call's kernels take less time than its launch.  The profiler now and
     then drops kernel records: one of a session's 20, or all of them in a
-    session where it requests a new activity buffer (runs AI, AJ).  So
-    each kernel counts as its mean recorded time times its launches a
-    call: the nearest whole number to its records over the calls, or
-    that ratio itself where it rounds to 0 (a kernel some calls launch).
-    A session with no device record is taken again, `tries` times at
-    most; if none of them has one, the time is taken with CUDA events
-    around the calls instead, and a line says so."""
+    session where it requests a new activity buffer (runs AI, AJ), or
+    most of them late in a whole run (run BZ: 2 of 20).  So each kernel
+    counts as its mean recorded time times its launches a call, the
+    nearest whole number to its records over the calls.  A session with
+    no device record, or with a kernel under half a record a call, is
+    taken again, `tries` times at most; if none of them is whole, the
+    time is taken with CUDA events around the calls instead, and a line
+    says so."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
@@ -246,17 +290,17 @@ def device_ms(fn, iters: int = 20, warmup: int = 3, tries: int = 5
                 fn()
             torch.cuda.synchronize()
         records = prof.key_averages()
+        kern = [e for e in records
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and e.count]
         total = sum(e.self_device_time_total / e.count *
-                    (round(e.count / iters) or e.count / iters)
-                    for e in records
-                    if e.device_type == torch.autograd.DeviceType.CUDA
-                    and e.count)
-        if total > 0:
+                    round(e.count / iters) for e in kern)
+        if total > 0 and all(round(e.count / iters) for e in kern):
             return total / 1e3
     seen = [(e.key[:60], e.count) for e in records if e.count]
-    log(f"[timing] the profiler recorded no device time for {iters} calls "
-        f"in {tries} sessions (the last one's records: {seen}); CUDA "
-        f"events around {iters} calls instead")
+    log(f"[timing] the profiler recorded no whole session of device time "
+        f"for {iters} calls in {tries} sessions (the last one's records: "
+        f"{seen}); CUDA events around {iters} calls instead")
     return time_ms(fn, iters=iters, warmup=0)
 
 
@@ -2499,6 +2543,630 @@ def phase_bf16_vs_plain(cfg, label, mods, S=600):
     free_card()
 
 
+# ---------------------------------------------------------------------------
+# The encoder-decoder (seamless-m4t-large-v2) and the training path
+# ---------------------------------------------------------------------------
+
+CARD = "cuda"   # the device of the encdec and train phases
+SEAMLESS = "seamless-m4t-large-v2"
+ENC_B, ENC_FRAMES = 4, 1152        # 4,608 input frames / subsample 4
+DEC_MAX_LEN, DEC_PROMPT, DEC_STEPS = 256, 16, 64
+TRAIN = "gemma2-2b"
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS, TRAIN_FAULT = 512, 4, 5, 2
+MAMBA_LAYERS, MAMBA_STEPS, MAMBA_EVERY, MAMBA_FAULT = 2, 6, 2, 3
+PLAIN_RCFG = dict(kernels="xla", dtype="float32", remat=False)
+
+
+def phase_encdec_kernels(mods):
+    """Flash and decode attention at seamless-m4t-large-v2's serving
+    shapes, head_dim 64, 16 q on 16 kv heads (GQA group 1), bf16, no
+    softcap: flash non-causal over the encoder's B 4 x 1,152 frames;
+    flash with one query row against the 1,152 frames (the cross-attention
+    of a decode step), its q the transposed (B, 1, 16, 64) view the model
+    hands it; decode over a 256-row cache at `kv_len` 64.  Each against
+    its plain version at TOL (flash row by row), then by device time in
+    turns with `flex_attention` (and the one-row flash also with the
+    decode kernel, which computes the same function); the plain version
+    by CUDA events.  Returns the three entries, named by their shape."""
+    import torch
+    from repro_torch.configs import get
+    from repro_torch.kernels import runtime
+    from repro_torch.kernels.decode_attention import decode_attention_ref
+    from repro_torch.kernels.flash_attention import attention_ref
+
+    cfg = get(SEAMLESS)
+    fa, da = mods["flash_attention"], mods["decode_attention"]
+    library = library_attention()
+    gen = torch.Generator(CARD).manual_seed(24)
+    H, D, B, S = cfg.n_heads, cfg.resolved_head_dim, ENC_B, ENC_FRAMES
+    scale, bf16 = D ** -0.5, "bfloat16"
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=CARD).to(
+            torch.bfloat16)
+
+    entries = {}
+    k, v = randn(B, H, S, D), randn(B, H, S, D)
+    x = randn(B, 1, H * D)              # a decode step's q, (B, 1, H·D)
+    q1 = x.reshape(B, 1, H, D).transpose(1, 2)
+    same = runtime.aligned16(q1).data_ptr() == q1.data_ptr()
+    log(f"[encdec-kernels] the cross-attention's q, the (B {B}, 1, {H}, "
+        f"{D}) view transposed to {tuple(q1.shape)} with strides "
+        f"{q1.stride()}: contiguous {q1.is_contiguous()}, "
+        f"runtime.aligned16 {'passes it as it is' if same else 'copies it'}")
+    for label, q in (("encoder", randn(B, H, S, D)), ("cross", q1)):
+        Sq = q.shape[2]
+        kw = dict(causal=False, window=0, softcap=0.0, scale=scale)
+        name = (f"flash B{B} Hq{H} Hkv{H} Sq{Sq} Sk{S} D{D} non-causal "
+                f"bf16 ({label})")
+        want = attention_ref(q, k, v, **kw)
+        abs_err, rel = check_close(f"{SEAMLESS} {name}",
+                                   fa.flash_attention_cuda(q, k, v, **kw),
+                                   want, bf16, rows=True)
+        lib = flex_call(library, f"{SEAMLESS} {name}", q, k, v,
+                        flash_mask(False, 0), want, bf16, scale, rows=True)
+        fns = {"kernel": lambda: fa.flash_attention_cuda(q, k, v, **kw)}
+        if lib is not None:
+            fns["flex_attention"] = lib
+        if label == "cross":
+            # the decode kernel computes the same function: one query over
+            # 1,152 keys; logged beside flash, the path keeps flash
+            q3 = q[:, :, 0]
+            dk = dict(kv_len=S, window=0, softcap=0.0, scale=scale)
+            check_close(f"{SEAMLESS} decode as cross-attention",
+                        da.decode_attention_cuda(q3, k, v, **dk),
+                        want[:, :, 0], bf16)
+            fns["decode_attention"] = lambda: da.decode_attention_cuda(
+                q3, k, v, **dk)
+        t = in_turns(fns)
+        log(f"[encdec-kernels] {name} in turns, device ms median (min-max) "
+            f"over 5 rounds: " + ", ".join(
+                f"{n} {md:.4f} ({lo:.4f}-{hi:.4f})"
+                for n, (md, lo, hi) in t.items()))
+        ms = t["kernel"][0]
+        lib_ms = t["flex_attention"][0] if lib is not None else None
+        plain_ms = time_ms(lambda: attention_ref(q, k, v, **kw), iters=5,
+                           warmup=1)
+        flops = 4 * D * Sq * S * B * H
+        b_ms, b_by = bound(flops, (2 * q.numel() + k.numel() + v.numel())
+                           * q.element_size(), bf16)
+        log(f"[encdec-kernels] {SEAMLESS} {name}: row rel err {rel:.2e} "
+            f"(tol {TOL[bf16]:.0e}) | kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.3f} ms, bound {b_ms:.5f} ms ({b_by}), "
+            f"{100 * b_ms / ms:.1f}% of bound" +
+            ("" if lib_ms is None else f", {ms / lib_ms:.2f}x library") +
+            ("" if label != "cross" else
+             f", {ms / t['decode_attention'][0]:.2f}x the decode kernel"))
+        entries[f"flash_attention {SEAMLESS} {label}"] = kernel_entry(
+            "flash_attention", f"{SEAMLESS} {label}", ms, plain_ms, b_ms,
+            b_by, lib_ms, abs_err)
+        del want, lib, fns
+        torch.cuda.empty_cache()
+
+    # the decoder's self-attention: one query a row over its 256-row cache
+    kv_len = DEC_PROMPT + (DEC_STEPS - DEC_PROMPT)
+    q = randn(B, H, D)
+    ck, cv = randn(B, H, DEC_MAX_LEN, D), randn(B, H, DEC_MAX_LEN, D)
+    kw = dict(kv_len=kv_len, window=0, softcap=0.0, scale=scale)
+    name = (f"decode B{B} Hq{H} Hkv{H} cache {DEC_MAX_LEN} D{D} kv_len "
+            f"{kv_len} bf16")
+    want = decode_attention_ref(q, ck, cv, **kw)
+    abs_err, rel = check_close(f"{SEAMLESS} {name}",
+                               da.decode_attention_cuda(q, ck, cv, **kw),
+                               want, bf16)
+    lib = flex_call(library, f"{SEAMLESS} {name}", q[:, :, None], ck, cv,
+                    decode_mask(kv_len, 0), want[:, :, None], bf16, scale)
+    ms, lib_ms = timed_in_turns(
+        SEAMLESS, name, lambda: da.decode_attention_cuda(q, ck, cv, **kw),
+        lib)
+    plain_ms = time_ms(lambda: decode_attention_ref(q, ck, cv, **kw))
+    b_ms, b_by = bound(4 * B * H * kv_len * D,
+                       (2 * B * H * kv_len * D + 2 * q.numel())
+                       * q.element_size(), bf16)
+    log(f"[encdec-kernels] {SEAMLESS} {name}: rel err {rel:.2e} (tol "
+        f"{TOL[bf16]:.0e}) | kernel {ms:.4f} ms device, plain "
+        f"{plain_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}), "
+        f"{100 * b_ms / ms:.1f}% of bound" +
+        ("" if lib_ms is None else f", {ms / lib_ms:.2f}x library"))
+    entries[f"decode_attention {SEAMLESS}"] = kernel_entry(
+        "decode_attention", SEAMLESS, ms, plain_ms, b_ms, b_by, lib_ms,
+        abs_err)
+    del k, v, ck, cv, lib
+    free_card()
+    return entries
+
+
+def encdec_serve(model, frames, prompt, steps, mods, warm=False):
+    """Prefill (the encoder and every layer's cross K/V) then `steps`
+    decode steps, the prompt's tokens fed one a step and greedy tokens
+    after them; returns (cross, the step logits, launches of the prefill,
+    of the decode steps, prefill s, decode s).  With `warm`, a first
+    prefill, neither timed nor counted, warms the allocator up."""
+    import torch
+    from repro_torch.models import init_encdec_cache
+    from repro_torch.serve import (greedy_sample, make_decode_step,
+                                   make_prefill_step)
+    prefill, decode = make_prefill_step(model), make_decode_step(model)
+    B = frames.shape[0]
+    if warm:
+        prefill(frames)
+    reset(mods)                                # the main path's prefill
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    cross = prefill(frames)
+    torch.cuda.synchronize()
+    prefill_s, pre = time.perf_counter() - t, read(mods)
+    cache = init_encdec_cache(B, DEC_MAX_LEN, model.cfg,
+                              device=frames.device)
+    outs = []
+    reset(mods)                                # the main path's decode
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    tok = prompt[:, :1]
+    for pos in range(steps):
+        logits, cache = decode(cache, cross, tok, pos)
+        outs.append(logits)
+        tok = prompt[:, pos + 1:pos + 2] if pos + 1 < prompt.shape[1] \
+            else greedy_sample(logits)[:, None].long()
+    torch.cuda.synchronize()
+    return cross, outs, pre, read(mods), prefill_s, time.perf_counter() - t
+
+
+def phase_encdec(mods):
+    """Full-width seamless-m4t-large-v2 (24 + 24 layers, d 1,024, 16 heads
+    of 64, vocab 256,206), seeded weights, bf16: B 4 x 1,152 seeded frames
+    through `make_prefill_step`, then `init_encdec_cache(4, 256)` and 64
+    `make_decode_step` calls (a 16-token seeded prompt fed one token a
+    step, then 48 greedy tokens).  Launches, counted from 0 over the
+    prefill and over the decode steps: flash 24 then 24 x 64, decode 0
+    then 24 x 64, nothing else.  A second, untimed run holds every flash
+    and decode call against its plain version.  Then 2 layers of each
+    stack at full width in fp32, `encdec_forward` with the kernels on the
+    card against the plain versions on the CPU (rel 1e-4); then one
+    full-width fp32 `make_train_step` step (B 2, 256 tokens, 64 frames):
+    finite loss within 1.0 of ln(256,206), finite grad norm > 0, the
+    kernels' counters 0.  Returns the launches of the first run, by
+    kernel entry."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import RunConfig, get
+    from repro_torch.configs.base import EncoderConfig
+    from repro_torch.models import EncDec, encdec_forward
+    from repro_torch.train import init_train_state, make_train_step
+
+    cfg = get(SEAMLESS)
+    L = cfg.n_layers
+    t0 = time.perf_counter()
+    model = EncDec(cfg, RunConfig(dtype="bfloat16"), seed=0, device=CARD)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[encdec] {SEAMLESS} full width: {cfg.encoder.n_layers} encoder + "
+        f"{L} decoder layers, d {cfg.d_model}, {cfg.n_heads} heads of "
+        f"{cfg.resolved_head_dim}, vocab {cfg.vocab_size}, "
+        f"{n_params / 1e9:.3f} B params (bf16, "
+        f"{2 * n_params / 1e9:.2f} GB), seeded init "
+        f"{time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator(CARD).manual_seed(25)
+    frames = torch.randn((ENC_B, ENC_FRAMES, cfg.d_model), generator=gen,
+                         device=CARD).to(torch.bfloat16)
+    prompt = torch.randint(0, cfg.vocab_size, (ENC_B, DEC_PROMPT),
+                           generator=gen, device=CARD)
+    torch.cuda.reset_peak_memory_stats()
+    cross, outs, pre, dec, prefill_s, decode_s = encdec_serve(
+        model, frames, prompt, DEC_STEPS, mods, warm=True)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    zero = {name: 0 for name in mods}
+    want_pre = dict(zero, flash_attention=L)
+    want_dec = dict(zero, flash_attention=L * DEC_STEPS,
+                    decode_attention=L * DEC_STEPS)
+    if pre != want_pre or dec != want_dec:
+        raise AssertionError(f"{SEAMLESS} launches: prefill {pre}, decode "
+                             f"{dec}; want {want_pre}, {want_dec}")
+    if not all(bool(torch.isfinite(o[:, :cfg.vocab_size]).all())
+               for o in outs):
+        raise AssertionError(f"{SEAMLESS}: non-finite decode logits")
+    if tuple(cross[0].shape) != (L, ENC_B, cfg.n_kv_heads, ENC_FRAMES,
+                                 cfg.resolved_head_dim):
+        raise AssertionError(f"cross K shape {tuple(cross[0].shape)}")
+    greedy = [int(o[0].argmax()) for o in outs[DEC_PROMPT - 1:]]
+    log(f"[encdec] {SEAMLESS} serve: B {ENC_B} x {ENC_FRAMES} frames "
+        f"({ENC_FRAMES * cfg.encoder.subsample} input frames / subsample "
+        f"{cfg.encoder.subsample}) through make_prefill_step "
+        f"{prefill_s:.3f} s (after a warm-up call); {DEC_STEPS} decode steps ({DEC_PROMPT} prompt "
+        f"tokens fed one a step, then {DEC_STEPS - DEC_PROMPT} greedy) "
+        f"{1e3 * decode_s / DEC_STEPS:.2f} ms a step over a "
+        f"{DEC_MAX_LEN}-row cache; peak memory {peak:.2f} GiB | launches: "
+        f"prefill flash {pre['flash_attention']}, decode steps flash "
+        f"{dec['flash_attention']} decode {dec['decode_attention']}, "
+        f"every other kernel 0; logits finite; row 0's greedy tokens "
+        f"start {greedy[:8]}")
+    del cross, outs
+    with HeldKernels(mods) as hk:
+        encdec_serve(model, frames, prompt, DEC_STEPS, mods)
+    calls = hk.report("encdec", f"{SEAMLESS} prefill and {DEC_STEPS} "
+                      f"decode steps")
+    want_calls = {"flash_attention": L * (DEC_STEPS + 1),
+                  "decode_attention": L * DEC_STEPS, "ssd": 0}
+    if calls != want_calls:
+        raise AssertionError(f"{SEAMLESS}: held {calls}, want {want_calls}")
+    del model, frames, hk
+    free_card()
+
+    # 2 layers of each stack, fp32: the card's kernels against the CPU's
+    # plain versions through the training forward (no grad)
+    cfg2 = dataclasses.replace(cfg, n_layers=2,
+                               encoder=EncoderConfig(2, cfg.encoder.subsample))
+    f32 = RunConfig(kernels="pallas", dtype="float32")
+    gpu = EncDec(cfg2, f32, seed=1, device=CARD)
+    cpu = EncDec(cfg2, f32, device="cpu", init=False)
+    cpu.load_state_dict(gpu.state_dict())
+    rng = np.random.default_rng(26)
+    fr = torch.from_numpy(rng.standard_normal((2, 300, cfg.d_model))
+                          .astype(np.float32))
+    tk = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 70)))
+    reset(mods)
+    with torch.no_grad():
+        lg = encdec_forward(gpu, fr.to(CARD), tk.to(CARD), f32)
+        lc = encdec_forward(cpu, fr, tk, f32)
+    counts = read(mods)
+    if counts != dict(zero, flash_attention=6):
+        raise AssertionError(f"2-layer encdec launches {counts}")
+    V = cfg.vocab_size
+    rel = float((lg[..., :V].cpu() - lc[..., :V]).abs().max() /
+                lc[..., :V].abs().max())
+    if not rel < 1e-4:
+        raise AssertionError(f"encdec card vs CPU logits rel err {rel:.2e}")
+    log(f"[card-vs-cpu] 2 + 2 layers of {SEAMLESS} d {cfg.d_model} fp32, "
+        f"B 2, 300 frames, 70 tokens, encdec_forward with the flash kernel "
+        f"(6 launches: encoder, decoder self- and cross-attention) vs the "
+        f"CPU's plain version: max logits rel err {rel:.2e} (tol 1e-4)")
+    del gpu, cpu, lg, lc
+    free_card()
+
+    # one full-width fp32 train step on the plain path
+    rcfg = RunConfig(**PLAIN_RCFG)
+    t0 = time.perf_counter()
+    state = init_train_state(0, cfg, rcfg, device=CARD)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    batch = {"frames": torch.randn((2, 64, cfg.d_model), generator=gen,
+                                   device=CARD),
+             "tokens": torch.randint(0, cfg.vocab_size, (2, 256),
+                                     generator=gen, device=CARD)}
+    step = make_train_step(cfg, rcfg)
+    reset(mods)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    state, m = step(state, batch)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t
+    loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+    ln_v = math.log(cfg.vocab_size)
+    if not (math.isfinite(loss) and abs(loss - ln_v) < 1.0):
+        raise AssertionError(f"{SEAMLESS} train loss {loss}, want within "
+                             f"1.0 of ln V = {ln_v:.3f}")
+    if not (math.isfinite(gnorm) and gnorm > 0):
+        raise AssertionError(f"{SEAMLESS} grad norm {gnorm}")
+    if read(mods) != zero:
+        raise AssertionError(f"{SEAMLESS} train step launched kernels "
+                             f"{read(mods)}")
+    log(f"[encdec] {SEAMLESS} full width fp32 train step (kernels='xla', "
+        f"B 2, 256 tokens, 64 frames): loss {loss:.4f} (ln V {ln_v:.4f}), "
+        f"grad norm {gnorm:.4f}, {step_s:.3f} s (the first step, its "
+        f"allocations included; state init {init_s:.1f} s), peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; no kernel "
+        f"launched")
+    del state, batch, m
+    free_card()
+    return {f"flash_attention {SEAMLESS} encoder": pre["flash_attention"],
+            f"flash_attention {SEAMLESS} cross": dec["flash_attention"],
+            f"decode_attention {SEAMLESS}": dec["decode_attention"]}
+
+
+def timed_step(step, times):
+    """`step` with a synchronize on each side; (the state's step before
+    it, its seconds) appended to `times`."""
+    import torch
+
+    def run(state, batch):
+        before = int(state["step"])
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = step(state, batch)
+        torch.cuda.synchronize()
+        times.append((before, time.perf_counter() - t))
+        return out
+    return run
+
+
+def train_run(cfg, tcfg, injector, seq, batch):
+    """A `Trainer` run on the card on the plain path; returns (trainer,
+    state, [(step, seconds)] of each step it ran, the first 4,096 elements
+    of each weight before the run, on the CPU)."""
+    from repro_torch.configs import RunConfig
+    from repro_torch.train import Trainer, make_train_step
+    rcfg = RunConfig(**PLAIN_RCFG)
+    times = []
+    trainer = Trainer(cfg, rcfg, tcfg, seq_len=seq, global_batch=batch,
+                      injector=injector, device=CARD,
+                      step_fn=timed_step(make_train_step(
+                          cfg, rcfg, total_steps=tcfg.total_steps), times))
+    state = trainer.init_or_restore()
+    before = {n: p.detach().reshape(-1)[:4096].to("cpu", copy=True)
+              for n, p in state["params"].named_parameters()}
+    return trainer, trainer.run(state), times, before
+
+
+def moved(state, before):
+    """The least, over the weights, of a weight's largest move from
+    `before` (a slice of each)."""
+    return min(float((p.detach().reshape(-1)[:4096].cpu() - before[n])
+                     .abs().max())
+               for n, p in state["params"].named_parameters())
+
+
+def state_diff(first, model):
+    """Largest abs difference between the weights `first` (CPU copies,
+    by name) and `model`'s, leaf by leaf on the card."""
+    return max(float((first[n].to(p.device) - p.detach()).abs().max())
+               for n, p in model.named_parameters())
+
+
+def held_equal(label, d_loss, d_gnorm, d_param, losses, gnorms, lr_sum):
+    """Two runs that should be the same: bit for bit, or (logged as not)
+    within loss 1e-5 and grad norm 1e-4 of their largest, and weights
+    within 2·Σlr, the most two Adam runs can part where a tiny gradient's
+    sign differs."""
+    exact = d_loss == d_gnorm == d_param == 0
+    log(f"[train] {label}: max |d loss| {d_loss:.3e}, max |d grad norm| "
+        f"{d_gnorm:.3e}, max |d weight| {d_param:.3e}: "
+        f"{'bit for bit' if exact else 'NOT bit for bit'}")
+    if not (d_loss <= 1e-5 * max(map(abs, losses)) and
+            d_gnorm <= 1e-4 * max(gnorms) and d_param <= 2 * lr_sum):
+        raise AssertionError(f"{label}: the runs part")
+
+
+def history_diff(h1, h2, key):
+    return max(abs(a[key] - b[key]) for a, b in zip(h1, h2))
+
+
+def train_breakdown(cfg, state, batch, label):
+    """One more train step, split by synchronizing host clocks into the
+    forward with the loss, the backward and AdamW, and a profiled step's
+    device time by kernel: the GEMMs' share and the top kernels; then the
+    plain attention (`chunked_flash`) forward and backward at one layer's
+    shape, and the logits with the loss, forward and backward, each by
+    CUDA events.  Logged, not checked."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import RunConfig
+    from repro_torch.models import lm_loss
+    from repro_torch.models.attention import chunked_flash
+    from repro_torch.models.lm import _logits, next_token_nll
+    from repro_torch.optim import adamw_update
+    from repro_torch.train import make_train_step
+
+    rcfg = RunConfig(**PLAIN_RCFG)
+    model = state["params"]
+    params = dict(model.named_parameters())
+
+    def sync_s(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    (loss, _), fwd_s = sync_s(lambda: lm_loss(model, batch, rcfg))
+    _, bwd_s = sync_s(loss.backward)
+    grads = {n: p.grad for n, p in params.items()}
+    _, opt_s = sync_s(lambda: adamw_update(grads, state["opt"], params,
+                                           1e-5))
+    del grads, loss
+    for p in params.values():
+        p.grad = None
+    step = make_train_step(cfg, rcfg)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(state, batch)
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.count]
+    total = sum(e.self_device_time_total for e in kern)
+    gemm = sum(e.self_device_time_total for e in kern
+               if any(s in e.key.lower() for s in
+                      ("gemm", "cutlass", "xmma", "cublas")))
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
+    log(f"[train] {label} one step split by synchronizing: forward + loss "
+        f"{fwd_s:.3f} s, backward {bwd_s:.3f} s, AdamW {opt_s:.3f} s; "
+        f"profiled step: device time {total / 1e6:.3f} s, GEMM kernels "
+        f"{gemm / 1e6:.3f} s ({100 * gemm / max(total, 1):.1f}%); top "
+        f"kernels: " + "; ".join(
+            f"{e.key[:48]} {e.self_device_time_total / 1e3:.1f} ms x"
+            f"{e.count}" for e in top))
+    # the plain attention at one layer's shape, and the logits and loss
+    B, S = batch["tokens"].shape
+    Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    gen = torch.Generator(CARD).manual_seed(27)
+    q, k, v = (torch.randn(s, generator=gen, device=CARD)
+               .requires_grad_() for s in ((B, Hq, S, D), (B, Hkv, S, D),
+                                           (B, Hkv, S, D)))
+    scale = cfg.query_scale or D ** -0.5
+
+    def attn():
+        o = chunked_flash(q, k, v, True, 0, cfg.attn_softcap, scale,
+                          rcfg.attn_chunk_q, rcfg.attn_chunk_k)
+        o.backward(torch.ones_like(o))
+
+    attn_ms = time_ms(attn, iters=5, warmup=1)
+    x = torch.randn((B, S, cfg.d_model), generator=gen, device=CARD,
+                    requires_grad=True)
+    tok = batch["tokens"]
+
+    def logits_loss():
+        nll = next_token_nll(_logits(model, x), tok).mean()
+        nll.backward()
+
+    with torch.no_grad():
+        for p in params.values():
+            p.requires_grad_(False)
+    try:
+        head_ms = time_ms(logits_loss, iters=5, warmup=1)
+    finally:
+        for p in params.values():
+            p.requires_grad_(True)
+    log(f"[train] {label} plain attention (chunked_flash, B {B}, {Hq}/{Hkv} "
+        f"heads of {D}, S {S}, causal, softcap {cfg.attn_softcap}) forward "
+        f"+ backward {attn_ms:.2f} ms a layer, x {len(cfg.layer_kinds)} "
+        f"layers {attn_ms * len(cfg.layer_kinds) / 1e3:.3f} s a step; "
+        f"logits (vocab {cfg.padded_vocab}, fp32) + loss forward + backward "
+        f"{head_ms:.2f} ms (CUDA events)")
+
+
+def phase_train(mods):
+    """Full-width gemma2-2b trains through `Trainer` on the card, fp32,
+    `RunConfig(kernels="xla", dtype="float32", remat=False)` (the
+    reference's launcher's), B 4 x 512 tokens, 5 steps, a step fault
+    injected at step 2 under `replay`: one replay, 5 steps, finite losses
+    (the first within 1.0 of ln(256,000) + 0.5), finite grad norms > 0,
+    the weights moved, and no kernel launched (the flash, decode and SSD
+    counters 0: training takes the plain path, as the reference's).  Its
+    history and weights against a fresh run without the fault.  Then a
+    train step split and profiled (`train_breakdown`).  Then 2 layers of
+    mamba2-1.3b at full width, 6 steps, a checkpoint every 2 into a
+    temporary directory, a node failure injected at step 3: it restores
+    step 2's checkpoint and ends at step 6 with the weights of an
+    uninterrupted run."""
+    import tempfile
+    import torch
+    from repro_torch.configs import get
+    from repro_torch.dist.fault import FaultConfig, FaultInjector
+    from repro_torch.train import TrainerConfig
+
+    zero = {name: 0 for name in mods}
+    cfg = get(TRAIN)
+    tcfg = TrainerConfig(total_steps=TRAIN_STEPS, seed=0,
+                         fault=FaultConfig(policy="replay"))
+    reset(mods)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer, state, times, before = train_run(
+        cfg, tcfg, FaultInjector([TRAIN_FAULT], kind="step"), TRAIN_SEQ,
+        TRAIN_BATCH)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    counts = read(mods)
+    hist = trainer.history
+    losses = [h["loss"] for h in hist]
+    gnorms = [h["grad_norm"] for h in hist]
+    ln_v = math.log(cfg.vocab_size)
+    if trainer.stats.replays != 1 or int(state["step"]) != TRAIN_STEPS or \
+            [s for s, _ in times] != list(range(TRAIN_STEPS)):
+        raise AssertionError(f"{TRAIN}: replays {trainer.stats.replays}, "
+                             f"step {int(state['step'])}, ran {times}")
+    if counts != zero:
+        raise AssertionError(f"{TRAIN} training launched kernels {counts}")
+    if not (all(map(math.isfinite, losses)) and
+            abs(losses[0] - (ln_v + 0.5)) < 1.0):
+        raise AssertionError(f"{TRAIN} losses {losses}")
+    if not all(math.isfinite(g) and g > 0 for g in gnorms):
+        raise AssertionError(f"{TRAIN} grad norms {gnorms}")
+    least = moved(state, before)
+    if not least > 0:
+        raise AssertionError(f"{TRAIN}: a weight did not move")
+    n_params = sum(p.numel() for p in state["params"].parameters())
+    secs = [t for _, t in times]
+    steady = secs[1:]
+    tokens = TRAIN_SEQ * TRAIN_BATCH
+    log(f"[train] {TRAIN} full width fp32 ({n_params / 1e9:.3f} B params; "
+        f"weights, grads, mu and nu {16 * n_params / 1e9:.1f} GB), "
+        f"kernels='xla', remat off, B {TRAIN_BATCH} x {TRAIN_SEQ} tokens, "
+        f"{TRAIN_STEPS} steps, a step fault at step {TRAIN_FAULT} "
+        f"replayed: replays {trainer.stats.replays}; losses " +
+        " ".join(f"{v:.4f}" for v in losses) + f" (ln V + 0.5 = "
+        f"{ln_v + 0.5:.4f}); grad norms " +
+        " ".join(f"{g:.3f}" for g in gnorms) + "; lr " +
+        " ".join(f"{h['lr']:.3e}" for h in hist) + f"; every weight "
+        f"moved (the least largest move {least:.3e}) | step s " +
+        " ".join(f"{t:.3f}" for t in secs) + f" (the first with its "
+        f"allocations), steady {sum(steady) / len(steady):.3f} s a step, "
+        f"{tokens * len(steady) / sum(steady):.0f} tokens/s; run wall "
+        f"{wall:.1f} s with init; peak memory {peak:.2f} GiB | launches: "
+        f"none (flash, decode, ssd 0)")
+    first = {n: p.detach().to("cpu", copy=True)
+             for n, p in state["params"].named_parameters()}
+    batch = trainer._put(trainer.pipeline.source.batch(TRAIN_STEPS))
+    train_breakdown(cfg, state, batch, f"{TRAIN} (B {TRAIN_BATCH} x "
+                    f"{TRAIN_SEQ})")
+    del trainer, state, batch
+    free_card()
+    clean, s2, _, _ = train_run(cfg, tcfg, None, TRAIN_SEQ, TRAIN_BATCH)
+    held_equal(f"{TRAIN} replayed run vs a fresh run without the fault",
+               history_diff(hist, clean.history, "loss"),
+               history_diff(hist, clean.history, "grad_norm"),
+               state_diff(first, s2["params"]), losses, gnorms,
+               sum(h["lr"] for h in hist))
+    del clean, s2, first
+    free_card()
+
+    mcfg = dataclasses.replace(get("mamba2-1.3b"), n_layers=MAMBA_LAYERS)
+    with tempfile.TemporaryDirectory() as tmp:
+        mt = TrainerConfig(total_steps=MAMBA_STEPS,
+                           checkpoint_every=MAMBA_EVERY, checkpoint_dir=tmp,
+                           keep_checkpoints=2, seed=0)
+        reset(mods)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tr, st, mtimes, mbefore = train_run(
+            mcfg, mt, FaultInjector([MAMBA_FAULT], kind="node"), TRAIN_SEQ,
+            TRAIN_BATCH)
+        wall = time.perf_counter() - t0
+        counts = read(mods)
+    steps_run = [s for s, _ in mtimes]
+    if tr.stats.node_failures != 1 or int(st["step"]) != MAMBA_STEPS:
+        raise AssertionError(f"mamba2: failures {tr.stats.node_failures}, "
+                             f"step {int(st['step'])}")
+    want_steps = list(range(MAMBA_FAULT)) + \
+        list(range(MAMBA_EVERY * (MAMBA_FAULT // MAMBA_EVERY), MAMBA_STEPS))
+    if steps_run != want_steps:
+        raise AssertionError(f"mamba2 ran steps {steps_run}, want "
+                             f"{want_steps} (a restore of step "
+                             f"{MAMBA_EVERY}'s checkpoint)")
+    if counts != zero:
+        raise AssertionError(f"mamba2 training launched kernels {counts}")
+    mfirst = {n: p.detach().to("cpu", copy=True)
+              for n, p in st["params"].named_parameters()}
+    mhist, mleast = tr.history, moved(st, mbefore)
+    del tr, st
+    free_card()
+    clean, s2, _, _ = train_run(mcfg, dataclasses.replace(
+        mt, checkpoint_dir=None), None, TRAIN_SEQ, TRAIN_BATCH)
+    log(f"[train] mamba2-1.3b {MAMBA_LAYERS} layers full width fp32 "
+        f"(kernels='xla': the SSD through ssd_chunked_ref), B "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ}, {MAMBA_STEPS} steps, a checkpoint "
+        f"every {MAMBA_EVERY}, a node failure at step {MAMBA_FAULT}: "
+        f"steps run {steps_run} (restored step {MAMBA_EVERY}'s "
+        f"checkpoint), ends at step {MAMBA_STEPS}; losses " +
+        " ".join(f"{h['loss']:.4f}" for h in mhist) + f"; the least "
+        f"largest move of a weight {mleast:.3e} | step s " +
+        " ".join(f"{t:.3f}" for _, t in mtimes) + f", run wall {wall:.1f} "
+        f"s with 3 checkpoint saves and a restore | launches: none")
+    if not mleast > 0:
+        raise AssertionError("mamba2: a weight did not move")
+    redo = mhist[MAMBA_FAULT:]          # the steps run after the restore
+    chist = clean.history[MAMBA_EVERY * (MAMBA_FAULT // MAMBA_EVERY):]
+    held_equal("mamba2-1.3b restored run vs an uninterrupted run",
+               history_diff(redo, chist, "loss"),
+               history_diff(redo, chist, "grad_norm"),
+               state_diff(mfirst, s2["params"]),
+               [h["loss"] for h in clean.history],
+               [h["grad_norm"] for h in clean.history],
+               sum(h["lr"] for h in clean.history))
+    del clean, s2, mfirst
+    free_card()
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         raise SystemExit(f"chip_smoke.py: {SRC / 'repro_torch'} not found; "
@@ -2522,6 +3190,7 @@ def main() -> int:
     hymba_entries = phase_hymba_kernels(mods)
     dense_entries = phase_dense_kernels(mods)
     dense_entries.update(phase_moe_kernels(mods))
+    encdec_entries = phase_encdec_kernels(mods)
     entries.update(phase_dma(mods))
     entries["matmul_dma"] = phase_matmul(mods)
     gemma = phase_serve("gemma2-2b", mods)
@@ -2568,6 +3237,10 @@ def main() -> int:
     qwen_moe2 = dataclasses.replace(get("qwen2-moe-a2.7b"), n_layers=2)
     phase_card_vs_cpu(qwen_moe2, "qwen2-moe-a2.7b FULL, FULL", mods)
     phase_bf16_vs_plain(qwen_moe2, "qwen2-moe-a2.7b FULL, FULL", mods)
+    for name, n in phase_encdec(mods).items():
+        encdec_entries[name]["launches"] = n
+    entries.update(encdec_entries)
+    phase_train(mods)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(smi)

@@ -1,8 +1,9 @@
 """Architecture configs of the port.
 
 `get(name)` returns the full ArchConfig; gemma2-2b, mamba2-1.3b,
-hymba-1.5b, internlm2-20b, chatglm3-6b, qwen2.5-32b, internvl2-26b and
-the MoE pair qwen2-moe-a2.7b and mixtral-8x7b are ported so far.
+hymba-1.5b, internlm2-20b, chatglm3-6b, qwen2.5-32b, internvl2-26b, the
+MoE pair qwen2-moe-a2.7b and mixtral-8x7b, and the encoder-decoder
+seamless-m4t-large-v2: every config of the reference.
 `reduced` (from .base) shrinks it for CPU tests.
 """
 
@@ -23,10 +24,12 @@ from .mamba2_1_3b import CONFIG as mamba2_1_3b
 from .mixtral_8x7b import CONFIG as mixtral_8x7b
 from .qwen2_5_32b import CONFIG as qwen2_5_32b
 from .qwen2_moe_a2_7b import CONFIG as qwen2_moe_a2_7b
+from .seamless_m4t_large_v2 import CONFIG as seamless_m4t_large_v2
 
 REGISTRY: Dict[str, ArchConfig] = {c.name: c for c in [
     gemma2_2b, mamba2_1_3b, hymba_1_5b, internlm2_20b, chatglm3_6b,
-    qwen2_5_32b, internvl2_26b, qwen2_moe_a2_7b, mixtral_8x7b]}
+    qwen2_5_32b, internvl2_26b, qwen2_moe_a2_7b, mixtral_8x7b,
+    seamless_m4t_large_v2]}
 
 
 def get(name: str) -> ArchConfig:

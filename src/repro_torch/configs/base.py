@@ -2,8 +2,10 @@
 
 Mirrors `repro.configs.base` field for field, so a test can build the
 reference config and this one from the same numbers.  `RunConfig` keeps
-only what the ported path reads: the implementation of each kernel is
-chosen by the device of the tensor it is given, not by a knob.
+only what the ported path reads: serving runs each kernel's CUDA version
+or plain version by the device of the tensor it is given, not by a knob;
+training chooses its attention and SSD by `kernels`, as the reference's
+does.
 
 Layer heterogeneity (gemma2's local/global alternation, hymba's three
 full-attention layers) is a `layer_pattern`: a tuple of ((kinds...),
@@ -154,9 +156,27 @@ class ArchConfig:
 
 @dataclass(frozen=True)
 class RunConfig:
-    """Runtime knobs the ported path reads."""
+    """Runtime knobs the ported path reads, with the reference's defaults.
 
+    Serving (`lm_prefill`, `lm_decode_step`, the encoder-decoder's
+    `encdec_prepare_cross` and `encdec_decode_step`) reads only `dtype`:
+    its attention and SSD always go to the kernel ops, which run the CUDA
+    kernel for tensors on the card.  The training forwards (`lm_forward`,
+    `lm_loss`, `encdec_forward`, `encdec_loss`) also read `kernels`:
+    "xla" takes the plain PyTorch `chunked_flash` and `ssd_chunked_ref`,
+    as the reference's "xla" path does; "pallas" takes the kernel ops,
+    and raises where autograd would need their backward (no kernel has
+    one, in either package).  The rest are the train step's."""
+
+    kernels: str = "xla"              # training forwards: "pallas" | "xla"
     dtype: str = "bfloat16"           # compute dtype: bfloat16 | float32
+    remat: bool = True                # recompute each layer in backward
+    microbatch: int = 0               # 0 = no gradient accumulation
+    attn_chunk_q: int = 1024          # chunked_flash's tiles
+    attn_chunk_k: int = 2048
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
 
 
 def reduced(cfg: ArchConfig, n_layers: int = 2, d_model: int = 128,

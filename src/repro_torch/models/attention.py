@@ -1,10 +1,15 @@
-"""Grouped-query attention with SWA / softcap / RoPE: the prefill forward
-and the one-token decode step against a KV cache (the port of
-`repro.models.attention`, Pallas path).
+"""Grouped-query attention with SWA / softcap / RoPE: the full-sequence
+forward (prefill, training, an encoder's bidirectional attention and a
+decoder's cross-attention) and the one-token decode step against a KV
+cache (the port of `repro.models.attention`).
 
-Prefill attention goes to the flash attention op and decode attention to
-the decode attention op; each runs its CUDA kernel on the card and its
-plain version on the CPU.
+Serving (no `rcfg`) sends prefill attention to the flash attention op and
+decode attention to the decode attention op; each runs its CUDA kernel on
+the card and its plain version on the CPU.  A training forward passes its
+`RunConfig`, and `_attend` follows the reference's: `kernels="xla"` takes
+`chunked_flash`, plain PyTorch that autograd differentiates, on either
+device; `kernels="pallas"` takes the flash op, and raises where autograd
+would need its backward, which no kernel has.
 """
 
 from __future__ import annotations
@@ -13,12 +18,13 @@ import math
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, RunConfig
 from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from .common import apply_rope, dense
+from .common import apply_rope, dense, needs_grad, plain_path
 
 
 class Attention(nn.Module):
@@ -70,21 +76,119 @@ def _qkv(p: Attention, x: torch.Tensor, cfg: ArchConfig,
     return q, k, v
 
 
+NEG_INF = -1e30
+
+
+def chunked_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool, window: int, softcap_v: float, scale: float,
+                  chunk_q: int, chunk_k: int, q_offset: int = 0
+                  ) -> torch.Tensor:
+    """q (B, Hq, Sq, D), k/v (B, Hkv, Sk, D) → (B, Hq, Sq, D): the
+    reference's XLA-path attention, the flash kernel's online softmax over
+    (chunk_q, chunk_k) tiles as a loop over key chunks, in plain PyTorch
+    that autograd differentiates.  Scores, softmax and the accumulator are
+    fp32; q·scale stays in q's dtype and the probabilities are cast to
+    v's before their product, as in the reference."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    bq, bk = min(chunk_q, Sq), min(chunk_k, Sk)
+    nq, nk = -(-Sq // bq), -(-Sk // bk)
+    Sq_p, Sk_p = nq * bq, nk * bk
+    dev = q.device
+
+    qf = q * torch.tensor(scale, dtype=q.dtype)
+    if Sq_p != Sq:
+        qf = F.pad(qf, (0, 0, 0, Sq_p - Sq))
+    kf, vf = k, v
+    if Sk_p != Sk:
+        kf, vf = F.pad(kf, (0, 0, 0, Sk_p - Sk)), F.pad(vf, (0, 0, 0, Sk_p - Sk))
+    qf = qf.reshape(B, Hkv, G, nq, bq, D).float()
+    kf = kf.reshape(B, Hkv, nk, bk, D)
+    vf = vf.reshape(B, Hkv, nk, bk, D)
+    rows = (q_offset + torch.arange(Sq_p, device=dev)).reshape(nq, bq, 1)
+
+    m = torch.full((B, Hkv, G, nq, bq), NEG_INF, device=dev)
+    l = torch.zeros((B, Hkv, G, nq, bq), device=dev)
+    acc = torch.zeros((B, Hkv, G, nq, bq, D), device=dev)
+    for j in range(nk):
+        kc, vc = kf[:, :, j], vf[:, :, j]
+        cols = j * bk + torch.arange(bk, device=dev)
+        s = torch.einsum("bhgqtd,bhkd->bhgqtk", qf, kc.float())
+        if softcap_v > 0:
+            s = softcap_v * torch.tanh(s / softcap_v)
+        mask = cols < Sk
+        if causal:
+            mask = mask & (cols <= rows)
+        if window > 0:
+            mask = mask & (cols > rows - window)
+        s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bhgqtk,bhkd->bhgqtd", p.to(vc.dtype).float(), vc.float())
+        m = m_new
+    denom = torch.where(l == 0.0, 1.0, l)
+    out = (acc / denom[..., None]).reshape(B, Hq, Sq_p, D)[:, :, :Sq]
+    return out.to(q.dtype)
+
+
+def _attend(q, k, v, *, causal: bool, window: int, softcap_v: float,
+            scale: float, rcfg: Optional[RunConfig]) -> torch.Tensor:
+    """`chunked_flash` on a training forward's `kernels="xla"`, else the
+    flash op."""
+    if plain_path(rcfg):
+        return chunked_flash(q, k, v, causal, window, softcap_v, scale,
+                             rcfg.attn_chunk_q, rcfg.attn_chunk_k)
+    if rcfg is not None:
+        needs_grad(q, k, v, what="flash attention")
+    return flash_attention(q, k, v, causal=causal, window=window,
+                           softcap=softcap_v, scale=scale)
+
+
 def attention_forward(p: Attention, x: torch.Tensor, cfg: ArchConfig, *,
                       window: int, positions: Optional[torch.Tensor] = None,
-                      causal: bool = True, return_kv: bool = False):
-    """Full-sequence attention (prefill).  x (B, S, d).  `return_kv` also
-    returns the roped (k, v), each (B, Hkv, S, dh), for the decode cache."""
+                      causal: bool = True,
+                      kv_override: Optional[Tuple[torch.Tensor,
+                                                  torch.Tensor]] = None,
+                      return_kv: bool = False,
+                      rcfg: Optional[RunConfig] = None):
+    """Full-sequence attention (prefill, training).  x (B, S, d).
+    `kv_override` — the encoder output's (k, v) from `cross_kv`: no RoPE
+    on q or on them, and no causal mask.  `return_kv` also returns the
+    roped (k, v), each (B, Hkv, S, dh), for the decode cache.  `rcfg`
+    (training) chooses the attention as `_attend` says."""
     S = x.shape[1]
-    if positions is None:
-        positions = torch.arange(S, device=x.device)
-    q, k, v = _qkv(p, x, cfg, positions)
-    o = flash_attention(q, k, v, causal=causal, window=window,
-                        softcap=cfg.attn_softcap, scale=_scale(cfg))
+    if kv_override is None:
+        if positions is None:
+            positions = torch.arange(S, device=x.device)
+        q, k, v = _qkv(p, x, cfg, positions)
+    else:
+        dh = cfg.resolved_head_dim
+        q = _split_heads(dense(x, p.wq, getattr(p, "bq", None)),
+                         cfg.n_heads, dh)
+        k, v = kv_override
+    o = _attend(q, k, v, causal=causal and kv_override is None,
+                window=window, softcap_v=cfg.attn_softcap,
+                scale=_scale(cfg), rcfg=rcfg)
     out = dense(_merge_heads(o), p.wo)
     if return_kv:
         return out, (k, v)
     return out
+
+
+def cross_kv(p: Attention, enc_out: torch.Tensor, cfg: ArchConfig
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The cross-attention's K/V of the encoder output, each (B, Hkv,
+    S_enc, dh), without RoPE."""
+    dh = cfg.resolved_head_dim
+    k = _split_heads(dense(enc_out, p.wk, getattr(p, "bk", None)),
+                     cfg.n_kv_heads, dh)
+    v = _split_heads(dense(enc_out, p.wv, getattr(p, "bv", None)),
+                     cfg.n_kv_heads, dh)
+    return k, v
 
 
 def attention_decode_step(p: Attention, x: torch.Tensor,

@@ -9,7 +9,9 @@ with gemma2's optional post-norms on each branch.  A hybrid layer (hymba)
 runs attention and the SSM side by side on one normed input, norms each
 branch's output and averages the two.  The reference scans stacked
 parameters per segment; the port keeps its layers in a flat list in the
-order they run (`ArchConfig.layer_kinds`) and loops over it.
+order they run (`ArchConfig.layer_kinds`) and loops over it:
+`segments_forward` for serving, `train_segments_forward` for training,
+which also sums the MoE layers' aux losses.
 """
 
 from __future__ import annotations
@@ -17,10 +19,11 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.configs.base import (ArchConfig, ATTN_FULL, ATTN_SWA,
-                                      HYBRID, HYBRID_FULL, SSM)
+                                      HYBRID, HYBRID_FULL, SSM, RunConfig)
 from .attention import Attention, attention_decode_step, attention_forward
 from .common import rmsnorm
 from .ffn import FFN, ffn_forward
@@ -77,17 +80,20 @@ class Block(nn.Module):
                 self.post_ln2 = _norm(d, device)
 
 
-def _ffn_branch(p: Block, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    """x + the FFN or MoE branch; serving drops the MoE's aux loss, as the
-    reference does."""
+def _ffn_branch(p: Block, x: torch.Tensor, cfg: ArchConfig
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(x + the FFN or MoE branch, the MoE's aux loss or None); serving
+    drops the aux loss, as the reference does."""
     if not p.has_ffn:
-        return x
-    h = rmsnorm(p.ln2, x)
-    h = moe_forward(p.moe, h, cfg)[0] if cfg.moe is not None else \
-        ffn_forward(p.ffn, h, cfg.act)
+        return x, None
+    h, aux = rmsnorm(p.ln2, x), None
+    if cfg.moe is not None:
+        h, aux = moe_forward(p.moe, h, cfg)
+    else:
+        h = ffn_forward(p.ffn, h, cfg.act)
     if cfg.post_block_norm:
         h = rmsnorm(p.post_ln2, h)
-    return x + h
+    return x + h, aux
 
 
 def _hybrid_mix(p: Block, a: torch.Tensor, s: torch.Tensor
@@ -96,21 +102,21 @@ def _hybrid_mix(p: Block, a: torch.Tensor, s: torch.Tensor
     return 0.5 * (rmsnorm(p.attn_out_norm, a) + rmsnorm(p.ssm_out_norm, s))
 
 
-def block_forward(p: Block, x: torch.Tensor, cfg: ArchConfig, kind: str,
-                  positions: Optional[torch.Tensor] = None,
-                  collect_cache: bool = False):
-    """Returns x, or (x, cache) when `collect_cache`: the roped k/v of an
-    attention layer, the final state and conv tail of an SSM layer, both
-    of a hybrid layer."""
+def _block(p: Block, x: torch.Tensor, cfg: ArchConfig, kind: str,
+           positions: Optional[torch.Tensor], collect_cache: bool,
+           rcfg: Optional[RunConfig]):
+    """(x, the MoE's aux loss or None, the cache or {})."""
     h = rmsnorm(p.ln1, x)
     cache: Cache = {}
     if kind in ATTN_KINDS:
         a = attention_forward(p.attn, h, cfg, window=_window_for(kind, cfg),
-                              positions=positions, return_kv=collect_cache)
+                              positions=positions, return_kv=collect_cache,
+                              rcfg=rcfg)
         if collect_cache:
             a, (cache["k"], cache["v"]) = a
     if kind in SSM_KINDS:
-        s = ssm_forward(p.ssm, h, cfg, return_state=collect_cache)
+        s = ssm_forward(p.ssm, h, cfg, return_state=collect_cache,
+                        rcfg=rcfg)
         if collect_cache:
             s, ssm_cache = s
             cache.update(ssm_cache)
@@ -118,7 +124,17 @@ def block_forward(p: Block, x: torch.Tensor, cfg: ArchConfig, kind: str,
         (s if kind == SSM else a)
     if cfg.post_block_norm:
         h = rmsnorm(p.post_ln1, h)
-    x = _ffn_branch(p, x + h, cfg)
+    x, aux = _ffn_branch(p, x + h, cfg)
+    return x, aux, cache
+
+
+def block_forward(p: Block, x: torch.Tensor, cfg: ArchConfig, kind: str,
+                  positions: Optional[torch.Tensor] = None,
+                  collect_cache: bool = False):
+    """Serving.  Returns x, or (x, cache) when `collect_cache`: the roped
+    k/v of an attention layer, the final state and conv tail of an SSM
+    layer, both of a hybrid layer."""
+    x, _, cache = _block(p, x, cfg, kind, positions, collect_cache, None)
     return (x, cache) if collect_cache else x
 
 
@@ -140,7 +156,7 @@ def block_decode_step(p: Block, x: torch.Tensor, cache: Cache, pos: int,
         (s if kind == SSM else a)
     if cfg.post_block_norm:
         h = rmsnorm(p.post_ln1, h)
-    return _ffn_branch(p, x + h, cfg), new_cache
+    return _ffn_branch(p, x + h, cfg)[0], new_cache
 
 
 def _pad_rows(a: torch.Tensor, max_len: int) -> torch.Tensor:
@@ -169,3 +185,31 @@ def segments_forward(layers: Sequence[Block], x: torch.Tensor,
         caches.append({name: _pad_rows(a, cache_len) if name in ("k", "v")
                        else a for name, a in c.items()})
     return x if cache_len is None else (x, caches)
+
+
+def train_segments_forward(layers: Sequence[Block], x: torch.Tensor,
+                           cfg: ArchConfig, rcfg: RunConfig,
+                           positions: Optional[torch.Tensor] = None
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The training forward of every layer in order: (x, the sum of the
+    MoE layers' aux losses, a 0-d fp32 tensor).  Attention and the SSD go
+    where `rcfg.kernels` says; with `rcfg.remat` each layer runs under
+    `torch.utils.checkpoint`, its activations recomputed in the backward,
+    as the reference's `jax.checkpoint` of the layer scan."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def layer_fn(layer, kind):
+        def run(h):
+            h, a, _ = _block(layer, h, cfg, kind, positions, False, rcfg)
+            return h, (a if a is not None else torch.zeros_like(aux))
+        return run
+
+    for layer, kind in zip(layers, cfg.layer_kinds):
+        fn = layer_fn(layer, kind)
+        if rcfg.remat:
+            x, a = torch.utils.checkpoint.checkpoint(fn, x,
+                                                     use_reentrant=False)
+        else:
+            x, a = fn(x)
+        aux = aux + a
+    return x, aux

@@ -14,6 +14,17 @@ import torch
 import torch.nn.functional as F
 
 
+@torch.no_grad()
+def trunc_normal_fill(p: torch.Tensor, std: float,
+                      gen: torch.Generator) -> None:
+    """The reference initializers' law: a normal of `std` truncated at
+    ±2σ, drawn in fp32 from `gen` and cast to `p`'s dtype."""
+    tmp = torch.empty(p.shape, dtype=torch.float32, device=p.device)
+    torch.nn.init.trunc_normal_(tmp, 0.0, std, -2 * std, 2 * std,
+                                generator=gen)
+    p.copy_(tmp)
+
+
 def dense(x: torch.Tensor, w: torch.Tensor,
           b: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x (..., d_in) @ w (d_in, d_out) in w's dtype."""
@@ -73,7 +84,12 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    return table[tokens]
+    """The rows of `tokens`.  `F.embedding`, whose backward sums a
+    repeated token's gradients in a fixed order: the backward of
+    `table[tokens]` adds them in parallel on the CPU, in an order that
+    changes from run to run, and a replayed train step would not repeat
+    its weights bit for bit."""
+    return F.embedding(tokens, table)
 
 
 def unembed(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -82,3 +98,23 @@ def unembed(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     reference's bf16 product with fp32 accumulation, where a bf16 matmul
     would round every logit to bf16."""
     return x.float() @ table.float().t()
+
+
+def plain_path(rcfg) -> bool:
+    """Whether a forward takes the plain PyTorch attention and SSD: a
+    training forward's `RunConfig(kernels="xla")`.  Serving (`rcfg`
+    None) and `kernels="pallas"` take the kernel ops."""
+    if rcfg is None or rcfg.kernels == "pallas":
+        return False
+    if rcfg.kernels == "xla":
+        return True
+    raise ValueError(f"unknown kernels {rcfg.kernels!r}")
+
+
+def needs_grad(*ts: torch.Tensor, what: str) -> None:
+    """Raise where autograd would have to differentiate a kernel."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        raise NotImplementedError(
+            f"RunConfig(kernels='pallas') under autograd: the {what} "
+            f"kernel has no backward (no kernel has one, in either "
+            f"package); train with kernels='xla', as the reference does")

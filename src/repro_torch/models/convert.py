@@ -1,5 +1,5 @@
 """Weights from the reference: the JAX parameter tree, as nested dicts and
-lists of numpy arrays, into the port's `LM`.
+lists of numpy arrays, into the port's `LM` or `EncDec`.
 
 The reference stacks the layers of each segment ((kinds...), repeat) along
 a leading axis of length `repeat`, one stack per kind; the port keeps one
@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig, RunConfig
+from .encdec import EncDec
 from .lm import LM
 
 # reference path inside one layer's tree → the port's parameter name
@@ -52,6 +53,17 @@ _LAYER_LEAVES = {
     ("ssm", "dt_bias"): "ssm.dt_bias",
     ("ssm", "gate_norm", "scale"): "ssm.gate_norm",
 }
+
+
+def _encdec_leaf(path: tuple) -> str:
+    """A reference encoder-decoder layer's leaf path → the port's name:
+    ("cross_attn", "wq", "kernel") → "cross_attn.wq", ("ln1", "scale") →
+    "ln1", ("attn", "wk", "bias") → "attn.bk"."""
+    if path[-1] == "bias":
+        return ".".join(path[:-2] + ("b" + path[-2][1:],))
+    if path[-1] in ("kernel", "scale"):
+        path = path[:-1]
+    return ".".join(path)
 
 
 def _flatten(tree: Dict[str, Any], prefix=()) -> Dict[tuple, np.ndarray]:
@@ -102,6 +114,46 @@ def lm_from_numpy(cfg: ArchConfig, tree: Dict[str, Any],
                 for path, arr in leaves.items():
                     put(f"layers.{layer}.{_LAYER_LEAVES[path]}", arr[r])
                 layer += 1
+    if params:
+        raise ValueError(f"reference tree lacks {sorted(params)}")
+    return model
+
+
+@torch.no_grad()
+def encdec_from_numpy(cfg: ArchConfig, tree: Dict[str, Any],
+                      rcfg: RunConfig = RunConfig(dtype="float32"),
+                      device: Union[str, torch.device, None] = None
+                      ) -> EncDec:
+    """Build the port's EncDec holding the reference `init_encdec` tree's
+    weights: the stacked `enc_layers` / `dec_layers` leaves, unstacked
+    into the module's layers."""
+    model = EncDec(cfg, rcfg, device=device, init=False)
+    params = dict(model.named_parameters())
+    top = set(tree) - {"embed", "enc_layers", "dec_layers", "enc_norm",
+                       "final_norm", "lm_head"}
+    if top:
+        raise ValueError(f"unported parameters {sorted(top)}")
+    named = {"embed": tree["embed"]["table"],
+             "enc_norm": tree["enc_norm"]["scale"],
+             "final_norm": tree["final_norm"]["scale"],
+             "lm_head": tree["lm_head"]["kernel"]}
+    for stack, n in (("enc_layers", cfg.encoder.n_layers),
+                     ("dec_layers", cfg.n_layers)):
+        for path, arr in _flatten(tree[stack]).items():
+            if arr.shape[0] != n:
+                raise ValueError(f"{stack}{list(path)}: {arr.shape[0]} "
+                                 f"layers stacked, want {n}")
+            for i in range(n):
+                named[f"{stack}.{i}.{_encdec_leaf(path)}"] = arr[i]
+    for name, arr in named.items():
+        if name not in params:
+            raise ValueError(f"{name}: the port's {cfg.name} has no such "
+                             f"parameter")
+        p = params.pop(name)
+        if tuple(arr.shape) != tuple(p.shape):
+            raise ValueError(f"{name}: reference shape {arr.shape} != "
+                             f"{tuple(p.shape)}")
+        p.copy_(torch.tensor(np.asarray(arr), dtype=torch.float32))
     if params:
         raise ValueError(f"reference tree lacks {sorted(params)}")
     return model

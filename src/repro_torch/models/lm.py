@@ -3,6 +3,9 @@ mixture-of-experts, pure SSM and hybrid models, with a tied or an untied
 unembedding, qkv biases, and the VLM's patch-embedding projector).
 
   LM             — the module; weights drawn from a seeded torch.Generator
+  lm_forward     — tokens (+ optional patch embeddings) → logits at every
+                   position and the MoE aux loss (training)
+  lm_loss        — next-token cross entropy (training)
   lm_prefill     — tokens (+ optional patch embeddings) → last-position
                    logits and decode caches padded to `max_len`
   lm_decode_step — one token per row through the caches (attention caches
@@ -15,7 +18,7 @@ norm scales and the SSM's small leaves in fp32.  Logits are fp32.
 from __future__ import annotations
 
 import math
-from typing import List, Optional, Tuple, Union
+from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -23,9 +26,10 @@ from torch import nn
 from repro_torch.configs.base import ArchConfig, RunConfig
 from repro_torch.kernels.runtime import resolve_device
 from .blocks import (ATTN_KINDS, SSM_KINDS, Block, Cache, block_decode_step,
-                     segments_forward)
+                     segments_forward, train_segments_forward)
 from .ssm import SSM as SSMMixer, ssm_dims
-from .common import dense, embed, rmsnorm, softcap, unembed
+from .common import (dense, embed, rmsnorm, softcap, trunc_normal_fill,
+                     unembed)
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -33,7 +37,8 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 def _check_supported(cfg: ArchConfig) -> None:
     if cfg.encoder is not None:
         raise NotImplementedError(
-            f"{cfg.name}: encoder not ported yet (ROADMAP.md, queue 1)")
+            f"{cfg.name}: an encoder-decoder config; LM is decoder-only, "
+            f"build it with repro_torch.models.EncDec")
 
 
 class LM(nn.Module):
@@ -80,10 +85,7 @@ class LM(nn.Module):
     @torch.no_grad()
     def _init_weights(self, gen: torch.Generator) -> None:
         def fill(p: torch.Tensor, std: float) -> None:
-            tmp = torch.empty(p.shape, dtype=torch.float32, device=p.device)
-            nn.init.trunc_normal_(tmp, 0.0, std, -2 * std, 2 * std,
-                                  generator=gen)
-            p.copy_(tmp)
+            trunc_normal_fill(p, std, gen)
 
         def init_ssm(p: SSMMixer) -> None:
             """`init_ssm`'s law: A_log = log(1..H), D = 1, dt_bias the
@@ -160,10 +162,58 @@ def _logits(model: LM, x: torch.Tensor) -> torch.Tensor:
     cfg = model.cfg
     logits = unembed(model.embed, x) if cfg.tie_embeddings else \
         dense(x, model.lm_head).float()
-    logits = softcap(logits, cfg.final_softcap)
-    if cfg.padded_vocab != cfg.vocab_size:
-        logits[..., cfg.vocab_size:] = -1e30   # pad rows out of the softmax
-    return logits
+    return mask_pad_vocab(softcap(logits, cfg.final_softcap), cfg)
+
+
+def mask_pad_vocab(logits: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """The padded vocab rows' logits set to -1e30, out of the softmax; a
+    new tensor (autograd may hold the one it is given)."""
+    if cfg.padded_vocab == cfg.vocab_size:
+        return logits
+    pad = torch.arange(cfg.padded_vocab, device=logits.device) >= \
+        cfg.vocab_size
+    return torch.where(pad, -1e30, logits)
+
+
+def lm_forward(model: LM, tokens: torch.Tensor, rcfg: RunConfig,
+               patch_embeds: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The training forward: tokens (B, S) → (logits (B, S, V) fp32 at
+    every position, the summed MoE aux loss, 0-d fp32).  Attention and
+    the SSD go where `rcfg.kernels` says, each layer under
+    `torch.utils.checkpoint` with `rcfg.remat`."""
+    x = _embed_in(model, tokens, patch_embeds)
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    x, aux = train_segments_forward(model.layers, x, model.cfg, rcfg,
+                                    positions=positions)
+    x = rmsnorm(model.final_norm, x)
+    return _logits(model, x), aux
+
+
+def next_token_nll(logits: torch.Tensor, tokens: torch.Tensor
+                   ) -> torch.Tensor:
+    """(B, S-1) fp32: logsumexp of each position's logits less the logit
+    of the token after it."""
+    lg = logits[:, :-1]
+    picked = torch.gather(lg, -1, tokens[:, 1:, None].long())[..., 0]
+    return torch.logsumexp(lg, dim=-1) - picked
+
+
+def lm_loss(model: LM, batch: Dict[str, torch.Tensor], rcfg: RunConfig
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token cross entropy over `batch` = {"tokens": (B, S)[,
+    "patch_embeds"]}: (loss + aux, {"loss", "aux_loss", "tokens"}).  A
+    VLM does not train on the positions its patches fill."""
+    tokens = batch["tokens"]
+    logits, aux = lm_forward(model, tokens, rcfg,
+                             patch_embeds=batch.get("patch_embeds"))
+    nll = next_token_nll(logits, tokens)
+    mask = torch.ones_like(nll)
+    if model.cfg.vision is not None:
+        mask[:, :max(model.cfg.vision.n_patches - 1, 0)] = 0.0
+    count = mask.sum()
+    loss = torch.sum(nll * mask) / torch.clamp(count, min=1.0)
+    return loss + aux, {"loss": loss, "aux_loss": aux, "tokens": count}
 
 
 @torch.no_grad()

@@ -7,7 +7,10 @@ Layer anatomy per [arXiv:2405.21060]:
   y = SSD(x, dt, A, B, C) + D⊙x, y = RMSNormGated(y, z), out_proj.
 
 The full-sequence path goes to the SSD op, which runs its CUDA kernel on
-the card and its plain version on the CPU.  Decode keeps a recurrent
+the card and its plain version on the CPU; a training forward passed
+`RunConfig(kernels="xla")` takes the plain `ssd_chunked_ref` on either
+device, as the reference's does, and `kernels="pallas"` raises where
+autograd would need the kernel's backward.  Decode keeps a recurrent
 cache {"conv": last K-1 raw conv inputs, "state": (B, H, N, P) fp32}, so
 a step costs the same at any length; it is plain PyTorch, as in the
 reference, which has no kernel for it.
@@ -19,15 +22,16 @@ softplus and the scan run in fp32 (the reference's default
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, RunConfig
 from repro_torch.kernels.ssd.ops import ssd
-from .common import dense, rmsnorm
+from repro_torch.kernels.ssd.ref import ssd_chunked_ref
+from .common import dense, needs_grad, plain_path, rmsnorm
 
 SSMCache = Dict[str, torch.Tensor]
 
@@ -90,8 +94,10 @@ def _gated_out(p: SSM, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
 
 
 def ssm_forward(p: SSM, x: torch.Tensor, cfg: ArchConfig,
-                return_state: bool = False):
-    """x (B, S, d_model) → (B, S, d_model) [, decode cache]."""
+                return_state: bool = False,
+                rcfg: Optional[RunConfig] = None):
+    """x (B, S, d_model) → (B, S, d_model) [, decode cache].  `rcfg`
+    (training) chooses the scan as the module docstring says."""
     sc = cfg.ssm
     Bb, S, _ = x.shape
     d_inner, H, P, G, N = ssm_dims(cfg)
@@ -113,8 +119,14 @@ def ssm_forward(p: SSM, x: torch.Tensor, cfg: ArchConfig,
     xh = xs.reshape(Bb, -1, H, P).transpose(1, 2)
     Bg = Bs.reshape(Bb, -1, G, N).transpose(1, 2)
     Cg = Cs.reshape(Bb, -1, G, N).transpose(1, 2)
-    res = ssd(xh, dt.transpose(1, 2), A, p.D, Bg, Cg, chunk=sc.chunk,
-              return_state=return_state)
+    args = (xh, dt.transpose(1, 2), A, p.D, Bg, Cg)
+    if plain_path(rcfg):
+        res = ssd_chunked_ref(*args, chunk=sc.chunk,
+                              return_state=return_state)
+    else:
+        if rcfg is not None:
+            needs_grad(*args, what="SSD")
+        res = ssd(*args, chunk=sc.chunk, return_state=return_state)
     y = res[0] if return_state else res
     y = y[:, :, :S].transpose(1, 2).reshape(Bb, S, d_inner)
     out = _gated_out(p, y, z)

@@ -47,6 +47,13 @@ def left_pad(prompts: List[List[int]]) -> torch.Tensor:
 
 class ServeEngine:
     def __init__(self, model: LM, max_len: int = 512, seed: int = 0) -> None:
+        if model.cfg.encoder is not None:
+            # the reference's engine would fail on the prefill's missing
+            # frames argument
+            raise ValueError(
+                f"{model.cfg.name}: ServeEngine serves decoder-only LMs; "
+                f"serve an encoder-decoder through make_prefill_step "
+                f"(frames → cross K/V) and make_decode_step")
         self.model = model
         self.max_len = max_len
         self.seed = seed

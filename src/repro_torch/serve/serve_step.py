@@ -1,16 +1,31 @@
 """Serving steps: prefill and decode closures over a model, and sampling
-(the port of `repro.serve.serve_step` for decoder-only LMs)."""
+(the port of `repro.serve.serve_step`).
+
+For an encoder-decoder (`EncDec`, the audio family) the prefill step
+takes (frames, tokens) and returns the decoder layers' cross-attention
+K/V, as the reference's does (the tokens are not read); its decode step
+takes (caches, cross, tokens, pos).
+"""
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Optional, Union
 
 import torch
 
-from repro_torch.models import LM, lm_decode_step, lm_prefill
+from repro_torch.models import (LM, EncDec, encdec_decode_step,
+                                encdec_prepare_cross, lm_decode_step,
+                                lm_prefill)
 
 
-def make_prefill_step(model: LM, max_len: Optional[int] = None) -> Callable:
+def make_prefill_step(model: Union[LM, EncDec],
+                      max_len: Optional[int] = None) -> Callable:
+    if isinstance(model, EncDec):
+        def prefill_cross(frames: torch.Tensor,
+                          tokens: Optional[torch.Tensor] = None):
+            return encdec_prepare_cross(model, frames)
+        return prefill_cross
+
     def prefill(tokens: torch.Tensor,
                 patch_embeds: Optional[torch.Tensor] = None):
         return lm_prefill(model, tokens, max_len=max_len,
@@ -18,7 +33,12 @@ def make_prefill_step(model: LM, max_len: Optional[int] = None) -> Callable:
     return prefill
 
 
-def make_decode_step(model: LM) -> Callable:
+def make_decode_step(model: Union[LM, EncDec]) -> Callable:
+    if isinstance(model, EncDec):
+        def step_cross(caches, cross, tokens: torch.Tensor, pos: int):
+            return encdec_decode_step(model, caches, cross, tokens, pos)
+        return step_cross
+
     def step(caches, tokens: torch.Tensor, pos: int):
         return lm_decode_step(model, caches, tokens, pos)
     return step

@@ -1,0 +1,126 @@
+"""The train step: loss → backward → AdamW with the cosine lr (the port
+of `repro.train.train_step`, on one device).
+
+The state is ``{"params": the model (an `nn.Module`), "opt": {"mu",
+"nu": fp32 moments keyed by parameter name, "count"}, "step"}``, with
+`count` and `step` 0-d int32 tensors on the CPU.  The step updates it in
+place and returns it, where the reference returns a new tree: at full
+width a second copy of the state would not fit beside the first.  The
+fault verbs are unaffected: `dist.fault.guarded_step` raises an injected
+fault before the step runs, so a replayed or skipped step starts from an
+untouched state, as in the reference.
+
+The forward is the training one (`lm_loss` or `encdec_loss`), whose
+attention and SSD `rcfg.kernels` chooses: "xla", the plain PyTorch
+versions, is what the reference's launcher trains with; "pallas" raises,
+since no kernel has a backward.  Training is fp32: the port's models keep
+their matmul weights in the compute dtype, so bf16 training would need
+fp32 master weights, which are not ported.
+
+Gradient accumulation: ``rcfg.microbatch`` > 1 splits the batch into as
+many microbatches, run one after another, their gradients summed into
+`.grad` and divided by their number, as the reference's scan does.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, Tuple, Union
+
+import torch
+
+from repro_torch.configs.base import ArchConfig, RunConfig
+from repro_torch.models import EncDec, LM, encdec_loss, lm_loss
+from repro_torch.optim import adamw_init, adamw_update, cosine_schedule
+
+TrainState = Dict[str, Any]     # {"params", "opt", "step"}
+
+
+def loss_fn_for(cfg: ArchConfig) -> Callable:
+    if cfg.family == "audio":
+        return encdec_loss
+    return lm_loss
+
+
+def init_fn_for(cfg: ArchConfig) -> Callable:
+    """The model's class: `EncDec` for the audio family, else `LM`."""
+    if cfg.family == "audio":
+        return EncDec
+    return LM
+
+
+def check_train_dtype(rcfg: RunConfig) -> None:
+    if rcfg.dtype != "float32":
+        raise NotImplementedError(
+            f"training with dtype={rcfg.dtype!r} needs fp32 master weights, "
+            f"which the port does not keep (its models store matmul "
+            f"weights in the compute dtype); train with "
+            f"RunConfig(dtype='float32'), as the reference's launcher does")
+
+
+def train_state(model: torch.nn.Module) -> TrainState:
+    """A fresh state around `model`: zero moments, step 0."""
+    return {"params": model,
+            "opt": adamw_init(dict(model.named_parameters())),
+            "step": torch.zeros((), dtype=torch.int32)}
+
+
+def init_train_state(seed: int, cfg: ArchConfig, rcfg: RunConfig,
+                     device: Union[str, torch.device, None] = None,
+                     init: bool = True) -> TrainState:
+    """The model's weights drawn from `seed` on `device` (the card unless
+    it says otherwise) and a fresh optimizer state; `init=False` leaves
+    the weights unset, for a restore to fill."""
+    check_train_dtype(rcfg)
+    model = init_fn_for(cfg)(cfg, rcfg, seed=seed, device=device, init=init)
+    return train_state(model)
+
+
+def make_train_step(cfg: ArchConfig, rcfg: RunConfig,
+                    total_steps: int = 10_000) -> Callable:
+    """Returns step(state, batch) → (state, metrics); `batch` is a dict
+    of tensors on the model's device."""
+    check_train_dtype(rcfg)
+    loss_fn = loss_fn_for(cfg)
+    warmup = min(100, max(1, total_steps // 10))
+
+    def compute_grads(model: torch.nn.Module, batch: Dict[str, Any]):
+        params = dict(model.named_parameters())
+        for p in params.values():
+            p.grad = None
+        M = rcfg.microbatch
+        if M and M > 1:
+            loss_sum = torch.zeros(())
+            for i in range(M):
+                mb = {k: v.reshape(M, v.shape[0] // M, *v.shape[1:])[i]
+                      for k, v in batch.items()}
+                loss, metrics = loss_fn(model, mb, rcfg)
+                loss.backward()
+                loss_sum = loss_sum + loss.detach().cpu()
+            for p in params.values():
+                if p.grad is not None:
+                    p.grad.div_(M)
+            metrics = dict(metrics, loss=loss_sum / M)
+        else:
+            loss, metrics = loss_fn(model, batch, rcfg)
+            loss.backward()
+        grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
+                 for n, p in params.items()}
+        return params, grads, {k: v.detach() for k, v in metrics.items()}
+
+    def step(state: TrainState, batch: Dict[str, Any]
+             ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        params, grads, metrics = compute_grads(state["params"], batch)
+        lr = cosine_schedule(state["step"], peak_lr=rcfg.learning_rate,
+                             warmup_steps=warmup, total_steps=total_steps)
+        _, _, opt_metrics = adamw_update(
+            grads, state["opt"], params, lr,
+            weight_decay=rcfg.weight_decay, grad_clip=rcfg.grad_clip)
+        del grads
+        for p in params.values():
+            p.grad = None
+        metrics.update(opt_metrics)
+        metrics["lr"] = lr
+        state["step"] = state["step"] + 1
+        return state, metrics
+
+    return step

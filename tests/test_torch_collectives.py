@@ -324,12 +324,14 @@ class TestAnalyticPlans:
 
 
 def test_dist_names_what_waits():
-    """`repro_torch.dist` has `fabric` and `collectives`; the reference's
-    jax submodules raise `AttributeError` with a clear message, and
-    `compressed_psum` is not exported."""
+    """`repro_torch.dist` has `fabric`, `collectives`, `checkpoint` and
+    `fault`; the reference's mesh submodules raise `AttributeError` with
+    a clear message, and `compressed_psum` is not exported."""
     import repro_torch.dist as dist
     assert dist.collectives is TC and "compressed_psum" not in TC.__all__
-    for name in ("sharding", "checkpoint", "fault", "pipeline_parallel"):
+    assert dist.checkpoint.__name__ == "repro_torch.dist.checkpoint"
+    assert dist.fault.__name__ == "repro_torch.dist.fault"
+    for name in ("sharding", "pipeline_parallel"):
         with pytest.raises(AttributeError, match="not ported yet"):
             getattr(dist, name)
     with pytest.raises(AttributeError):

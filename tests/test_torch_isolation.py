@@ -64,7 +64,11 @@ def test_every_module_imports_without_jax_or_repro():
                   "dist.collectives", "verify", "verify.__main__",
                   "verify.adversary", "verify.collective",
                   "verify.generator", "verify.harness", "verify.serve",
-                  "verify.shrink", "verify.vm"):
+                  "verify.shrink", "verify.vm", "optim", "optim.adamw",
+                  "optim.schedule", "train", "train.train_step",
+                  "train.trainer", "data", "data.pipeline",
+                  "dist.fault", "dist.checkpoint", "models.encdec",
+                  "configs.seamless_m4t_large_v2", "launch.train"):
             assert "repro_torch." + n in names, n
         for n in names:
             importlib.import_module(n)
@@ -225,3 +229,60 @@ def test_correctness_clis_run_without_jax(argv):
         assert "corpus: 0 hazardous" in out and "8/8 flagged" in out
     else:
         assert "0 divergence(s)" in out
+
+
+@pytest.mark.parametrize("argv", [
+    ["--steps", "4", "--seq-len", "16", "--batch", "2"],
+    ["--arch", "mamba2-1.3b", "--steps", "5", "--seq-len", "16",
+     "--batch", "2", "--ckpt", "CKPT", "--ckpt-every", "2",
+     "--fault-policy", "continue"]])
+def test_train_entry_point_runs_on_cpu_without_jax(argv, tmp_path):
+    """`python -m repro_torch.launch.train --device cpu` trains the
+    reduced config where JAX cannot be imported, and with `--ckpt`
+    leaves complete checkpoints the port restores."""
+    argv = [str(tmp_path) if a == "CKPT" else a for a in argv]
+    out = _run(f"""
+        import runpy
+        sys.argv = ["train", "--device", "cpu"] + {argv!r}
+        runpy.run_module("repro_torch.launch.train", run_name="__main__")
+        from repro_torch.dist import checkpoint
+        if "--ckpt" in sys.argv:
+            print("latest", checkpoint.latest(sys.argv[
+                sys.argv.index("--ckpt") + 1]).step)
+        assert not any(m.split(".")[0] in ("jax", "repro")
+                       for m in sys.modules)
+    """)
+    steps = argv[argv.index("--steps") + 1]
+    assert f'"steps": {steps}' in out and '"first_loss"' in out
+    if "--ckpt" in argv:
+        assert "latest 4" in out
+
+
+def test_encdec_serves_and_trains_without_jax():
+    """The encoder-decoder's serving steps and a train step on the CPU
+    where JAX cannot be imported."""
+    out = _run("""
+        import torch
+        from repro_torch.configs import get
+        from repro_torch.configs.base import RunConfig, reduced
+        from repro_torch.models import EncDec, init_encdec_cache
+        from repro_torch.serve import make_decode_step, make_prefill_step
+        from repro_torch.train import init_train_state, make_train_step
+        cfg = reduced(get("seamless-m4t-large-v2"))
+        model = EncDec(cfg, RunConfig(dtype="float32"), device="cpu")
+        frames = torch.randn(2, 8, cfg.d_model)
+        cross = make_prefill_step(model)(frames)
+        cache = init_encdec_cache(2, 4, cfg, torch.float32, device="cpu")
+        step = make_decode_step(model)
+        for pos in range(4):
+            logits, cache = step(cache, cross,
+                                 torch.zeros(2, 1, dtype=torch.long), pos)
+        rcfg = RunConfig(kernels="xla", dtype="float32")
+        state = init_train_state(0, cfg, rcfg, device="cpu")
+        state, m = make_train_step(cfg, rcfg)(state, {
+            "frames": frames,
+            "tokens": torch.randint(0, cfg.vocab_size, (2, 16))})
+        assert torch.isfinite(logits).all() and m["loss"] > 0
+        print("encdec ok", int(state["step"]))
+    """)
+    assert "encdec ok 1" in out
