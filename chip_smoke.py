@@ -213,7 +213,31 @@ lines tagged with its name:
                width, 6 steps, a checkpoint every 2 into a temporary
                directory and a node failure at step 3: it restores step
                2's checkpoint, ends at step 6 and is held against an
-               uninterrupted run the same way.
+               uninterrupted run the same way;
+ 12. mesh    — the distributed layer over a one-rank NCCL process group
+               (a `file://` rendezvous in a temporary directory) and
+               `make_host_mesh(1, 1, "cuda")`: (a) one full-width gemma2-2b
+               fp32 train step (B 4 x 512) on the mesh
+               (`distribute_train_state`, `distribute_batch`, the hint
+               function installed) against one without it, run one after
+               the other: loss and each weight's checksum (the int64 sum of
+               its int32 view) equal, or each weight within 2e-5 of its
+               leaf's max|w|, logged as not bit for bit; (b) the mesh
+               step's weights checkpointed and restored onto the mesh
+               (`restore(shardings=..., mesh=...)`): the placements asked
+               for, every weight bit for bit; (c) 2 layers of
+               qwen2-moe-a2.7b in bf16, each MoE layer through `moe_forward`
+               with `set_moe_mesh(mesh)` in each of `psum` / `scatter` /
+               `combine_first` against the local path, bit for bit; (d)
+               full-width gemma2-2b fp32, a 200-token prompt prefilled
+               through the kernels, then 2R + 5 greedy decode steps (R 64)
+               through the kernel decode path and through the ring-append
+               decode (`add_decode_rings`, `flush_decode_caches` every R),
+               the ring's logits within 1e-4 of max|logit| of the kernel
+               path's with the same greedy tokens, its decode-kernel
+               launches (the 13 sliding-window layers a step) counted from
+               0; (e) `compressed_psum` of 4 Mi fp32 over the one rank: its
+               relative error.  One `{"mesh": ...}` line.
 
 Any failure raises and exits non-zero.  The second-to-last line is a JSON
 object with one entry per kernel; the last is the device line.
@@ -3167,6 +3191,268 @@ def phase_train(mods):
     free_card()
 
 
+MESH_RING, MESH_PROMPT = 64, 200
+MESH_MOE_B, MESH_MOE_S = 4, 512
+
+
+def whole(t):
+    """A DTensor as one tensor; anything else unchanged."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def leaf_sums(model):
+    """Each weight's checksum: the int64 sum of its int32 view."""
+    import torch
+    return {n: int(whole(p.detach()).view(torch.int32)
+                   .sum(dtype=torch.int64))
+            for n, p in model.named_parameters()}
+
+
+def mesh_train_step(cfg, tokens, mesh):
+    """One fresh full-width train step on the card (on `mesh` when it is
+    not None); returns (state, loss, grad norm, seconds)."""
+    import torch
+    from repro_torch.configs import RunConfig
+    from repro_torch.dist import sharding as shd
+    from repro_torch.train import (distribute_train_state, init_train_state,
+                                   make_train_step)
+    rcfg = RunConfig(**PLAIN_RCFG)
+    state = init_train_state(0, cfg, rcfg, device=CARD)
+    batch = {"tokens": tokens.to(CARD)}
+    if mesh is not None:
+        distribute_train_state(state, mesh)
+        batch = shd.distribute_batch(batch, mesh)
+        shd.set_hint_fn(shd.make_hint_fn(mesh, cfg.n_kv_heads, True))
+    try:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = make_train_step(cfg, rcfg)(state, batch)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+    finally:
+        shd.set_hint_fn(None)
+    return state, float(whole(m["loss"])), float(whole(m["grad_norm"])), \
+        secs
+
+
+def mesh_decode(model, cfg, prompt, mods, ring):
+    """A prefill of `prompt` through the kernels, then 2R + 5 decode
+    steps: greedy through the kernel decode path (`ring` None), or fed
+    those tokens through the ring decode (`ring` = (tokens, logits) of the
+    kernel path), each step's logits held against the kernel path's.
+    Returns (tokens, logits, decode launches, worst rel err, ms a step)."""
+    import torch
+    from repro_torch.models import (add_decode_rings, flush_decode_caches,
+                                    lm_decode_step, lm_prefill)
+    steps, S, V = 2 * MESH_RING + 5, prompt.shape[1], cfg.vocab_size
+    with torch.no_grad():
+        lg, caches = lm_prefill(model, prompt, max_len=S + steps)
+        if ring is not None:
+            add_decode_rings(caches, cfg, MESH_RING, S)
+        tok = lg.argmax(-1, keepdim=True)
+        reset(mods)
+        toks, logits, worst = [], [], 0.0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for i in range(steps):
+            pos = S + i
+            if ring is not None:
+                tok = ring[0][i]
+            l, caches = lm_decode_step(model, caches, tok, pos)
+            if ring is not None:
+                want = ring[1][i]
+                rel = float((l[:, :V] - want[:, :V]).abs().max() /
+                            want[:, :V].abs().max())
+                if not (rel < 1e-4 and torch.equal(
+                        l[:, :V].argmax(-1), want[:, :V].argmax(-1))):
+                    raise AssertionError(f"ring decode step {i}: rel err "
+                                         f"{rel:.2e} or its greedy token "
+                                         f"differs")
+                worst = max(worst, rel)
+                if (pos + 1) % MESH_RING == 0:
+                    flush_decode_caches(caches, pos + 1 - MESH_RING)
+            toks.append(tok)
+            logits.append(l)
+            tok = l[:, :V].argmax(-1, keepdim=True)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3 / steps
+    return toks, logits, read(mods, ["decode_attention"]), worst, ms
+
+
+def phase_mesh(mods):
+    """The distributed layer over a one-rank NCCL mesh at full width:
+    parts (a)-(e) of the module docstring's phase 12."""
+    import tempfile
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import ATTN_SWA, RunConfig, get
+    from repro_torch.dist import checkpoint as ckpt
+    from repro_torch.dist import sharding as shd
+    from repro_torch.dist.collectives import compressed_psum
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import LM
+    from repro_torch.models.moe import moe_forward
+
+    t0 = time.perf_counter()
+    out = {}
+    tmp = tempfile.TemporaryDirectory()
+    dist.init_process_group("nccl" if CARD == "cuda" else "gloo",
+                            init_method=f"file://{tmp.name}/rendezvous",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_host_mesh(1, 1, CARD)
+        # (a) a train step on the mesh against one without it
+        cfg = get(TRAIN)
+        tokens = torch.from_numpy(np.random.default_rng(31).integers(
+            0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ)))
+        torch.cuda.reset_peak_memory_stats()
+        state, loss0, gn0, s0 = mesh_train_step(cfg, tokens, None)
+        sums0 = leaf_sums(state["params"])
+        # the weights stay on the card (10.5 GB beside the mesh step's
+        # 56 GiB peak), for a closer look if a checksum differs
+        plain = {n: p.detach() for n, p in state["params"].named_parameters()}
+        del state
+        free_card()
+        state, loss1, gn1, s1 = mesh_train_step(cfg, tokens, mesh)
+        sums1 = leaf_sums(state["params"])
+        differ = [n for n in sums0 if sums0[n] != sums1[n]]
+        worst = 0.0
+        for n, p in state["params"].named_parameters():
+            if n in differ:
+                a, b = whole(p.detach()), plain[n]
+                worst = max(worst, float((a - b).abs().max() /
+                                         b.abs().max()))
+        if worst > 2e-5 or abs(loss1 - loss0) > 1e-5 * abs(loss0):
+            raise AssertionError(f"mesh train step: loss {loss1} vs {loss0}, "
+                                 f"weights part by {worst:.2e}")
+        pls = {str(pl) for p in state["params"].parameters()
+               for pl in p.placements}
+        out["train_step"] = {
+            "loss": loss1, "plain_loss": loss0, "grad_norm": gn1,
+            "plain_grad_norm": gn0, "bit_equal": not differ and
+            loss0 == loss1 and gn0 == gn1, "leaves_differing": len(differ),
+            "worst_rel": worst, "s": round(s1, 4), "plain_s": round(s0, 4),
+            "placements": sorted(pls),
+            "peak_gib": round(torch.cuda.max_memory_allocated() / 2**30, 2)}
+        log(f"[mesh] (a) {TRAIN} full width fp32 train step, B "
+            f"{TRAIN_BATCH} x {TRAIN_SEQ}: on the mesh loss {loss1!r} grad "
+            f"norm {gn1!r} {s1:.3f} s; without it {loss0!r} {gn0!r} "
+            f"{s0:.3f} s; {len(differ)} of {len(sums0)} weights' checksums "
+            f"differ (worst {worst:.2e} of a leaf's max); placements {pls}")
+        del plain
+        # (b) the mesh step's weights checkpointed, restored onto the mesh
+        t = time.perf_counter()
+        ckpt.save(state["params"], tmp.name, step=1)
+        save_s = time.perf_counter() - t
+        del state["opt"]
+        free_card()
+        like = LM(cfg, RunConfig(**PLAIN_RCFG), device="meta", init=False)
+        sh = shd.param_shardings(like, mesh)
+        t = time.perf_counter()
+        ckpt.restore(os.path.join(tmp.name, "step_00000001"), like,
+                     shardings=sh, mesh=mesh)
+        restore_s = time.perf_counter() - t
+        got = dict(like.named_parameters())
+        for n, p in state["params"].named_parameters():
+            g = got[n]
+            if tuple(g.placements) != tuple(sh[n]) or \
+                    g.device_mesh != mesh or \
+                    not torch.equal(g.to_local(), p.to_local()):
+                raise AssertionError(f"restore onto the mesh: {n} "
+                                     f"{g.placements} differs")
+        out["restore"] = {"leaves": len(got), "bit_equal": True,
+                          "save_s": round(save_s, 3),
+                          "restore_s": round(restore_s, 3)}
+        log(f"[mesh] (b) checkpoint of the mesh step's {len(got)} weights "
+            f"saved in {save_s:.2f} s, restored onto the mesh in "
+            f"{restore_s:.2f} s: placements as asked, bit for bit")
+        del state, like, got
+        free_card()
+        # (c) the MoE mesh dispatch against the local path
+        mcfg = dataclasses.replace(get("qwen2-moe-a2.7b"), n_layers=2)
+        model = LM(mcfg, RunConfig(dtype="bfloat16"), seed=3, device=CARD)
+        gen = torch.Generator(CARD).manual_seed(33)
+        x = torch.randn(MESH_MOE_B, MESH_MOE_S, mcfg.d_model, generator=gen,
+                        device=CARD).to(torch.bfloat16)
+        moe = {}
+        reset(mods)
+        with torch.no_grad():
+            for mode in ("psum", "scatter", "combine_first"):
+                rc = RunConfig(dtype="bfloat16", moe_reduce=mode)
+                for i, layer in enumerate(model.layers):
+                    y0, a0 = moe_forward(layer.moe, x, mcfg, rc)
+                    shd.set_moe_mesh(mesh)
+                    try:
+                        y1, a1 = moe_forward(layer.moe, x, mcfg, rc)
+                    finally:
+                        shd.set_moe_mesh(None)
+                    if not (torch.equal(y0, y1) and torch.equal(a0, a1)):
+                        raise AssertionError(
+                            f"MoE mesh dispatch {mode} layer {i}: max diff "
+                            f"{float((y0 - y1).abs().max()):.3e}")
+                moe[mode] = "bit_equal"
+        if any(read(mods).values()):
+            raise AssertionError(f"the MoE dispatch launched {read(mods)}")
+        out["moe"] = moe
+        log(f"[mesh] (c) qwen2-moe-a2.7b 2 layers bf16, x ({MESH_MOE_B}, "
+            f"{MESH_MOE_S}, {mcfg.d_model}): moe_forward on the mesh == the "
+            f"local path bit for bit in psum, scatter, combine_first")
+        del model, x, y0, y1
+        free_card()
+        # (d) ring-append decode against the kernel decode path
+        model = LM(cfg, RunConfig(dtype="float32"), seed=5, device=CARD)
+        prompt = torch.from_numpy(np.random.default_rng(35).integers(
+            0, cfg.vocab_size, (1, MESH_PROMPT))).to(CARD)
+        toks, logits, plain_n, _, plain_ms = mesh_decode(
+            model, cfg, prompt, mods, None)
+        _, _, ring_n, worst, ring_ms = mesh_decode(
+            model, cfg, prompt, mods, (toks, logits))
+        steps = 2 * MESH_RING + 5
+        n_swa = sum(k == ATTN_SWA for k in cfg.layer_kinds)
+        if ring_n["decode_attention"] != n_swa * steps or \
+                plain_n["decode_attention"] != len(cfg.layer_kinds) * steps:
+            raise AssertionError(f"decode launches: ring {ring_n}, kernel "
+                                 f"path {plain_n}")
+        out["ring_decode"] = {
+            "prompt": MESH_PROMPT, "ring": MESH_RING, "steps": steps,
+            "worst_rel": worst, "same_greedy": True,
+            "decode_attention_launches": ring_n["decode_attention"],
+            "kernel_path_launches": plain_n["decode_attention"],
+            "ms_a_step": round(ring_ms, 3),
+            "kernel_path_ms_a_step": round(plain_ms, 3)}
+        log(f"[mesh] (d) {TRAIN} full width fp32 ring decode, prompt "
+            f"{MESH_PROMPT}, R {MESH_RING}, {steps} steps, flushed every R: "
+            f"logits within {worst:.2e} of max|logit| of the kernel path's, "
+            f"same greedy tokens; decode_attention launches "
+            f"{ring_n['decode_attention']} ({n_swa} sliding-window layers x "
+            f"{steps}; the kernel path {plain_n['decode_attention']}); "
+            f"{ring_ms:.2f} ms a step vs {plain_ms:.2f}")
+        del model, toks, logits
+        free_card()
+        # (e) compressed_psum over the one rank
+        xs = torch.randn(1 << 22, generator=gen, device=CARD)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got = compressed_psum(xs, "data", mesh)
+        torch.cuda.synchronize()
+        cp_ms = (time.perf_counter() - t) * 1e3
+        rel = float((got - xs).abs().max() / xs.abs().max())
+        if not 0 < rel < 0.1:
+            raise AssertionError(f"compressed_psum rel err {rel}")
+        out["compressed_psum"] = {"n": xs.numel(), "rel_err": rel,
+                                  "ms": round(cp_ms, 3)}
+        log(f"[mesh] (e) compressed_psum of {xs.numel()} fp32 over the "
+            f"one-rank NCCL group: rel err {rel:.3e} (int8 steps of "
+            f"max|x|/127), {cp_ms:.2f} ms with its first call")
+    finally:
+        dist.destroy_process_group()
+        tmp.cleanup()
+    out["s"] = round(time.perf_counter() - t0, 1)
+    log(json.dumps({"mesh": out}))
+    free_card()
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         raise SystemExit(f"chip_smoke.py: {SRC / 'repro_torch'} not found; "
@@ -3241,6 +3527,7 @@ def main() -> int:
         encdec_entries[name]["launches"] = n
     entries.update(encdec_entries)
     phase_train(mods)
+    phase_mesh(mods)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(smi)

@@ -166,7 +166,9 @@ class RunConfig:
     "xla" takes the plain PyTorch `chunked_flash` and `ssd_chunked_ref`,
     as the reference's "xla" path does; "pallas" takes the kernel ops,
     and raises where autograd would need their backward (no kernel has
-    one, in either package).  The rest are the train step's."""
+    one, in either package).  The `moe_*` fields are the MoE mesh
+    dispatch's (`models.moe`, with a mesh installed by
+    `dist.sharding.set_moe_mesh`).  The rest are the train step's."""
 
     kernels: str = "xla"              # training forwards: "pallas" | "xla"
     dtype: str = "bfloat16"           # compute dtype: bfloat16 | float32
@@ -174,6 +176,9 @@ class RunConfig:
     microbatch: int = 0               # 0 = no gradient accumulation
     attn_chunk_q: int = 1024          # chunked_flash's tiles
     attn_chunk_k: int = 2048
+    moe_shard_map: bool = True        # MoE mesh dispatch if a mesh is set
+    moe_reduce: str = "combine_first"  # "psum"|"scatter"|"combine_first"
+    moe_comm_dtype: str = "float32"   # expert-output reduction dtype
     learning_rate: float = 3e-4
     weight_decay: float = 0.1
     grad_clip: float = 1.0

@@ -21,9 +21,15 @@ DMA backend applies to faulted bursts: ``replay`` retries the leaf (up
 to ``max_replays``), ``continue`` drops the leaf and leaves the
 checkpoint marked partial (ineligible for `latest`), ``abort``
 propagates.  `restore` verifies every leaf's crc32 against meta.json and
-raises ``IOError("checksum mismatch ...")`` on corruption.  The
-reference's restore onto a mesh (``shardings``) has no counterpart:
-`restore` writes into the `like` tree's own tensors, on their devices.
+raises ``IOError("checksum mismatch ...")`` on corruption.
+
+On a mesh: `save` writes a DTensor leaf whole (every rank calls it, as
+the gather is a collective, and rank 0 writes the files); `restore` with
+``shardings`` (a tree matching ``like`` whose leaves are DTensor
+placements, e.g. `sharding.param_shardings`) and ``mesh`` puts each
+restored leaf onto its placements — the elastic restore: save on one
+topology, restore onto another.  A DTensor leaf of ``like`` receives its
+values on its own placements.
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ from typing import Any, Callable, Iterator, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from repro_torch.core.engine import ErrorPolicy
@@ -82,9 +89,15 @@ def _flatten(tree: Any, prefix: str = "") -> Iterator[Tuple[str, Any]]:
         yield from _flatten(child, prefix + part)
 
 
+def _is_dtensor(t: Any) -> bool:
+    return isinstance(t, torch.Tensor) and hasattr(t, "device_mesh")
+
+
 def _storable(leaf: Any) -> Tuple[np.ndarray, str]:
     """(npz-safe array, dtype name): bfloat16, which the npy format cannot
-    describe portably, as its uint16 bits."""
+    describe portably, as its uint16 bits; a DTensor whole."""
+    if _is_dtensor(leaf):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu()
         if t.dtype == torch.bfloat16:
@@ -94,6 +107,11 @@ def _storable(leaf: Any) -> Tuple[np.ndarray, str]:
     if arr.dtype.name == "bfloat16":
         return arr.view(np.uint16), "bfloat16"
     return arr, arr.dtype.name
+
+
+def _crc32(arr: np.ndarray) -> int:
+    """crc32 of the array's bytes in C order, read in place."""
+    return zlib.crc32(memoryview(np.ascontiguousarray(arr)).cast("B"))
 
 
 def _tensor(arr: np.ndarray, dtype: str, shape: List[int]) -> torch.Tensor:
@@ -113,7 +131,11 @@ def save(tree: Any, directory: str, step: int,
     error-policy verbs."""
     policy = error_policy or ErrorPolicy()
     path = os.path.join(directory, _DIR_FMT % step)
-    os.makedirs(path, exist_ok=True)
+    # on a mesh every rank gathers the DTensor leaves; rank 0 writes
+    writer = not any(_is_dtensor(leaf) for _, leaf in _flatten(tree)) or \
+        dist.get_rank() == 0
+    if writer:
+        os.makedirs(path, exist_ok=True)
     arrays = {}
     meta_leaves: List[dict] = []
     complete = True
@@ -129,7 +151,7 @@ def save(tree: Any, directory: str, step: int,
                 "key": _leaf_key(i),
                 "dtype": dtype,
                 "shape": list(arr.shape),
-                "crc32": zlib.crc32(np.ascontiguousarray(arr).tobytes()),
+                "crc32": _crc32(arr),
             })
 
         attempts = 0
@@ -146,6 +168,8 @@ def save(tree: Any, directory: str, step: int,
                 attempts += 1
                 if attempts > max(1, policy.max_replays):
                     raise
+    if not writer:
+        return path
     np.savez(os.path.join(path, PAYLOAD), **arrays)
     with open(os.path.join(path, META), "w") as f:
         json.dump({"step": step, "complete": complete,
@@ -158,7 +182,8 @@ def save(tree: Any, directory: str, step: int,
 
 @torch.no_grad()
 def restore(path: str, like: Any,
-            device: Union[str, torch.device, None] = None) -> Any:
+            device: Union[str, torch.device, None] = None,
+            shardings: Any = None, mesh=None) -> Any:
     """Read a checkpoint back into the structure of ``like``, verifying
     every leaf's checksum, and return the tree.  Each tensor of ``like``
     (a module's parameters included) receives its stored values in place,
@@ -166,7 +191,13 @@ def restore(path: str, like: Any,
     holds the only copy; its shape and dtype must be the stored ones.
     With ``device``, tensor leaves are new tensors there instead (a module
     is moved there first).  A leaf of ``like`` that is not a tensor
-    becomes a new tensor on ``device``, or on the CPU."""
+    becomes a new tensor on ``device``, or on the CPU.
+
+    With ``shardings`` and ``mesh``, every leaf becomes a new DTensor on
+    ``mesh`` with the placements of its ``shardings`` leaf (a module's
+    parameters are replaced by DTensor parameters)."""
+    if (shardings is None) != (mesh is None):
+        raise ValueError("restore onto a mesh takes both shardings and mesh")
     with open(os.path.join(path, META)) as f:
         meta = json.load(f)
     by_name = {m["name"]: m for m in meta["leaves"]}
@@ -177,7 +208,7 @@ def restore(path: str, like: Any,
         if m is None:
             raise IOError(f"checkpoint {path} has no leaf {name!r}")
         arr = arrays[m["key"]]
-        crc = zlib.crc32(np.ascontiguousarray(arr).tobytes())
+        crc = _crc32(arr)
         if crc != m["crc32"]:
             raise IOError(f"checksum mismatch for leaf {name!r} in {path}: "
                           f"stored {m['crc32']:#010x}, read {crc:#010x}")
@@ -189,10 +220,27 @@ def restore(path: str, like: Any,
             raise IOError(f"leaf {name!r} in {path} is {t.dtype} "
                           f"{tuple(t.shape)}, the tree's {node.dtype} "
                           f"{tuple(node.shape)}")
+        if _is_dtensor(node):
+            from torch.distributed.tensor import distribute_tensor
+            node.to_local().copy_(distribute_tensor(
+                t, node.device_mesh, node.placements).to_local())
+            return node
         return node.copy_(t)
 
-    def fill(node: Any, prefix: str) -> Any:
+    def placed(name: str, pl) -> torch.Tensor:
+        from torch.distributed.tensor import distribute_tensor
+        return distribute_tensor(read(name), mesh, pl)
+
+    def fill(node: Any, prefix: str, sh: Any) -> Any:
         if isinstance(node, nn.Module):
+            if sh is not None:
+                for name, p in list(node.named_parameters()):
+                    owner_name, _, leaf = name.rpartition(".")
+                    owner = node.get_submodule(owner_name)
+                    owner.register_parameter(leaf, nn.Parameter(
+                        placed(f"{prefix}[{name!r}]", sh[name]),
+                        requires_grad=p.requires_grad))
+                return node
             if device is not None:
                 node.to(device)
             for part, p in _children(node):
@@ -200,15 +248,24 @@ def restore(path: str, like: Any,
             return node
         kids = _children(node)
         if kids is None:
+            if sh is not None:
+                return placed(prefix, sh)
             if isinstance(node, torch.Tensor) and device is None:
                 return into(node, prefix)
             return read(prefix).to(device or "cpu")
-        out = [fill(child, prefix + part) for part, child in kids]
+        if sh is None:
+            subs = [None] * len(kids)
+        elif isinstance(node, dict):
+            subs = [sh[key] for key in sorted(node)]
+        else:
+            subs = list(sh)
+        out = [fill(child, prefix + part, s)
+               for (part, child), s in zip(kids, subs)]
         if isinstance(node, dict):
             return dict(zip(sorted(node), out))
         return type(node)(out)
 
-    return fill(like, "")
+    return fill(like, "", shardings)
 
 
 def list_checkpoints(directory: str) -> List[CheckpointInfo]:

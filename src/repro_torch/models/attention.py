@@ -5,7 +5,9 @@ cache (the port of `repro.models.attention`).
 
 Serving (no `rcfg`) sends prefill attention to the flash attention op and
 decode attention to the decode attention op; each runs its CUDA kernel on
-the card and its plain version on the CPU.  A training forward passes its
+the card and its plain version on the CPU.  The ring-append decode of
+full-attention layers (`attention_decode_step_ring`, `flush_ring`) is
+plain PyTorch, as in the reference.  A training forward passes its
 `RunConfig`, and `_attend` follows the reference's: `kernels="xla"` takes
 `chunked_flash`, plain PyTorch that autograd differentiates, on either
 device; `kernels="pallas"` takes the flash op, and raises where autograd
@@ -22,6 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig, RunConfig
+from repro_torch.dist.sharding import hint
 from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from .common import apply_rope, dense, needs_grad, plain_path
@@ -103,9 +106,11 @@ def chunked_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kf, vf = k, v
     if Sk_p != Sk:
         kf, vf = F.pad(kf, (0, 0, 0, Sk_p - Sk)), F.pad(vf, (0, 0, 0, Sk_p - Sk))
-    qf = qf.reshape(B, Hkv, G, nq, bq, D).float()
-    kf = kf.reshape(B, Hkv, nk, bk, D)
-    vf = vf.reshape(B, Hkv, nk, bk, D)
+    # sharding hints keep attention parallel on heads when they divide
+    # the model dim, on q-sequence blocks (context parallelism) otherwise
+    qf = hint("attn_q6", qf.reshape(B, Hkv, G, nq, bq, D)).float()
+    kf = hint("attn_kv5", kf.reshape(B, Hkv, nk, bk, D))
+    vf = hint("attn_kv5", vf.reshape(B, Hkv, nk, bk, D))
     rows = (q_offset + torch.arange(Sq_p, device=dev)).reshape(nq, bq, 1)
 
     m = torch.full((B, Hkv, G, nq, bq), NEG_INF, device=dev)
@@ -132,7 +137,7 @@ def chunked_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         m = m_new
     denom = torch.where(l == 0.0, 1.0, l)
     out = (acc / denom[..., None]).reshape(B, Hq, Sq_p, D)[:, :, :Sq]
-    return out.to(q.dtype)
+    return hint("attn_out", out.to(q.dtype))
 
 
 def _attend(q, k, v, *, causal: bool, window: int, softcap_v: float,
@@ -216,3 +221,83 @@ def attention_decode_step(p: Attention, x: torch.Tensor,
                          window=window, softcap=cfg.attn_softcap,
                          scale=_scale(cfg))
     return dense(o.reshape(B, 1, -1), p.wo), cache_k, cache_v
+
+
+# --------------------------------------------------------------------------
+# Ring-append decode — the mp_split fix for sequence-sharded caches
+# --------------------------------------------------------------------------
+# Writing one token into a sequence-SHARDED cache costs a guarded write of
+# the whole buffer.  Instead, appends go to a small REPLICATED ring
+# (B, Hkv, R, dh), and `flush_ring` merges the ring into the main cache
+# every R tokens.  Attention combines the two partial softmaxes (the flash
+# combine).
+
+def _partial_softmax_attend(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, valid_len: int, scale: float,
+                            softcap_v: float):
+    """(num (B, Hq, D), max (B, Hq, 1), denom (B, Hq, 1)), fp32, of one
+    query per head over k/v rows [0, valid_len).  Scores and sums in
+    fp32; the probabilities cast to v's dtype before their product, as
+    in the reference."""
+    B, Hq, D = q.shape
+    Hkv, S = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    qf = q.reshape(B, Hkv, G, D).float()
+    s = torch.einsum("bhgd,bhkd->bhgk", qf, k.float()) * scale
+    if softcap_v > 0:
+        s = softcap_v * torch.tanh(s / softcap_v)
+    mask = torch.arange(S, device=q.device) < valid_len
+    s = torch.where(mask, s, NEG_INF)
+    m = torch.clamp(s.amax(-1, keepdim=True), min=NEG_INF + 1)
+    p = torch.where(mask, torch.exp(s - m), 0.0)
+    l = p.sum(-1, keepdim=True)
+    num = torch.einsum("bhgk,bhkd->bhgd", p.to(v.dtype).float(), v.float())
+    return (num.reshape(B, Hq, D), m.reshape(B, Hq, 1),
+            l.reshape(B, Hq, 1))
+
+
+def attention_decode_step_ring(p: Attention, x: torch.Tensor,
+                               cache_k: torch.Tensor, cache_v: torch.Tensor,
+                               ring_k: torch.Tensor, ring_v: torch.Tensor,
+                               pos: int, base: int, cfg: ArchConfig
+                               ) -> Tuple[torch.Tensor, torch.Tensor,
+                                          torch.Tensor]:
+    """Ring decode (full attention only).  The main cache holds [0,
+    base), the ring [base, pos]; the token goes to ring slot pos − base,
+    written IN PLACE.  Returns (out, ring_k, ring_v); the main cache is
+    not touched."""
+    B = x.shape[0]
+    slot = pos - base
+    if not 0 <= slot < ring_k.shape[2]:
+        raise IndexError(f"ring slot {slot} (pos {pos}, base {base}) "
+                         f"outside the ring of {ring_k.shape[2]}")
+    positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
+    q, k, v = _qkv(p, x, cfg, positions)
+    ring_k[:, :, slot] = k[:, :, 0].to(ring_k.dtype)
+    ring_v[:, :, slot] = v[:, :, 0].to(ring_v.dtype)
+    q1, scale = q[:, :, 0], _scale(cfg)
+    n1, m1, l1 = _partial_softmax_attend(q1, cache_k, cache_v, base, scale,
+                                         cfg.attn_softcap)
+    n2, m2, l2 = _partial_softmax_attend(q1, ring_k, ring_v, slot + 1,
+                                         scale, cfg.attn_softcap)
+    m = torch.maximum(m1, m2)
+    a1, a2 = torch.exp(m1 - m), torch.exp(m2 - m)
+    denom = l1 * a1 + l2 * a2
+    denom = torch.where(denom == 0.0, 1.0, denom)
+    o = ((n1 * a1 + n2 * a2) / denom).to(q1.dtype)
+    return dense(o.reshape(B, 1, -1), p.wo), ring_k, ring_v
+
+
+def flush_ring(cache_k: torch.Tensor, cache_v: torch.Tensor,
+               ring_k: torch.Tensor, ring_v: torch.Tensor, base: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Write the whole ring into the main cache at rows [base, base + R),
+    IN PLACE (every R steps).  The sequence dim is ndim − 2.  A ring past
+    the cache's end raises, where the reference's update would clamp."""
+    axis, R = cache_k.ndim - 2, ring_k.shape[-2]
+    if not 0 <= base <= cache_k.shape[axis] - R:
+        raise IndexError(f"ring of {R} at {base} outside the cache of "
+                         f"{cache_k.shape[axis]}")
+    cache_k.narrow(axis, base, R).copy_(ring_k)
+    cache_v.narrow(axis, base, R).copy_(ring_v)
+    return cache_k, cache_v

@@ -24,17 +24,19 @@ from torch import nn
 
 from repro_torch.configs.base import (ArchConfig, ATTN_FULL, ATTN_SWA,
                                       HYBRID, HYBRID_FULL, SSM, RunConfig)
-from .attention import Attention, attention_decode_step, attention_forward
+from .attention import (Attention, attention_decode_step,
+                        attention_decode_step_ring, attention_forward)
 from .common import rmsnorm
 from .ffn import FFN, ffn_forward
 from .moe import MoE, moe_forward
-from .ssm import SSM as SSMMixer, ssm_decode_step, ssm_forward
+from .ssm import (SSM as SSMMixer, init_ssm_cache, ssm_decode_step,
+                  ssm_forward)
 
 HYBRID_KINDS = (HYBRID, HYBRID_FULL)
 ATTN_KINDS = (ATTN_FULL, ATTN_SWA) + HYBRID_KINDS
 SSM_KINDS = (SSM,) + HYBRID_KINDS
-# attention layers: {"k", "v"}; SSM layers: {"conv", "state"}; hybrid
-# layers: all four
+# attention layers: {"k", "v"} (a ring decode's full-attention layers also
+# "rk", "rv"); SSM layers: {"conv", "state"}; hybrid layers: all four
 Cache = Dict[str, torch.Tensor]
 
 
@@ -80,7 +82,8 @@ class Block(nn.Module):
                 self.post_ln2 = _norm(d, device)
 
 
-def _ffn_branch(p: Block, x: torch.Tensor, cfg: ArchConfig
+def _ffn_branch(p: Block, x: torch.Tensor, cfg: ArchConfig,
+                rcfg: Optional[RunConfig] = None
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """(x + the FFN or MoE branch, the MoE's aux loss or None); serving
     drops the aux loss, as the reference does."""
@@ -88,7 +91,7 @@ def _ffn_branch(p: Block, x: torch.Tensor, cfg: ArchConfig
         return x, None
     h, aux = rmsnorm(p.ln2, x), None
     if cfg.moe is not None:
-        h, aux = moe_forward(p.moe, h, cfg)
+        h, aux = moe_forward(p.moe, h, cfg, rcfg)
     else:
         h = ffn_forward(p.ffn, h, cfg.act)
     if cfg.post_block_norm:
@@ -124,7 +127,7 @@ def _block(p: Block, x: torch.Tensor, cfg: ArchConfig, kind: str,
         (s if kind == SSM else a)
     if cfg.post_block_norm:
         h = rmsnorm(p.post_ln1, h)
-    x, aux = _ffn_branch(p, x + h, cfg)
+    x, aux = _ffn_branch(p, x + h, cfg, rcfg)
     return x, aux, cache
 
 
@@ -138,14 +141,50 @@ def block_forward(p: Block, x: torch.Tensor, cfg: ArchConfig, kind: str,
     return (x, cache) if collect_cache else x
 
 
+def ring_layer(kind: str, cfg: ArchConfig) -> bool:
+    """Whether a ring decode appends this layer's tokens to a ring: full
+    attention only; a sliding window keeps the decode kernel."""
+    return kind in ATTN_KINDS and _window_for(kind, cfg) == 0
+
+
+def init_block_cache(batch: int, max_len: int, cfg: ArchConfig, kind: str,
+                     dtype: torch.dtype, device: torch.device,
+                     ring: int = 0) -> Cache:
+    """One layer's empty decode cache: zero k/v of `max_len` rows for
+    attention (and with `ring` > 0, for full attention only, the rings
+    "rk" / "rv" of `ring` rows), zero conv history and state for the
+    SSM."""
+    check_kind(kind)
+    cache: Cache = {}
+    if kind in ATTN_KINDS:
+        shape = (batch, cfg.n_kv_heads, max_len, cfg.resolved_head_dim)
+        cache["k"] = torch.zeros(shape, dtype=dtype, device=device)
+        cache["v"] = torch.zeros(shape, dtype=dtype, device=device)
+        if ring > 0 and ring_layer(kind, cfg):
+            rshape = shape[:2] + (ring,) + shape[3:]
+            cache["rk"] = torch.zeros(rshape, dtype=dtype, device=device)
+            cache["rv"] = torch.zeros(rshape, dtype=dtype, device=device)
+    if kind in SSM_KINDS:
+        cache.update(init_ssm_cache(batch, cfg, device))
+    return cache
+
+
 def block_decode_step(p: Block, x: torch.Tensor, cache: Cache, pos: int,
                       cfg: ArchConfig, kind: str
                       ) -> Tuple[torch.Tensor, Cache]:
     """One token through one layer.  An attention cache is written in
-    place; an SSM cache is replaced by the returned one."""
+    place (a cache with a ring: the ring only, the main cache holding
+    [0, base) with base = pos rounded down to the ring's length); an SSM
+    cache is replaced by the returned one."""
     h = rmsnorm(p.ln1, x)
     new_cache: Cache = {}
-    if kind in ATTN_KINDS:
+    if kind in ATTN_KINDS and "rk" in cache:
+        R = cache["rk"].shape[2]
+        a, new_cache["rk"], new_cache["rv"] = attention_decode_step_ring(
+            p.attn, h, cache["k"], cache["v"], cache["rk"], cache["rv"],
+            pos, (pos // R) * R, cfg)
+        new_cache["k"], new_cache["v"] = cache["k"], cache["v"]
+    elif kind in ATTN_KINDS:
         a, new_cache["k"], new_cache["v"] = attention_decode_step(
             p.attn, h, cache["k"], cache["v"], pos, cfg,
             window=_window_for(kind, cfg))

@@ -88,8 +88,22 @@ def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     repeated token's gradients in a fixed order: the backward of
     `table[tokens]` adds them in parallel on the CPU, in an order that
     changes from run to run, and a replayed train step would not repeat
-    its weights bit for bit."""
-    return F.embedding(tokens, table)
+    its weights bit for bit.  On a mesh, a vocab-split table's rows come
+    back replicated (`settle_partial`)."""
+    return settle_partial(F.embedding(tokens, table))
+
+
+def settle_partial(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor with pending sums (a vocab-split table's rows are
+    partial on each rank) reduced to replicated on those mesh dims; any
+    other tensor unchanged."""
+    placements = getattr(x, "placements", None)
+    if placements is None or not any(p.is_partial() for p in placements):
+        return x
+    from torch.distributed.tensor import Replicate
+
+    return x.redistribute(x.device_mesh, [Replicate() if p.is_partial()
+                                          else p for p in placements])
 
 
 def unembed(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

@@ -1,11 +1,12 @@
-"""Gated-linear-unit FFN (GeGLU / SwiGLU), the port of `repro.models.ffn`
-without the sharding hints."""
+"""Gated-linear-unit FFN (GeGLU / SwiGLU), the port of `repro.models.ffn`:
+the hidden activations carry the ``ffn_hidden`` sharding hint."""
 
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from repro_torch.dist.sharding import hint
 from .common import activate, dense
 
 
@@ -20,6 +21,6 @@ class FFN(nn.Module):
 
 
 def ffn_forward(p: FFN, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
-    g = activate(dense(x, p.w_gate), act)
-    u = dense(x, p.w_up)
+    g = activate(hint("ffn_hidden", dense(x, p.w_gate)), act)
+    u = hint("ffn_hidden", dense(x, p.w_up))
     return dense(g * u, p.w_down)

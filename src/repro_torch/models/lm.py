@@ -10,6 +10,11 @@ unembedding, qkv biases, and the VLM's patch-embedding projector).
                    logits and decode caches padded to `max_len`
   lm_decode_step — one token per row through the caches (attention caches
                    updated in place, SSM caches replaced)
+  init_decode_cache   — empty per-layer caches, with rings for the
+                        ring-append decode of full-attention layers
+  add_decode_rings    — rings for prefilled caches, seeded with the
+                        rows past the last whole ring
+  flush_decode_caches — every ring into its main cache (every R tokens)
 
 Matmul weights and the embedding table are stored in the compute dtype,
 norm scales and the SSM's small leaves in fp32.  Logits are fp32.
@@ -25,11 +30,13 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig, RunConfig
 from repro_torch.kernels.runtime import resolve_device
+from .attention import flush_ring
 from .blocks import (ATTN_KINDS, SSM_KINDS, Block, Cache, block_decode_step,
-                     segments_forward, train_segments_forward)
+                     init_block_cache, ring_layer, segments_forward,
+                     train_segments_forward)
 from .ssm import SSM as SSMMixer, ssm_dims
-from .common import (dense, embed, rmsnorm, softcap, trunc_normal_fill,
-                     unembed)
+from .common import (dense, embed, rmsnorm, settle_partial, softcap,
+                     trunc_normal_fill, unembed)
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -195,7 +202,8 @@ def next_token_nll(logits: torch.Tensor, tokens: torch.Tensor
     """(B, S-1) fp32: logsumexp of each position's logits less the logit
     of the token after it."""
     lg = logits[:, :-1]
-    picked = torch.gather(lg, -1, tokens[:, 1:, None].long())[..., 0]
+    picked = torch.gather(lg, -1, tokens[:, 1:, None].long())
+    picked = settle_partial(picked)[..., 0]
     return torch.logsumexp(lg, dim=-1) - picked
 
 
@@ -252,3 +260,45 @@ def lm_decode_step(model: LM, caches: List[Cache], tokens: torch.Tensor,
         new_caches.append(c)
     x = rmsnorm(model.final_norm, x)
     return _logits(model, x)[:, 0], new_caches
+
+
+def init_decode_cache(batch: int, max_len: int, cfg: ArchConfig,
+                      dtype: torch.dtype = torch.bfloat16, ring: int = 0,
+                      device: Union[str, torch.device, None] = None
+                      ) -> List[Cache]:
+    """One empty cache per layer (`blocks.init_block_cache`) on `device`
+    (the card unless it says otherwise); with `ring` > 0 the
+    full-attention layers also get rings of `ring` rows, and
+    `lm_decode_step` appends to those (see
+    `attention_decode_step_ring`)."""
+    dev = resolve_device(device)
+    return [init_block_cache(batch, max_len, cfg, kind, dtype, dev,
+                             ring=ring) for kind in cfg.layer_kinds]
+
+
+def add_decode_rings(caches: List[Cache], cfg: ArchConfig, ring: int,
+                     pos: int) -> List[Cache]:
+    """Rings of `ring` rows for the full-attention layers of caches
+    filled to `pos` (a prefill's), IN PLACE: each holds the rows [base,
+    pos) of its main cache, base = pos rounded down to `ring`, as if
+    they had been decoded into it."""
+    base = (pos // ring) * ring
+    for kind, c in zip(cfg.layer_kinds, caches):
+        if ring_layer(kind, cfg):
+            k, v = c["k"], c["v"]
+            shape = k.shape[:2] + (ring,) + k.shape[3:]
+            c["rk"] = k.new_zeros(shape)
+            c["rv"] = v.new_zeros(shape)
+            c["rk"][:, :, :pos - base] = k[:, :, base:pos]
+            c["rv"][:, :, :pos - base] = v[:, :, base:pos]
+    return caches
+
+
+def flush_decode_caches(caches: List[Cache], base: int) -> List[Cache]:
+    """Merge every layer's ring into its main cache at `base`, IN PLACE
+    (call every R decoded tokens, with base = the first position the
+    ring holds); returns the caches."""
+    for c in caches:
+        if "rk" in c:
+            flush_ring(c["k"], c["v"], c["rk"], c["rv"], base)
+    return caches

@@ -20,20 +20,31 @@ same from run to run on the card:
     ascending expert id (the order the reference's scatter-add visits
     them), in the compute dtype, with no atomics.
 
-The reference's `shard_map` dispatch and its `psum` / `scatter` /
-`combine_first` reductions need a mesh and are not ported.
+On a mesh (`dist.sharding.set_moe_mesh`) `moe_forward` takes the mesh
+dispatch, the reference's `shard_map` one: each data shard routes,
+sorts and scatters ITS tokens (capacity from its local token count), the
+expert GEMMs are split over 'model' on d_ff, and one reduction over
+'model' finishes them — `psum` of the (E, C, d) outputs, `scatter`
+(reduce-scatter over d, combine on the shard, all-gather) or
+`combine_first` (combine the partial outputs into (T, d), then sum).
+The collectives are DTensor redistributions on the mesh's sub-meshes.
+The tests hold its forward, as the reference's do; gradients through it
+are not held (ROADMAP.md, queue 1 item 8).
 """
 
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
-from repro_torch.configs.base import ArchConfig, MoEConfig
+from repro_torch.configs.base import ArchConfig, MoEConfig, RunConfig
 from repro_torch.core.vm import expert_gather_batch
+from repro_torch.dist.sharding import (P, data_axes, moe_mesh, placements,
+                                      zip_axis)
 from .common import activate, dense
 from .ffn import FFN, ffn_forward
 
@@ -135,23 +146,71 @@ def _combine(out_flat: torch.Tensor, r: Routing, k: int) -> torch.Tensor:
     return y
 
 
-def moe_dispatch_compute(p: MoE, x2: torch.Tensor, mc: MoEConfig, act: str,
-                         psum_axis: Optional[str] = None
+def _redist(t: torch.Tensor, mesh, src, dst) -> torch.Tensor:
+    """A local tensor of placements `src` on `mesh` redistributed to
+    `dst`, as a local tensor (differentiable)."""
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(t, mesh, src).redistribute(mesh, dst) \
+        .to_local()
+
+
+def _sum_over(t: torch.Tensor, sub, dst=None) -> torch.Tensor:
+    """The sum of `t` over the ranks of the 1-D mesh `sub`; with `dst` a
+    placement (``Shard(d)``), reduce-scattered to it."""
+    from torch.distributed.tensor import Partial, Replicate
+
+    return _redist(t, sub, [Partial()], [dst or Replicate()])
+
+
+def moe_dispatch_compute(p, x2: torch.Tensor, mc: MoEConfig, act: str,
+                         psum_axis: Optional[str] = None,
+                         reduce_mode: str = "psum",
+                         comm_dtype: Optional[torch.dtype] = None
                          ) -> Tuple[torch.Tensor, torch.Tensor,
                                     torch.Tensor]:
     """Routed experts over flat tokens x2 (T, d), in the weights' dtype.
-    Returns (y (T, d), aux loss, dropped fraction), both fp32 scalars."""
-    if psum_axis is not None:
-        raise NotImplementedError(
-            "the expert contraction reduced over a mesh axis needs the "
-            "`dist` port (ROADMAP.md, queue 1 item 8)")
+    Returns (y (T, d), aux loss, dropped fraction), both fp32 scalars.
+
+    `psum_axis` names the dim of the installed MoE mesh (`set_moe_mesh`)
+    over which `p`'s expert weights are split on d_ff: the expert
+    contraction is then summed over it as `reduce_mode` says ("psum",
+    "scatter" or "combine_first", see the module docstring), its payload
+    cast to `comm_dtype` if given."""
+    from torch.distributed.tensor import Replicate, Shard
+
     E, k = mc.n_experts, mc.top_k
     x2 = x2.to(p.router.dtype)
     r = route(p.router, x2, mc)
     buf = dispatch(x2, r, E)
     h = activate(torch.bmm(buf, p.w_gate), act) * torch.bmm(buf, p.w_up)
     out_buf = torch.bmm(h, p.w_down)                      # (E, C, d)
-    y = _combine(out_buf.view(E * r.capacity, -1), r, k)
+    if comm_dtype is not None:
+        out_buf = out_buf.to(comm_dtype)
+    EC, cdt = E * r.capacity, x2.dtype
+    if psum_axis is None:
+        y = _combine(out_buf.to(cdt).reshape(EC, -1), r, k)
+    else:
+        mesh = moe_mesh()
+        if mesh is None:
+            raise ValueError(f"psum_axis={psum_axis!r} needs a mesh: "
+                             f"install one with set_moe_mesh")
+        sub = mesh[psum_axis]
+        if reduce_mode == "combine_first":
+            # the combine is linear in the expert outputs, so it commutes
+            # with the sum: combine the partial outputs, then sum (T, d)
+            y = _sum_over(_combine(out_buf.to(cdt).reshape(EC, -1), r, k),
+                          sub)
+        elif reduce_mode == "scatter":
+            # reduce-scatter d, combine on the shard, all-gather once
+            out_buf = _sum_over(out_buf, sub, Shard(2))
+            y = _combine(out_buf.to(cdt).reshape(EC, -1), r, k)
+            y = _redist(y, sub, [Shard(1)], [Replicate()])
+        elif reduce_mode == "psum":
+            y = _combine(_sum_over(out_buf, sub).to(cdt).reshape(EC, -1),
+                         r, k)
+        else:
+            raise ValueError(f"unknown moe reduce mode {reduce_mode!r}")
 
     T = x2.shape[0]
     me = r.probs.mean(dim=0)
@@ -179,14 +238,69 @@ def moe_expert_gather(token_va: np.ndarray, expert_idx: np.ndarray,
         d_bytes=d_bytes, expert_buf_va=expert_buf_va)
 
 
-def moe_forward(p: MoE, x: torch.Tensor, cfg: ArchConfig
+def _mesh_dispatch(p: MoE, x2: torch.Tensor, mc: MoEConfig, act: str,
+                   mesh, rcfg: RunConfig
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The mesh dispatch (the reference's `shard_map` one): x2 (T, d)
+    split over the data dims, the expert weights over 'model' on d_ff,
+    the router whole; each rank runs `moe_dispatch_compute` on its
+    shards, and the aux loss is averaged over the data dims.  Takes
+    plain tensors (the same on every rank) or DTensors; y comes back
+    whole on every rank, or as a DTensor split over the data dims."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    dp = data_axes(mesh)
+    model = "model" if "model" in mesh.mesh_dim_names else None
+    whole = [Replicate()] * mesh.ndim
+
+    def local(t: torch.Tensor, spec: P) -> torch.Tensor:
+        pl = placements(mesh, spec)
+        if isinstance(t, DTensor):
+            return t.redistribute(mesh, pl).to_local()
+        return _redist(t, mesh, whole, pl)
+
+    shards = SimpleNamespace(
+        router=local(p.router, P(None, None)),
+        w_gate=local(p.w_gate, P(None, None, model)),
+        w_up=local(p.w_up, P(None, None, model)),
+        w_down=local(p.w_down, P(None, model, None)))
+    comm = torch.bfloat16 if rcfg.moe_comm_dtype == "bfloat16" else None
+    y, aux, _dropped = moe_dispatch_compute(
+        shards, local(x2, P(dp or None, None)), mc, act, psum_axis=model,
+        reduce_mode=rcfg.moe_reduce, comm_dtype=comm)
+    if dp:
+        sub = mesh[dp]
+        aux = _redist(aux, sub, [Partial()] * len(dp),
+                      [Replicate()] * len(dp)) / sub.size()
+    y = DTensor.from_local(y, mesh, placements(mesh, P(dp or None, None)))
+    return (y if isinstance(x2, DTensor) else y.full_tensor()), aux
+
+
+def moe_forward(p: MoE, x: torch.Tensor, cfg: ArchConfig,
+                rcfg: Optional[RunConfig] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x (B, S, d) → (y (B, S, d), aux loss · router_aux_weight)."""
+    """x (B, S, d) → (y (B, S, d), aux loss · router_aux_weight).  With a
+    mesh installed (`set_moe_mesh`) and `rcfg.moe_shard_map` (the
+    default, also where `rcfg` is None), the routed experts take the
+    mesh dispatch when B divides over the data dims, as in the
+    reference; else they run locally."""
     mc = cfg.moe
+    rcfg = rcfg or RunConfig()
     B, S, d = x.shape
-    y2, aux, _dropped = moe_dispatch_compute(p, x.reshape(B * S, d), mc,
-                                             cfg.act)
-    y = y2.view(B, S, d)
+    x2 = x.reshape(B * S, d)
+    mesh = moe_mesh() if rcfg.moe_shard_map else None
+    if mesh is not None:
+        dp_size = 1
+        for name, size in zip_axis(mesh):
+            if name in data_axes(mesh):
+                dp_size *= size
+        if B % dp_size:
+            mesh = None             # tiny / indivisible batch: local path
+    if mesh is not None:
+        y2, aux = _mesh_dispatch(p, x2, mc, cfg.act, mesh, rcfg)
+    else:
+        y2, aux, _dropped = moe_dispatch_compute(p, x2, mc, cfg.act)
+    y = y2.reshape(B, S, d)
     if mc.n_shared_experts:
         shared = ffn_forward(p.shared, x, cfg.act)
         sg = torch.sigmoid(dense(x, p.shared_gate).float())

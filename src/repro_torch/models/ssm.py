@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig, RunConfig
+from repro_torch.dist.sharding import hint
 from repro_torch.kernels.ssd.ops import ssd
 from repro_torch.kernels.ssd.ref import ssd_chunked_ref
 from .common import dense, needs_grad, plain_path, rmsnorm
@@ -116,10 +117,12 @@ def ssm_forward(p: SSM, x: torch.Tensor, cfg: ArchConfig,
     xs, Bs, Cs = torch.split(xbc, [d_inner, G * N, G * N], dim=-1)
     # (B, H, S, P), (B, H, S), (B, G, S, N) as views of the (B, S, ...)
     # tensors: the kernel reads them through their strides
-    xh = xs.reshape(Bb, -1, H, P).transpose(1, 2)
+    # (TP: the SSD heads over 'model' by the sharding hints)
+    xh = hint("ssm_x4", xs.reshape(Bb, -1, H, P).transpose(1, 2))
+    dth = hint("ssm_dt3", dt.transpose(1, 2))
     Bg = Bs.reshape(Bb, -1, G, N).transpose(1, 2)
     Cg = Cs.reshape(Bb, -1, G, N).transpose(1, 2)
-    args = (xh, dt.transpose(1, 2), A, p.D, Bg, Cg)
+    args = (xh, dth, A, p.D, Bg, Cg)
     if plain_path(rcfg):
         res = ssd_chunked_ref(*args, chunk=sc.chunk,
                               return_state=return_state)
@@ -127,7 +130,7 @@ def ssm_forward(p: SSM, x: torch.Tensor, cfg: ArchConfig,
         if rcfg is not None:
             needs_grad(*args, what="SSD")
         res = ssd(*args, chunk=sc.chunk, return_state=return_state)
-    y = res[0] if return_state else res
+    y = hint("ssm_x4", res[0] if return_state else res)
     y = y[:, :, :S].transpose(1, 2).reshape(Bb, S, d_inner)
     out = _gated_out(p, y, z)
     if not return_state:

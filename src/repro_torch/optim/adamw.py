@@ -1,5 +1,5 @@
 """AdamW with decoupled weight decay, global-norm clipping and fp32
-moments (the port of `repro.optim.adamw`, on one device).
+moments (the port of `repro.optim.adamw`).
 
 A tree is a dict or list, nested, of tensors.  The reference returns new
 trees; here `adamw_update` writes the parameters and both moments in
@@ -7,6 +7,11 @@ place, leaf by leaf and, within a large leaf, a slice at a time, so a
 step holds no second copy of the model: at full-width gemma2-2b in fp32
 (2.6 B parameters, 10.5 GB a tree) the temporaries stay under a few
 hundred MB.  The arithmetic per element is the reference's, in fp32.
+
+On a mesh the leaves are DTensors (`train.distribute_train_state`): the
+global norm sums every leaf over the whole mesh, and each leaf's update
+runs on its local shard, its gradient first redistributed to the
+parameter's placements, which the moments share.
 """
 
 from __future__ import annotations
@@ -40,10 +45,12 @@ def _map(fn, tree: Any) -> Any:
 
 
 def adamw_init(params: Any) -> Dict[str, Any]:
-    """fp32 zero moments shaped like `params`, on its devices, and the
-    step count, a 0-d int32 tensor on the CPU."""
+    """fp32 zero moments shaped like `params`, on its devices (a DTensor
+    leaf's with its placements), and the step count, a 0-d int32 tensor
+    on the CPU."""
     def zeros(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return torch.zeros_like(p, dtype=torch.float32,
+                                memory_format=torch.contiguous_format)
 
     return {"mu": _map(zeros, params), "nu": _map(zeros, params),
             "count": torch.zeros((), dtype=torch.int32)}
@@ -52,10 +59,14 @@ def adamw_init(params: Any) -> Dict[str, Any]:
 @torch.no_grad()
 def global_norm(tree: Any) -> torch.Tensor:
     """sqrt of the sum of every leaf's squares, fp32, on the first leaf's
-    device."""
+    device.  A DTensor leaf's sum is over the whole mesh."""
+    from torch.distributed.tensor import DTensor
+
     total = None
     for g in _leaves(tree):
         sq = torch.sum(torch.square(g.float()))
+        if isinstance(sq, DTensor):
+            sq = sq.full_tensor()
         total = sq if total is None else total + sq.to(total.device)
     if total is None:
         return torch.zeros(())
@@ -78,6 +89,8 @@ def adamw_update(grads: Any, state: Dict[str, Any], params: Any,
     `params` are trees of one structure.  Updates `params` and `state` in
     place and returns (params, state, {"grad_norm": the norm before
     clipping})."""
+    from torch.distributed.tensor import DTensor
+
     count = state["count"] + 1
     gnorm = global_norm(grads)
     scale = None
@@ -91,6 +104,11 @@ def adamw_update(grads: Any, state: Dict[str, Any], params: Any,
 
     for g, m, v, p in zip(_leaves(grads), _leaves(state["mu"]),
                           _leaves(state["nu"]), _leaves(params)):
+        if isinstance(p, DTensor):
+            # the update is elementwise: run it on the local shards, the
+            # gradient's laid out as the parameter's
+            g = g.redistribute(p.device_mesh, p.placements).to_local()
+            m, v, p = (t.to_local() for t in (m, v, p))
         s = None if scale is None else scale.to(g.device)
         # the moments and parameters are written through flat views
         gf, (mf, vf, pf) = g.reshape(-1), (t.view(-1) for t in (m, v, p))

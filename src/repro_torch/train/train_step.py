@@ -1,5 +1,5 @@
 """The train step: loss → backward → AdamW with the cosine lr (the port
-of `repro.train.train_step`, on one device).
+of `repro.train.train_step`).
 
 The state is ``{"params": the model (an `nn.Module`), "opt": {"mu",
 "nu": fp32 moments keyed by parameter name, "count"}, "step"}``, with
@@ -17,6 +17,13 @@ since no kernel has a backward.  Training is fp32: the port's models keep
 their matmul weights in the compute dtype, so bf16 training would need
 fp32 master weights, which are not ported.
 
+On a mesh: `distribute_train_state` puts the parameters and moments on
+a `DeviceMesh` as DTensors with the rule table's placements
+(`dist.sharding`), `dist.sharding.distribute_batch` splits the batch
+over the data dims, and the same step runs on them: DTensor dispatch
+inserts the collectives, the tensors a forward makes (masks, positions)
+count as replicated, and AdamW updates each leaf's local shard.
+
 Gradient accumulation: ``rcfg.microbatch`` > 1 splits the batch into as
 many microbatches, run one after another, their gradients summed into
 `.grad` and divided by their number, as the reference's scan does.
@@ -24,6 +31,7 @@ many microbatches, run one after another, their gradients summed into
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Callable, Dict, Tuple, Union
 
 import torch
@@ -75,6 +83,36 @@ def init_train_state(seed: int, cfg: ArchConfig, rcfg: RunConfig,
     return train_state(model)
 
 
+def distribute_train_state(state: TrainState, mesh) -> TrainState:
+    """Put `state` onto `mesh`, in place: the parameters by
+    `param_specs`, the moments by `moment_specs`, as DTensors; `count`
+    and `step` stay 0-d tensors on the CPU, the same on every rank."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.dist import sharding
+
+    sharding.distribute_params(state["params"], mesh)
+    opt = state["opt"]
+    for key in ("mu", "nu"):
+        specs = sharding.moment_specs(opt[key], mesh)
+        opt[key] = {name: distribute_tensor(
+            t, mesh, sharding.placements(mesh, specs[name]))
+            for name, t in opt[key].items()}
+    return state
+
+
+def _on_mesh(model: torch.nn.Module):
+    """A context under which a forward mixes plain tensors with DTensor
+    parameters, the plain ones taken as replicated; a null context for
+    a model on one device."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    if any(isinstance(p, DTensor) for p in model.parameters()):
+        return implicit_replication()
+    return contextlib.nullcontext()
+
+
 def make_train_step(cfg: ArchConfig, rcfg: RunConfig,
                     total_steps: int = 10_000) -> Callable:
     """Returns step(state, batch) → (state, metrics); `batch` is a dict
@@ -109,7 +147,8 @@ def make_train_step(cfg: ArchConfig, rcfg: RunConfig,
 
     def step(state: TrainState, batch: Dict[str, Any]
              ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        params, grads, metrics = compute_grads(state["params"], batch)
+        with _on_mesh(state["params"]):
+            params, grads, metrics = compute_grads(state["params"], batch)
         lr = cosine_schedule(state["step"], peak_lr=rcfg.learning_rate,
                              warmup_steps=warmup, total_steps=total_steps)
         _, _, opt_metrics = adamw_update(

@@ -1,6 +1,7 @@
 """The port's checkpoint engine: every case of `tests/test_checkpoint.py`
-but the restore onto a mesh (the port has no `sharding`), run against
-`repro_torch.dist.checkpoint`, and the format across the two packages:
+but the restore onto a mesh (in `tests/test_torch_dist_mesh.py`, on four
+ranks), run against `repro_torch.dist.checkpoint`, and the format across
+the two packages:
 either one restores the other's checkpoints bit for bit."""
 
 import os

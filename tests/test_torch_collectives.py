@@ -324,16 +324,19 @@ class TestAnalyticPlans:
 
 
 def test_dist_names_what_waits():
-    """`repro_torch.dist` has `fabric`, `collectives`, `checkpoint` and
-    `fault`; the reference's mesh submodules raise `AttributeError` with
-    a clear message, and `compressed_psum` is not exported."""
+    """`repro_torch.dist` has all six of the reference's submodules —
+    `fabric`, `collectives` (with `compressed_psum` exported),
+    `checkpoint`, `fault`, `sharding` and `pipeline_parallel` — and an
+    unknown name raises `AttributeError`."""
     import repro_torch.dist as dist
-    assert dist.collectives is TC and "compressed_psum" not in TC.__all__
+    assert dist.collectives is TC and "compressed_psum" in TC.__all__
     assert dist.checkpoint.__name__ == "repro_torch.dist.checkpoint"
     assert dist.fault.__name__ == "repro_torch.dist.fault"
     for name in ("sharding", "pipeline_parallel"):
-        with pytest.raises(AttributeError, match="not ported yet"):
-            getattr(dist, name)
+        assert getattr(dist, name).__name__ == f"repro_torch.dist.{name}"
+    assert sorted(dist.__all__) == sorted(
+        ["fabric", "collectives", "checkpoint", "fault", "sharding",
+         "pipeline_parallel"])
     with pytest.raises(AttributeError):
         dist.nonsense
     assert TC.CollectiveFabric.__module__ == "repro_torch.dist.fabric"

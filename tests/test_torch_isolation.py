@@ -68,10 +68,15 @@ def test_every_module_imports_without_jax_or_repro():
                   "optim.schedule", "train", "train.train_step",
                   "train.trainer", "data", "data.pipeline",
                   "dist.fault", "dist.checkpoint", "models.encdec",
-                  "configs.seamless_m4t_large_v2", "launch.train"):
+                  "configs.seamless_m4t_large_v2", "launch.train",
+                  "dist.sharding", "dist.pipeline_parallel",
+                  "launch.mesh"):
             assert "repro_torch." + n in names, n
         for n in names:
             importlib.import_module(n)
+        from repro_torch.dist.collectives import compressed_psum  # noqa
+        from repro_torch.dist.pipeline_parallel import gpipe  # noqa
+        from repro_torch.dist.sharding import hint, param_specs  # noqa
         spec = importlib.util.spec_from_file_location("chip_smoke",
                                                       "chip_smoke.py")
         spec.loader.exec_module(importlib.util.module_from_spec(spec))
@@ -286,3 +291,36 @@ def test_encdec_serves_and_trains_without_jax():
         print("encdec ok", int(state["step"]))
     """)
     assert "encdec ok 1" in out
+
+
+def test_production_mesh_refuses_a_world_of_4(tmp_path):
+    """Four gloo ranks where JAX cannot be imported: `make_production_mesh`
+    refuses the world of 4 and names the 256 (one pod) or 512 (two pods)
+    ranks it needs; `make_host_mesh(2, 2)` builds the (data, model) mesh
+    and `compressed_psum` sums over its 'data' dim."""
+    from test_torch_dist_mesh import spawn_ranks, wait_all
+
+    outs = wait_all(spawn_ranks("""
+        from repro_torch.dist.collectives import compressed_psum
+        from repro_torch.launch.mesh import (make_host_mesh,
+                                             make_production_mesh)
+        for multi_pod in (False, True):
+            try:
+                make_production_mesh(multi_pod=multi_pod, device_type="cpu")
+            except ValueError as e:
+                print("refused:", e)
+        mesh = make_host_mesh(2, 2, "cpu")
+        x = torch.full((4,), float(rank))
+        got = compressed_psum(x, "data", mesh)
+        print("names", mesh.mesh_dim_names, "sum", got.tolist())
+        assert not any(m.split(".")[0] in ("jax", "repro")
+                       for m in sys.modules)
+    """, tmp_path, prelude=BLOCKER))
+    for rank, out in enumerate(outs):
+        assert "needs a world of 256 ranks; this process group has 4" in out
+        assert "needs a world of 512 ranks; this process group has 4" in out
+        assert "names ('data', 'model')" in out
+        # ranks (0, 1) and (2, 3) share a 'model' coordinate: data pairs
+        # are {0, 2} and {1, 3}
+        want = 2.0 if rank % 2 == 0 else 4.0
+        assert f"sum [{want}, {want}, {want}, {want}]" in out, out
