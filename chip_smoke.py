@@ -170,7 +170,16 @@ lines tagged with its name:
                logits through the attention and SSD kernels agree with
                those through their plain versions within 2e-2; the MoE
                pairs print how many (token, expert) pairs each layer
-               routed differently between the two runs.
+               routed differently between the two runs;
+ ssd-knobs — the SSD's `RunConfig` knobs on the serving path: full-width
+               mamba2-1.3b and hymba-1.5b answer the traffic once under
+               `ssd_chunk=64` and once under `ssd_compute_dtype=
+               "bfloat16"`, every SSD launch counted by route and on the
+               tensor cores; 2 layers of each in bf16 with the knob,
+               kernels against their plain versions (rel 2e-2); then a
+               mamba2 prefill at `ssd_chunk=256` (N 128), which no route
+               holds in shared memory, must raise the SSD's named error
+               before any launch.
 
   9. encdec kernels — flash and decode attention at seamless-m4t-large-
                v2's serving shapes (D 64, 16 q on 16 kv heads, bf16, no
@@ -214,10 +223,24 @@ lines tagged with its name:
                directory and a node failure at step 3: it restores step
                2's checkpoint, ends at step 6 and is held against an
                uninterrupted run the same way;
+ train-bf16 — bf16 compute over fp32 master weights (`RunConfig(kernels=
+               "xla", dtype="bfloat16", remat=False)`): full-width
+               gemma2-2b through `Trainer`, B 4 x 512, 4 steps with a
+               step fault at step 2 replayed, held bit for bit against a
+               fresh run; that run's state then takes an fp32 and a bf16
+               step in turns, 3 rounds (s, tokens/s, peak each), and the
+               bf16 step's device time split into GEMMs, the other
+               forward and backward kernels and AdamW (torch.profiler);
+               qwen2-moe-a2.7b cut to 2 of its 24 layers at full width, 3
+               steps with a fault at step 1 replayed, against a fresh run
+               (bit for bit or not, logged); the 2-layer gemma2-2b bf16
+               step on the card and on the CPU from the same weights:
+               loss and grad norm within rel 2e-2; no kernel launched;
  12. mesh    — the distributed layer over a one-rank NCCL process group
                (a `file://` rendezvous in a temporary directory) and
-               `make_host_mesh(1, 1, "cuda")`: (a) one full-width gemma2-2b
-               fp32 train step (B 4 x 512) on the mesh
+               `make_host_mesh(1, 1, "cuda")`: (a) one fp32 train step
+               of gemma2-2b cut to 8 of its 26 layers at full width (B 4
+               x 512) on the mesh
                (`distribute_train_state`, `distribute_batch`, the hint
                function installed) against one without it, run one after
                the other: loss and each weight's checksum (the int64 sum of
@@ -228,7 +251,10 @@ lines tagged with its name:
                for, every weight bit for bit; (c) 2 layers of
                qwen2-moe-a2.7b in bf16, each MoE layer through `moe_forward`
                with `set_moe_mesh(mesh)` in each of `psum` / `scatter` /
-               `combine_first` against the local path, bit for bit; (d)
+               `combine_first` against the local path, bit for bit; (c')
+               the backward through one such layer (fp32 leaves in bf16):
+               the gradients of x and of every MoE weight on the mesh
+               equal the local path's bit for bit, each reduction; (d)
                full-width gemma2-2b fp32, a 200-token prompt prefilled
                through the kernels, then 2R + 5 greedy decode steps (R 64)
                through the kernel decode path and through the ring-append
@@ -237,7 +263,14 @@ lines tagged with its name:
                path's with the same greedy tokens, its decode-kernel
                launches (the 13 sliding-window layers a step) counted from
                0; (e) `compressed_psum` of 4 Mi fp32 over the one rank: its
-               relative error.  One `{"mesh": ...}` line.
+               relative error.  One `{"mesh": ...}` line;
+ 13. specs   — `python -m repro_torch.launch.specs --all` in a child
+               process (this one's default process group was the mesh
+               phase's NCCL one): `build_cell` for every (arch x shape)
+               pair of the ten archs on the (16, 16) data x model
+               production mesh over torch's fake process group of 256
+               ranks, on the meta device; each cell's count of argument
+               leaves and its seconds, 33 cells.
 
 Any failure raises and exits non-zero.  The second-to-last line is a JSON
 object with one entry per kernel; the last is the device line.
@@ -1910,14 +1943,14 @@ def phase_matmul(mods):
     return entry
 
 
-def phase_serve(arch, mods, cfg=None, held=False):
+def phase_serve(arch, mods, cfg=None, held=False, rcfg=None, attempts=2):
     """Full-width `arch` (or `cfg`, a cut of its depth) answers the
-    traffic twice; returns the launches of the first run.  A MoE model
-    prints the dropped fraction of each layer's prefill.  With `held`, a
-    third run goes through `HeldKernels`: every flash and decode call of
-    the generate against its plain version.  The model, its engine and the
-    allocator's cached blocks are freed before it returns, so the next
-    model has the card."""
+    traffic `attempts` times (bf16, or `rcfg`'s knobs); returns the
+    launches of the first run.  A MoE model prints the dropped fraction of
+    each layer's prefill.  With `held`, a further run goes through
+    `HeldKernels`: every flash and decode call of the generate against its
+    plain version.  The model, its engine and the allocator's cached
+    blocks are freed before it returns, so the next model has the card."""
     import torch
     from repro_torch.configs import RunConfig, get
     from repro_torch.launch.profile_serve import (
@@ -1930,10 +1963,14 @@ def phase_serve(arch, mods, cfg=None, held=False):
     cfg = cfg or get(arch)
     cut = get(arch).n_layers
     cut = "" if cfg.n_layers == cut else f" of its {cut}"
+    rcfg = rcfg or RunConfig(dtype="bfloat16")
+    knobs = {f: getattr(rcfg, f) for f in ("ssd_chunk", "ssd_compute_dtype")
+             if getattr(rcfg, f) != getattr(RunConfig(), f)}
+    tag = f" {knobs}" if knobs else ""
     t0 = time.perf_counter()
-    model = LM(cfg, RunConfig(dtype="bfloat16"), seed=0, device="cuda")
+    model = LM(cfg, rcfg, seed=0, device="cuda")
     torch.cuda.synchronize()
-    log(f"[serve] {arch} full width: {cfg.n_layers} layers{cut}, d "
+    log(f"[serve] {arch}{tag} full width: {cfg.n_layers} layers{cut}, d "
         f"{cfg.d_model}, vocab {cfg.vocab_size}, "
         f"{sum(p.numel() for p in model.parameters()) / 1e9:.3f} B params "
         f"(bf16), seeded init {time.perf_counter() - t0:.1f} s")
@@ -1959,7 +1996,7 @@ def phase_serve(arch, mods, cfg=None, held=False):
     engine._decode = timed(engine._decode, "decode")
 
     runs = []
-    for attempt in range(2):
+    for attempt in range(attempts):
         for key in phases:
             phases[key].clear()
         ssd_routes = dict(mods["ssd"].launches_by_route)
@@ -1986,7 +2023,8 @@ def phase_serve(arch, mods, cfg=None, held=False):
         n_new = sum(len(r.output) for r in out)
         runs.append(dict(outputs=[r.output for r in out], counts=counts,
                          steps=steps))
-        log(f"[serve] {arch} run {attempt}: prompts {PROMPTS} left-padded, "
+        log(f"[serve] {arch}{tag} run {attempt}: prompts {PROMPTS} "
+            f"left-padded, "
             f"{NEW_TOKENS} new tokens, row {HOT_ROW} at T="
             f"{HOT_TEMPERATURE} | prefill {phases['prefill'][0]:.3f} s, "
             f"decode {1e3 * sum(phases['decode']) / steps:.2f} ms/step "
@@ -2020,10 +2058,11 @@ def phase_serve(arch, mods, cfg=None, held=False):
         if calls != want:
             raise AssertionError(f"{arch}: held {calls}, want {want}")
     for i in range(len(PROMPTS)):
-        if i != HOT_ROW and runs[0]["outputs"][i] != runs[1]["outputs"][i]:
+        if i != HOT_ROW and any(r["outputs"][i] != runs[0]["outputs"][i]
+                                for r in runs):
             raise AssertionError(f"{arch}: greedy row {i} differs on rerun")
-    log(f"[serve] {arch}: greedy rows identical on rerun; row 0 starts "
-        f"{runs[0]['outputs'][0][:8]}")
+    log(f"[serve] {arch}{tag}: greedy rows identical on {len(runs)} runs; "
+        f"row 0 starts {runs[0]['outputs'][0][:8]}")
 
     # cost of fp32 logits at the decode shape: the tied head's upcast
     # operands vs a bf16 product; the untied head is a bf16 product
@@ -2498,11 +2537,11 @@ def phase_card_vs_cpu(cfg, label, mods, S=600):
     free_card()
 
 
-def phase_bf16_vs_plain(cfg, label, mods, S=600):
-    """The serving dtype end to end: the 2 layers in bf16 on the card,
-    logits through the attention and SSD kernels against the same model
-    with the kernels' plain versions in their place.  qkv biases are
-    seeded non-zero."""
+def phase_bf16_vs_plain(cfg, label, mods, S=600, rcfg=None):
+    """The serving dtype end to end: the 2 layers in bf16 on the card (or
+    with `rcfg`'s knobs), logits through the attention and SSD kernels
+    against the same model with the kernels' plain versions in their
+    place.  qkv biases are seeded non-zero."""
     import numpy as np
     import torch
     from repro_torch.configs import RunConfig
@@ -2514,7 +2553,8 @@ def phase_bf16_vs_plain(cfg, label, mods, S=600):
     def ssd_plain(*args, chunk=128):
         return ssd_chunked_ref(*args, chunk=chunk, return_state=True)
 
-    model = LM(cfg, RunConfig(dtype="bfloat16"), seed=1, device="cuda")
+    model = LM(cfg, rcfg or RunConfig(dtype="bfloat16"), seed=1,
+               device="cuda")
     if cfg.qkv_bias:
         seed_qkv_biases(model, 2)
     B, steps = 2, 3
@@ -2565,6 +2605,59 @@ def phase_bf16_vs_plain(cfg, label, mods, S=600):
         f"{TOL['bfloat16']:.0e})")
     del model, got, want
     free_card()
+
+
+SSD_KNOBS = (dict(ssd_chunk=64), dict(ssd_compute_dtype="bfloat16"))
+
+
+def phase_ssd_knobs(mods):
+    """The SSD's two `RunConfig` knobs on the serving path: full-width
+    mamba2-1.3b and hymba-1.5b answer the traffic once under
+    `ssd_chunk=64` and once under `ssd_compute_dtype="bfloat16"` (x, B and
+    C handed to the scan in bf16), every SSD launch counted by route and
+    on the tensor cores (`phase_serve`); 2 layers of each in bf16 with the
+    knob, kernels against their plain versions (rel 2e-2); then
+    `ssd_chunk=256` at mamba2's N 128, which no route holds in shared
+    memory: the prefill raises the SSD's named error before any launch."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import HYBRID, HYBRID_FULL, RunConfig, get
+    from repro_torch.models import LM, lm_prefill
+
+    t0 = time.perf_counter()
+    mamba2 = dataclasses.replace(get("mamba2-1.3b"), n_layers=2)
+    hymba2 = dataclasses.replace(get(HYMBA), n_layers=2, layer_pattern=(
+        ((HYBRID_FULL,), 1), ((HYBRID,), 1)))
+    for knobs in SSD_KNOBS:
+        rcfg = RunConfig(dtype="bfloat16", **knobs)
+        tag = ", ".join(f"{k}={v!r}" for k, v in knobs.items())
+        for arch in ("mamba2-1.3b", HYMBA):
+            phase_serve(arch, mods, rcfg=rcfg, attempts=1)
+        phase_bf16_vs_plain(mamba2, f"SSM, SSM; {tag}", mods, rcfg=rcfg)
+        phase_bf16_vs_plain(hymba2, f"HYBRID_FULL, HYBRID; {tag}", mods,
+                            S=1100, rcfg=rcfg)
+    sk = mods["ssd"]
+    model = LM(dataclasses.replace(get("mamba2-1.3b"), n_layers=1),
+               RunConfig(dtype="bfloat16", ssd_chunk=256), seed=0,
+               device="cuda")
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, 50_000, (1, 512))).cuda()
+    before = (sk.launches, dict(sk.launches_by_route))
+    try:
+        lm_prefill(model, toks)
+    except ValueError as e:
+        msg = str(e)
+    else:
+        raise AssertionError("ssd_chunk=256 at N 128 was not refused")
+    if "chunk 256 at N 128" not in msg or \
+            (sk.launches, dict(sk.launches_by_route)) != before:
+        raise AssertionError(f"the refusal: {msg!r}, launches "
+                             f"{sk.launches_by_route} vs {before}")
+    log(f"[ssd-knobs] mamba2-1.3b with ssd_chunk=256: refused before any "
+        f"launch: {msg}")
+    del model
+    free_card()
+    log(f"[ssd-knobs] phase {time.perf_counter() - t0:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -2904,13 +2997,13 @@ def timed_step(step, times):
     return run
 
 
-def train_run(cfg, tcfg, injector, seq, batch):
-    """A `Trainer` run on the card on the plain path; returns (trainer,
-    state, [(step, seconds)] of each step it ran, the first 4,096 elements
-    of each weight before the run, on the CPU)."""
+def train_run(cfg, tcfg, injector, seq, batch, knobs=PLAIN_RCFG):
+    """A `Trainer` run on the card on the plain path (fp32, or `knobs`);
+    returns (trainer, state, [(step, seconds)] of each step it ran, the
+    first 4,096 elements of each weight before the run, on the CPU)."""
     from repro_torch.configs import RunConfig
     from repro_torch.train import Trainer, make_train_step
-    rcfg = RunConfig(**PLAIN_RCFG)
+    rcfg = RunConfig(**knobs)
     times = []
     trainer = Trainer(cfg, rcfg, tcfg, seq_len=seq, global_batch=batch,
                       injector=injector, device=CARD,
@@ -2937,18 +3030,23 @@ def state_diff(first, model):
                for n, p in model.named_parameters())
 
 
-def held_equal(label, d_loss, d_gnorm, d_param, losses, gnorms, lr_sum):
+def held_equal(label, d_loss, d_gnorm, d_param, losses, gnorms, lr_sum,
+               exact_only=False):
     """Two runs that should be the same: bit for bit, or (logged as not)
     within loss 1e-5 and grad norm 1e-4 of their largest, and weights
     within 2·Σlr, the most two Adam runs can part where a tiny gradient's
-    sign differs."""
+    sign differs; with `exact_only`, bit for bit.  Returns whether they
+    were bit for bit."""
     exact = d_loss == d_gnorm == d_param == 0
     log(f"[train] {label}: max |d loss| {d_loss:.3e}, max |d grad norm| "
         f"{d_gnorm:.3e}, max |d weight| {d_param:.3e}: "
         f"{'bit for bit' if exact else 'NOT bit for bit'}")
+    if exact_only and not exact:
+        raise AssertionError(f"{label}: not bit for bit")
     if not (d_loss <= 1e-5 * max(map(abs, losses)) and
             d_gnorm <= 1e-4 * max(gnorms) and d_param <= 2 * lr_sum):
         raise AssertionError(f"{label}: the runs part")
+    return exact
 
 
 def history_diff(h1, h2, key):
@@ -3191,7 +3289,276 @@ def phase_train(mods):
     free_card()
 
 
-MESH_RING, MESH_PROMPT = 64, 200
+BF16_RCFG = dict(kernels="xla", dtype="bfloat16", remat=False)
+TRAIN16_STEPS, TRAIN16_FAULT, TURN_ROUNDS = 4, 2, 3
+MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS, MOE_TRAIN_FAULT = 2, 3, 1
+CPU_TRAIN_B, CPU_TRAIN_S = 1, 64
+
+
+@contextlib.contextmanager
+def compute_dtype(model, dtype):
+    """Within `with`, `model` computes in `dtype`: every module's compute
+    dtype (the `dtype` each model module keeps) is set to it, so one
+    train state of fp32 leaves takes an fp32 step and a bf16 step in
+    turns."""
+    import torch
+    held = [(m, m.dtype) for m in model.modules()
+            if isinstance(getattr(m, "dtype", None), torch.dtype)]
+    for m, _ in held:
+        m.dtype = dtype
+    try:
+        yield
+    finally:
+        for m, d in held:
+            m.dtype = d
+
+
+def steps_in_turns(cfg, state, batch, rounds):
+    """`rounds` of an fp32 step then a bf16 step of one state (fp32
+    leaves) on one batch: {dtype: [(seconds, peak GiB)]}, each step with
+    a synchronize on each side and the peak reset before it."""
+    import torch
+    from repro_torch.configs import RunConfig
+    from repro_torch.models.common import DTYPES
+    from repro_torch.train import make_train_step
+    steps = {k["dtype"]: make_train_step(cfg, RunConfig(**k))
+             for k in (PLAIN_RCFG, BF16_RCFG)}
+    out = {name: [] for name in steps}
+    for _ in range(rounds):
+        for name, step in steps.items():
+            with compute_dtype(state["params"], DTYPES[name]):
+                torch.cuda.reset_peak_memory_stats()
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                state, _ = step(state, batch)
+                torch.cuda.synchronize()
+                out[name].append((time.perf_counter() - t,
+                                  torch.cuda.max_memory_allocated() / 2**30))
+    return out
+
+
+def device_split(cfg, state, batch, knobs):
+    """One step's device time by kernel, its forward with the loss and
+    backward profiled apart from its AdamW: (GEMM kernels s, the other
+    kernels of forward + backward s, AdamW's kernels s, the top kernels
+    of forward + backward)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import RunConfig
+    from repro_torch.optim import adamw_update
+    from repro_torch.train.train_step import loss_fn_for
+
+    rcfg = RunConfig(**knobs)
+    model = state["params"]
+    params = dict(model.named_parameters())
+
+    def kernels(prof):
+        return [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and e.count]
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as p1:
+        loss, _ = loss_fn_for(cfg)(model, batch, rcfg)
+        loss.backward()
+        torch.cuda.synchronize()
+    grads = {n: p.grad for n, p in params.items()}
+    with profile(activities=acts) as p2:
+        adamw_update(grads, state["opt"], params, 1e-5)
+        torch.cuda.synchronize()
+    del grads, loss
+    for p in params.values():
+        p.grad = None
+    fb = kernels(p1)
+    gemm = sum(e.self_device_time_total for e in fb if any(
+        k in e.key.lower() for k in ("gemm", "cutlass", "xmma", "cublas",
+                                     "sm90_")))
+    rest = sum(e.self_device_time_total for e in fb) - gemm
+    opt = sum(e.self_device_time_total for e in kernels(p2))
+    top = sorted(fb, key=lambda e: -e.self_device_time_total)[:6]
+    return gemm / 1e6, rest / 1e6, opt / 1e6, top
+
+
+def phase_train_bf16(mods):
+    """bf16 training over fp32 master weights, `RunConfig(kernels="xla",
+    dtype="bfloat16", remat=False)` (the reference's default compute
+    dtype; remat off as in the fp32 phase): (a) full-width gemma2-2b, B 4
+    x 512, 4 steps through `Trainer` with a step fault at step 2
+    replayed, held bit for bit against a fresh run; the fresh run's state
+    then takes an fp32 and a bf16 step in turns, 3 rounds (s, tokens/s,
+    peak of each), and the bf16 step's device time is split into GEMMs,
+    the other kernels and AdamW; (b) qwen2-moe-a2.7b cut to 2 of its 24
+    layers at full width (60 experts top 4, 4 shared), 3 steps with a
+    fault at step 1 replayed, against a fresh run (bit for bit or not,
+    logged: the backward through the dispatch and the combine); (c) the
+    same 2-layer full-width gemma2-2b bf16 step on the card and on the
+    CPU from the same weights: loss and grad norm within rel 2e-2.  No
+    kernel is launched (the plain path)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import ATTN_FULL, ATTN_SWA, RunConfig, get
+    from repro_torch.dist.fault import FaultConfig, FaultInjector
+    from repro_torch.train import TrainerConfig, init_train_state
+    from repro_torch.train import make_train_step
+
+    t0 = time.perf_counter()
+    zero = {name: 0 for name in mods}
+    cfg = get(TRAIN)
+    tcfg = TrainerConfig(total_steps=TRAIN16_STEPS, seed=0,
+                         fault=FaultConfig(policy="replay"))
+    reset(mods)
+    torch.cuda.reset_peak_memory_stats()
+    trainer, state, times, before = train_run(
+        cfg, tcfg, FaultInjector([TRAIN16_FAULT], kind="step"), TRAIN_SEQ,
+        TRAIN_BATCH, BF16_RCFG)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    hist, counts = trainer.history, read(mods)
+    losses = [h["loss"] for h in hist]
+    gnorms = [h["grad_norm"] for h in hist]
+    if trainer.stats.replays != 1 or int(state["step"]) != TRAIN16_STEPS:
+        raise AssertionError(f"bf16 {TRAIN}: replays "
+                             f"{trainer.stats.replays}, step "
+                             f"{int(state['step'])}")
+    if counts != zero:
+        raise AssertionError(f"bf16 training launched kernels {counts}")
+    if not (all(map(math.isfinite, losses)) and
+            abs(losses[0] - (math.log(cfg.vocab_size) + 0.5)) < 1.0 and
+            all(math.isfinite(g) and g > 0 for g in gnorms)):
+        raise AssertionError(f"bf16 {TRAIN}: losses {losses}, grad norms "
+                             f"{gnorms}")
+    dtypes = {p.dtype for p in state["params"].parameters()}
+    least = moved(state, before)
+    if dtypes != {torch.float32} or not least > 0:
+        raise AssertionError(f"bf16 {TRAIN}: leaves {dtypes}, least move "
+                             f"{least}")
+    secs = [t for _, t in times]
+    log(f"[train-bf16] {TRAIN} full width bf16 over fp32 leaves (every "
+        f"leaf fp32), kernels='xla', remat off, B {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ}, {TRAIN16_STEPS} steps, a step fault at step "
+        f"{TRAIN16_FAULT} replayed: losses " +
+        " ".join(f"{v:.4f}" for v in losses) + "; grad norms " +
+        " ".join(f"{g:.3f}" for g in gnorms) + f"; every weight moved "
+        f"(least {least:.3e}) | step s " + " ".join(f"{t:.3f}" for t in secs)
+        + f"; peak {peak:.2f} GiB | launches: none")
+    first = {n: p.detach().to("cpu", copy=True)
+             for n, p in state["params"].named_parameters()}
+    del trainer, state
+    free_card()
+    clean, s2, _, _ = train_run(cfg, tcfg, None, TRAIN_SEQ, TRAIN_BATCH,
+                                BF16_RCFG)
+    held_equal(f"{TRAIN} bf16 replayed run vs a fresh run without the "
+               f"fault", history_diff(hist, clean.history, "loss"),
+               history_diff(hist, clean.history, "grad_norm"),
+               state_diff(first, s2["params"]), losses, gnorms,
+               sum(h["lr"] for h in hist), exact_only=True)
+    del first
+    batch = clean._put(clean.pipeline.source.batch(TRAIN16_STEPS))
+    turns = steps_in_turns(cfg, s2, batch, TURN_ROUNDS)
+    tokens = TRAIN_SEQ * TRAIN_BATCH
+    parts = []
+    for name, runs in turns.items():
+        ss = [t for t, _ in runs]
+        parts.append(f"{name} s " + " ".join(f"{t:.4f}" for t in ss) +
+                     f" ({tokens * len(ss) / sum(ss):.0f} tokens/s), peak "
+                     + " ".join(f"{g:.2f}" for _, g in runs) + " GiB")
+    mean = {n: sum(t for t, _ in r) / len(r) for n, r in turns.items()}
+    log(f"[train-bf16] {TRAIN} full width, one state of fp32 leaves, an "
+        f"fp32 step then a bf16 step, {TURN_ROUNDS} rounds in turns, B "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ}: " + "; ".join(parts) +
+        f"; bf16 {mean['float32'] / mean['bfloat16']:.2f}x faster")
+    with compute_dtype(s2["params"], torch.bfloat16):
+        gemm, rest, opt, top = device_split(cfg, s2, batch, BF16_RCFG)
+    log(f"[train-bf16] {TRAIN} bf16 step by device time (torch.profiler, "
+        f"forward + backward apart from AdamW): GEMMs {gemm:.4f} s, the "
+        f"other kernels of forward + backward (elementwise, reductions, "
+        f"casts, gathers) {rest:.4f} s, AdamW {opt:.4f} s; top kernels: " +
+        "; ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3:.1f} ms "
+                  f"x{e.count}" for e in top))
+    del clean, s2, batch
+    free_card()
+
+    # (b) 2 layers of qwen2-moe-a2.7b at full width, a fault replayed
+    mcfg = dataclasses.replace(get("qwen2-moe-a2.7b"),
+                               n_layers=MOE_TRAIN_LAYERS)
+    mt = TrainerConfig(total_steps=MOE_TRAIN_STEPS, seed=0,
+                       fault=FaultConfig(policy="replay"))
+    reset(mods)
+    torch.cuda.reset_peak_memory_stats()
+    tr, st, mtimes, mbefore = train_run(
+        mcfg, mt, FaultInjector([MOE_TRAIN_FAULT], kind="step"), TRAIN_SEQ,
+        TRAIN_BATCH, BF16_RCFG)
+    mpeak = torch.cuda.max_memory_allocated() / 2**30
+    if tr.stats.replays != 1 or read(mods) != zero or \
+            not all(math.isfinite(h["loss"]) for h in tr.history):
+        raise AssertionError(f"qwen2-moe bf16: replays {tr.stats.replays}, "
+                             f"launches {read(mods)}, history {tr.history}")
+    mhist, mleast = tr.history, moved(st, mbefore)
+    if not mleast > 0:
+        raise AssertionError("qwen2-moe bf16: a weight did not move")
+    mfirst = {n: p.detach().to("cpu", copy=True)
+              for n, p in st["params"].named_parameters()}
+    n_params = sum(p.numel() for p in st["params"].parameters())
+    del tr, st
+    free_card()
+    clean, s2, _, _ = train_run(mcfg, mt, None, TRAIN_SEQ, TRAIN_BATCH,
+                                BF16_RCFG)
+    log(f"[train-bf16] qwen2-moe-a2.7b {MOE_TRAIN_LAYERS} of its 24 layers "
+        f"full width bf16 over fp32 leaves ({n_params / 1e9:.3f} B params; "
+        f"{mcfg.moe.n_experts} experts top {mcfg.moe.top_k} at capacity "
+        f"factor {mcfg.moe.capacity_factor}, "
+        f"{mcfg.moe.n_shared_experts} shared), B "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ}, {MOE_TRAIN_STEPS} steps, a fault at "
+        f"step {MOE_TRAIN_FAULT} replayed: losses " +
+        " ".join(f"{h['loss']:.4f}" for h in mhist) + " (aux " +
+        " ".join(f"{h['aux_loss']:.4f}" for h in mhist) + "); grad norms " +
+        " ".join(f"{h['grad_norm']:.3f}" for h in mhist) + " | step s " +
+        " ".join(f"{t:.3f}" for _, t in mtimes) + f"; peak {mpeak:.2f} GiB "
+        f"| launches: none")
+    held_equal("qwen2-moe-a2.7b 2 layers bf16 replayed run vs a fresh run "
+               "(the backward through the dispatch and the combine)",
+               history_diff(mhist, clean.history, "loss"),
+               history_diff(mhist, clean.history, "grad_norm"),
+               state_diff(mfirst, s2["params"]),
+               [h["loss"] for h in clean.history],
+               [h["grad_norm"] for h in clean.history],
+               sum(h["lr"] for h in clean.history))
+    del clean, s2, mfirst
+    free_card()
+
+    # (c) 2 gemma2 layers, the same bf16 step on the card and on the CPU
+    cfg2 = dataclasses.replace(cfg, n_layers=2, layer_pattern=(
+        ((ATTN_SWA, ATTN_FULL), 1),))
+    rcfg = RunConfig(**BF16_RCFG)
+    card = init_train_state(1, cfg2, rcfg, device=CARD)
+    host = init_train_state(1, cfg2, rcfg, device="cpu", init=False)
+    host["params"].load_state_dict(card["params"].state_dict())
+    tok = torch.from_numpy(np.random.default_rng(41).integers(
+        0, cfg2.vocab_size, (CPU_TRAIN_B, CPU_TRAIN_S)))
+    step = make_train_step(cfg2, rcfg)
+    t = time.perf_counter()
+    _, mc = step(card, {"tokens": tok.to(CARD)})
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t
+    t = time.perf_counter()
+    _, mh = step(host, {"tokens": tok})
+    host_s = time.perf_counter() - t
+    rel = {k: abs(float(mc[k]) - float(mh[k])) / abs(float(mh[k]))
+           for k in ("loss", "grad_norm")}
+    log(f"[train-bf16] 2 layers (SWA, FULL) of {TRAIN} at full width, bf16 "
+        f"over fp32 leaves, one step B {CPU_TRAIN_B} x {CPU_TRAIN_S}, card "
+        f"vs CPU from the same weights: loss {float(mc['loss'])!r} vs "
+        f"{float(mh['loss'])!r} (rel {rel['loss']:.2e}), grad norm "
+        f"{float(mc['grad_norm'])!r} vs {float(mh['grad_norm'])!r} (rel "
+        f"{rel['grad_norm']:.2e}; tol 2e-2); {card_s:.2f} s on the card, "
+        f"{host_s:.2f} s on the CPU")
+    if not max(rel.values()) < TOL["bfloat16"]:
+        raise AssertionError(f"bf16 step card vs CPU: {rel}")
+    del card, host
+    free_card()
+    log(f"[train-bf16] phase {time.perf_counter() - t0:.1f} s")
+
+
+MESH_RING, MESH_PROMPT, MESH_LAYERS = 64, 200, 8
 MESH_MOE_B, MESH_MOE_S = 4, 512
 
 
@@ -3286,7 +3653,7 @@ def phase_mesh(mods):
     import numpy as np
     import torch
     import torch.distributed as dist
-    from repro_torch.configs import ATTN_SWA, RunConfig, get
+    from repro_torch.configs import ATTN_FULL, ATTN_SWA, RunConfig, get
     from repro_torch.dist import checkpoint as ckpt
     from repro_torch.dist import sharding as shd
     from repro_torch.dist.collectives import compressed_psum
@@ -3302,15 +3669,18 @@ def phase_mesh(mods):
                             rank=0, world_size=1)
     try:
         mesh = make_host_mesh(1, 1, CARD)
-        # (a) a train step on the mesh against one without it
-        cfg = get(TRAIN)
+        # (a) a train step on the mesh against one without it, gemma2-2b
+        # cut to MESH_LAYERS of its 26 layers at full width
+        cfg = dataclasses.replace(get(TRAIN), n_layers=MESH_LAYERS,
+                                  layer_pattern=(((ATTN_SWA, ATTN_FULL),
+                                                  MESH_LAYERS // 2),))
         tokens = torch.from_numpy(np.random.default_rng(31).integers(
             0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ)))
         torch.cuda.reset_peak_memory_stats()
         state, loss0, gn0, s0 = mesh_train_step(cfg, tokens, None)
         sums0 = leaf_sums(state["params"])
-        # the weights stay on the card (10.5 GB beside the mesh step's
-        # 56 GiB peak), for a closer look if a checksum differs
+        # the weights stay on the card, for a closer look if a checksum
+        # differs
         plain = {n: p.detach() for n, p in state["params"].named_parameters()}
         del state
         free_card()
@@ -3335,7 +3705,8 @@ def phase_mesh(mods):
             "worst_rel": worst, "s": round(s1, 4), "plain_s": round(s0, 4),
             "placements": sorted(pls),
             "peak_gib": round(torch.cuda.max_memory_allocated() / 2**30, 2)}
-        log(f"[mesh] (a) {TRAIN} full width fp32 train step, B "
+        log(f"[mesh] (a) {TRAIN} {MESH_LAYERS} of its 26 layers at full "
+            f"width, fp32 train step, B "
             f"{TRAIN_BATCH} x {TRAIN_SEQ}: on the mesh loss {loss1!r} grad "
             f"norm {gn1!r} {s1:.3f} s; without it {loss0!r} {gn0!r} "
             f"{s0:.3f} s; {len(differ)} of {len(sums0)} weights' checksums "
@@ -3398,9 +3769,61 @@ def phase_mesh(mods):
         log(f"[mesh] (c) qwen2-moe-a2.7b 2 layers bf16, x ({MESH_MOE_B}, "
             f"{MESH_MOE_S}, {mcfg.d_model}): moe_forward on the mesh == the "
             f"local path bit for bit in psum, scatter, combine_first")
-        del model, x, y0, y1
+        del model, y0, y1
+        free_card()
+        # (c') the backward through the dispatch: one layer's fp32 leaves
+        # computed in bf16, the gradients of x and of every MoE weight
+        one = LM(dataclasses.replace(mcfg, n_layers=1),
+                 RunConfig(dtype="bfloat16"), seed=4, device=CARD,
+                 param_dtype=torch.float32)
+        moe_p = one.layers[0].moe
+        xg = x.detach().clone().requires_grad_()
+        wt = torch.randn(x.shape, generator=gen, device=CARD)
+
+        def moe_grads(rc, on_mesh):
+            xg.grad = None
+            for p in moe_p.parameters():
+                p.grad = None
+            shd.set_moe_mesh(mesh if on_mesh else None)
+            try:
+                y, aux = moe_forward(moe_p, xg, mcfg, rc)
+            finally:
+                shd.set_moe_mesh(None)
+            ((y.float() * wt).sum() + aux).backward()
+            return [xg.grad.clone()] + [p.grad.clone()
+                                        for p in moe_p.parameters()]
+
+        reset(mods)
+        t = time.perf_counter()
+        bwd = {}
+        for mode in ("psum", "scatter", "combine_first"):
+            rc = RunConfig(dtype="bfloat16", moe_reduce=mode)
+            g0, g1 = moe_grads(rc, False), moe_grads(rc, True)
+            again = moe_grads(rc, False)
+            if not all(torch.equal(a, b) for a, b in zip(g0, again)):
+                raise AssertionError(f"MoE backward {mode}: the local path "
+                                     f"differs from itself")
+            if not all(torch.equal(a, b) for a, b in zip(g0, g1)):
+                worst = max(float((a - b).abs().max() / b.abs().max())
+                            for a, b in zip(g1, g0))
+                raise AssertionError(f"MoE backward {mode} on the mesh: "
+                                     f"{worst:.3e} of a gradient's max off "
+                                     f"the local path")
+            bwd[mode] = "bit_equal"
+        torch.cuda.synchronize()
+        if any(read(mods).values()):
+            raise AssertionError(f"the MoE backward launched {read(mods)}")
+        out["moe_backward"] = dict(bwd, s=round(time.perf_counter() - t, 3),
+                                   grads=len(g0))
+        log(f"[mesh] (c') one qwen2-moe-a2.7b MoE layer, fp32 leaves in "
+            f"bf16, x ({MESH_MOE_B}, {MESH_MOE_S}, {mcfg.d_model}): the "
+            f"backward through moe_forward on the mesh == the local path's "
+            f"gradients (x and {len(g0) - 1} weights) bit for bit in psum, "
+            f"scatter, combine_first; the local path twice equal")
+        del one, moe_p, xg, wt, g0, g1, again, x
         free_card()
         # (d) ring-append decode against the kernel decode path
+        cfg = get(TRAIN)
         model = LM(cfg, RunConfig(dtype="float32"), seed=5, device=CARD)
         prompt = torch.from_numpy(np.random.default_rng(35).integers(
             0, cfg.vocab_size, (1, MESH_PROMPT))).to(CARD)
@@ -3451,6 +3874,33 @@ def phase_mesh(mods):
     out["s"] = round(time.perf_counter() - t0, 1)
     log(json.dumps({"mesh": out}))
     free_card()
+
+
+def phase_specs():
+    """Every (arch × shape) cell of `launch.specs.build_cell` on the fake
+    (16, 16) production mesh, in a child process: this one's default
+    process group was NCCL's (the mesh phase), and a process holds one.
+    Each cell's count of argument leaves and its seconds; 33 cells."""
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.specs", "--all"],
+        capture_output=True, text=True, env=env, cwd=str(ROOT),
+        timeout=300)
+    if proc.returncode:
+        raise AssertionError(f"specs: exit {proc.returncode}\n"
+                             f"{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+    cells = [json.loads(ln) for ln in proc.stdout.splitlines()
+             if ln.startswith('{"cell"')]
+    if len(cells) != 33 or not all(c["leaves"] > 0 for c in cells):
+        raise AssertionError(f"specs: {len(cells)} cells: {cells}")
+    log("[specs] build_cell on the fake (16, 16) data x model mesh (torch's "
+        "fake process group, 256 ranks, in a child process): " +
+        "; ".join(f"{c['cell']} {c['leaves']} leaves {c['s']:.4f} s"
+                  for c in cells))
+    total = sum(c["s"] for c in cells)
+    log(f"[specs] {len(cells)} cells, build_cell {total:.2f} s in all; "
+        f"phase {time.perf_counter() - t0:.1f} s with the child's start")
 
 
 def main() -> int:
@@ -3523,11 +3973,14 @@ def main() -> int:
     qwen_moe2 = dataclasses.replace(get("qwen2-moe-a2.7b"), n_layers=2)
     phase_card_vs_cpu(qwen_moe2, "qwen2-moe-a2.7b FULL, FULL", mods)
     phase_bf16_vs_plain(qwen_moe2, "qwen2-moe-a2.7b FULL, FULL", mods)
+    phase_ssd_knobs(mods)
     for name, n in phase_encdec(mods).items():
         encdec_entries[name]["launches"] = n
     entries.update(encdec_entries)
     phase_train(mods)
+    phase_train_bf16(mods)
     phase_mesh(mods)
+    phase_specs()
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(smi)

@@ -1,11 +1,10 @@
 """Architecture & run configuration records (the port's own copy).
 
 Mirrors `repro.configs.base` field for field, so a test can build the
-reference config and this one from the same numbers.  `RunConfig` keeps
-only what the ported path reads: serving runs each kernel's CUDA version
-or plain version by the device of the tensor it is given, not by a knob;
-training chooses its attention and SSD by `kernels`, as the reference's
-does.
+reference config and this one from the same numbers.  Serving runs
+each kernel's CUDA version or plain version by the device of the tensor
+it is given, not by a knob; training chooses its attention and SSD by
+`RunConfig.kernels`, as the reference's does.
 
 Layer heterogeneity (gemma2's local/global alternation, hymba's three
 full-attention layers) is a `layer_pattern`: a tuple of ((kinds...),
@@ -145,6 +144,14 @@ class ArchConfig:
         return tuple(kind for kinds, rep in self.pattern
                      for _ in range(rep) for kind in kinds)
 
+    def shape(self, name: str) -> ShapeSpec:
+        for s in self.shapes:
+            if s.name == name:
+                return s
+        raise KeyError(
+            f"{self.name} does not run shape {name!r} "
+            f"(available: {[s.name for s in self.shapes]})")
+
     def validate(self) -> None:
         if self.total_layers != self.n_layers:
             raise ValueError(f"{self.name}: pattern covers "
@@ -156,29 +163,59 @@ class ArchConfig:
 
 @dataclass(frozen=True)
 class RunConfig:
-    """Runtime knobs the ported path reads, with the reference's defaults.
+    """Runtime/parallelism knobs: every field of the reference's, with its
+    defaults.
 
-    Serving (`lm_prefill`, `lm_decode_step`, the encoder-decoder's
-    `encdec_prepare_cross` and `encdec_decode_step`) reads only `dtype`:
-    its attention and SSD always go to the kernel ops, which run the CUDA
-    kernel for tensors on the card.  The training forwards (`lm_forward`,
-    `lm_loss`, `encdec_forward`, `encdec_loss`) also read `kernels`:
-    "xla" takes the plain PyTorch `chunked_flash` and `ssd_chunked_ref`,
-    as the reference's "xla" path does; "pallas" takes the kernel ops,
-    and raises where autograd would need their backward (no kernel has
-    one, in either package).  The `moe_*` fields are the MoE mesh
-    dispatch's (`models.moe`, with a mesh installed by
-    `dist.sharding.set_moe_mesh`).  The rest are the train step's."""
+    A model reads its numerics when it is built (`LM(cfg, rcfg)`,
+    `EncDec(cfg, rcfg)`): `dtype` is the compute dtype of every matmul,
+    `ssd_chunk` and `ssd_compute_dtype` the SSD's chunk and the dtype of
+    its x, B and C.  Serving (`lm_prefill`, `lm_decode_step`, the
+    encoder-decoder's `encdec_prepare_cross` and `encdec_decode_step`)
+    reads nothing else: its attention and SSD always go to the kernel
+    ops, which run the CUDA kernel for tensors on the card.  The training
+    forwards (`lm_forward`, `lm_loss`, `encdec_forward`, `encdec_loss`)
+    also read `kernels`: "xla" takes the plain PyTorch `chunked_flash`
+    and `ssd_chunked_ref`, as the reference's "xla" path does; "pallas"
+    takes the kernel ops, and raises where autograd would need their
+    backward (no kernel has one, in either package).  The `moe_*` fields
+    are the MoE mesh dispatch's (`models.moe`, with a mesh installed by
+    `dist.sharding.set_moe_mesh`); `sequence_parallel`, `decode_kv_shard`,
+    `decode_ring` and `ssm_head_tp` are read by `launch.specs` as the
+    reference's are.  The rest are the train step's.
 
-    kernels: str = "xla"              # training forwards: "pallas" | "xla"
-    dtype: str = "bfloat16"           # compute dtype: bfloat16 | float32
-    remat: bool = True                # recompute each layer in backward
+    `param_dtype` is read nowhere, as in the reference: a train state
+    keeps fp32 leaves whatever the compute dtype (`init_train_state`),
+    and a model built for serving stores its matmul weights in the
+    compute dtype.  Three more are accepted and read nowhere, as in the
+    reference: `scan_layers` (the port runs its layers in a Python loop;
+    there is no `lax.scan` to turn on or off), `zero1` (no reader in the
+    reference) and `grad_compression` (named only in the reference train
+    step's docstring; `dist.collectives.compressed_psum` is the
+    primitive)."""
+
+    kernels: str = "xla"              # "pallas" | "xla"
+    dtype: str = "bfloat16"           # compute dtype
+    param_dtype: str = "float32"
+    remat: bool = True
+    scan_layers: bool = True
+    sequence_parallel: bool = True    # SP residual stream sharding
+    zero1: bool = True                # shard optimizer state over data
+    # int8 error-feedback gradient compression primitives live in
+    # dist.collectives.compressed_psum + instream.ErrorFeedbackCompressor
+    # (tested); wiring them into the train step requires per-shard
+    # (pre-reduction) gradients, i.e. a data-parallel outer loop.
+    grad_compression: bool = False
     microbatch: int = 0               # 0 = no gradient accumulation
     attn_chunk_q: int = 1024          # chunked_flash's tiles
     attn_chunk_k: int = 2048
+    decode_kv_shard: str = "auto"     # "heads" | "seq" | "auto"
+    decode_ring: int = 128            # ring-append buffer (0 = off)
     moe_shard_map: bool = True        # MoE mesh dispatch if a mesh is set
     moe_reduce: str = "combine_first"  # "psum"|"scatter"|"combine_first"
     moe_comm_dtype: str = "float32"   # expert-output reduction dtype
+    ssd_chunk: int = 0                # 0 = arch default; else override
+    ssm_head_tp: bool = False         # shard SSD heads over model (flagged)
+    ssd_compute_dtype: str = "float32"  # SSD intra-chunk einsum dtype
     learning_rate: float = 3e-4
     weight_decay: float = 0.1
     grad_clip: float = 1.0

@@ -32,6 +32,8 @@ ROUTES = ("tensor_cores", "cuda_cores")
 #: the tensor-core route's limits (csrc/ssd.cu, namespace tc): chunk ≤
 #: MAX_L, N a multiple of 16 up to MAX_N, P one of TC_P
 MAX_L, MAX_N, TC_P = 128, 128, (16, 32, 64)
+#: the dynamic shared memory a block may ask for (csrc/ssd.cu, MAX_SMEM)
+MAX_SMEM = 232448
 launches = 0
 launches_by_route = dict.fromkeys(ROUTES, 0)
 
@@ -60,6 +62,44 @@ def route(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
     return "tensor_cores"
 
 
+def smem_bytes(chosen: str, chunk: int, N: int, P: int,
+               dtype: torch.dtype) -> int:
+    """The dynamic shared memory the largest block of route `chosen`
+    asks for at chunk L, state N and head dim P: `Smem` of csrc/ssd.cu
+    (cuda_cores: x, B, a 64-row tile of C and of the scores, the state,
+    dt and the cumsum, in fp32 with odd row pitches) or `tc::Smem`
+    (tensor_cores: the largest of its three kernels')."""
+    L = chunk
+    if chosen == "cuda_cores":
+        rt = min(L, 64)
+        floats = L * (P | 1) + L * (N | 1) + rt * (N | 1) + rt * (L | 1) + \
+            N * (P | 1) + 2 * L
+        return 4 * floats
+    elt = torch.finfo(dtype).bits // 8
+    xb = elt * L * (P + (4 if elt == 4 else 8))
+    cb = 4 * 2 * L * (N + 8)
+    state = 4 * (L * (N + 4) + 4 * L) + 2 * xb
+    out = 4 * (L * (N + 8) + L * (L + 8) + N * (P + 4) + 2 * L +
+               L // 16 * L) + xb
+    return max(cb, state, out)
+
+
+def check_fits(chosen: str, chunk: int, N: int, P: int,
+               dtype: torch.dtype) -> None:
+    """Raise `ValueError` where route `chosen` cannot hold a chunk of
+    this shape in one block's shared memory (at N 128, P 64 a chunk of
+    256 fits neither route: tensor_cores takes chunks up to MAX_L, and
+    cuda_cores needs 332,800 bytes of the MAX_SMEM a block may have).
+    Called before any launch, on tensors of any device."""
+    need = smem_bytes(chosen, chunk, N, P, dtype)
+    if need > MAX_SMEM:
+        raise ValueError(
+            f"ssd: chunk {chunk} at N {N}, P {P} needs {need} bytes of "
+            f"shared memory a block on route {chosen!r}, over the "
+            f"{MAX_SMEM} a block may have (route 'tensor_cores' takes "
+            f"chunks of at most {MAX_L}); use a smaller ssd_chunk")
+
+
 def _lib() -> ctypes.CDLL:
     lib = runtime.load(SOURCE)
     if lib.ssd_fwd.argtypes is None:
@@ -78,10 +118,12 @@ def ssd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     """x (B, H, S, P), dt (B, H, S), A/D (H,), B/C (B, G, S, N) on the
     card, the last axis of x, B and C contiguous → (y (B, H, S, P), final
     state (B, H, N, P) fp32).  The sequence and group refusals are
-    `ops.ssd`'s and the kernel's.  `kernel_route` names a route in place
-    of `route(...)`, to time the routes against each other: "cuda_cores"
-    takes every operand, "tensor_cores" raises `ValueError` where `route`
-    would not choose it."""
+    `ops.ssd`'s and the kernel's; a chunk the chosen route cannot hold in
+    shared memory raises `ValueError` before launch (`check_fits`).
+    `kernel_route` names a route in place of `route(...)`, to time the
+    routes against each other: "cuda_cores" takes every operand,
+    "tensor_cores" raises `ValueError` where `route` would not choose
+    it."""
     global launches
     Bb, H, S, P = x.shape
     _, G, _, N = B.shape
@@ -107,6 +149,7 @@ def ssd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             raise ValueError(f"route {kernel_route!r} does not take these "
                              f"operands (route: {chosen!r})")
         chosen = kernel_route
+    check_fits(chosen, chunk, N, P, x.dtype)
     dt = dt.float()
     A, D = A.float().contiguous(), D.float().contiguous()
     y = torch.empty((Bb, S, H, P), dtype=x.dtype,

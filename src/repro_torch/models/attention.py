@@ -33,14 +33,17 @@ from .common import apply_rope, dense, needs_grad, plain_path
 class Attention(nn.Module):
     """wq, wk, wv, wo; with `cfg.qkv_bias` also bq, bk, bv, the biases of
     the three input projections, zero at init as in the reference (wo has
-    none)."""
+    none).  `dtype` is the compute dtype of the projections; the weights
+    are stored in `param_dtype` (`dtype` when None)."""
 
     def __init__(self, cfg: ArchConfig, dtype: torch.dtype,
-                 device: torch.device) -> None:
+                 device: torch.device,
+                 param_dtype: Optional[torch.dtype] = None) -> None:
         super().__init__()
+        self.dtype = dtype
         d, dh = cfg.d_model, cfg.resolved_head_dim
         hq, hkv = cfg.n_heads * dh, cfg.n_kv_heads * dh
-        kw = dict(dtype=dtype, device=device)
+        kw = dict(dtype=param_dtype or dtype, device=device)
         self.wq = nn.Parameter(torch.empty(d, hq, **kw))
         self.wk = nn.Parameter(torch.empty(d, hkv, **kw))
         self.wv = nn.Parameter(torch.empty(d, hkv, **kw))
@@ -66,14 +69,23 @@ def _scale(cfg: ArchConfig) -> float:
         else 1.0 / math.sqrt(cfg.resolved_head_dim)
 
 
+def _proj(p: Attention, x: torch.Tensor, which: str) -> torch.Tensor:
+    """The q, k or v projection of x, with its bias where it has one, in
+    the compute dtype."""
+    return dense(x, getattr(p, "w" + which), getattr(p, "b" + which, None),
+                 p.dtype)
+
+
+def _out(p: Attention, o: torch.Tensor) -> torch.Tensor:
+    return dense(o, p.wo, dtype=p.dtype)
+
+
 def _qkv(p: Attention, x: torch.Tensor, cfg: ArchConfig,
          positions: torch.Tensor):
     dh = cfg.resolved_head_dim
-    q = _split_heads(dense(x, p.wq, getattr(p, "bq", None)), cfg.n_heads, dh)
-    k = _split_heads(dense(x, p.wk, getattr(p, "bk", None)), cfg.n_kv_heads,
-                     dh)
-    v = _split_heads(dense(x, p.wv, getattr(p, "bv", None)), cfg.n_kv_heads,
-                     dh)
+    q = _split_heads(_proj(p, x, "q"), cfg.n_heads, dh)
+    k = _split_heads(_proj(p, x, "k"), cfg.n_kv_heads, dh)
+    v = _split_heads(_proj(p, x, "v"), cfg.n_kv_heads, dh)
     q = apply_rope(q, positions, cfg.rope_fraction, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_fraction, cfg.rope_theta)
     return q, k, v
@@ -171,14 +183,13 @@ def attention_forward(p: Attention, x: torch.Tensor, cfg: ArchConfig, *,
             positions = torch.arange(S, device=x.device)
         q, k, v = _qkv(p, x, cfg, positions)
     else:
-        dh = cfg.resolved_head_dim
-        q = _split_heads(dense(x, p.wq, getattr(p, "bq", None)),
-                         cfg.n_heads, dh)
+        q = _split_heads(_proj(p, x, "q"), cfg.n_heads,
+                         cfg.resolved_head_dim)
         k, v = kv_override
     o = _attend(q, k, v, causal=causal and kv_override is None,
                 window=window, softcap_v=cfg.attn_softcap,
                 scale=_scale(cfg), rcfg=rcfg)
-    out = dense(_merge_heads(o), p.wo)
+    out = _out(p, _merge_heads(o))
     if return_kv:
         return out, (k, v)
     return out
@@ -189,10 +200,8 @@ def cross_kv(p: Attention, enc_out: torch.Tensor, cfg: ArchConfig
     """The cross-attention's K/V of the encoder output, each (B, Hkv,
     S_enc, dh), without RoPE."""
     dh = cfg.resolved_head_dim
-    k = _split_heads(dense(enc_out, p.wk, getattr(p, "bk", None)),
-                     cfg.n_kv_heads, dh)
-    v = _split_heads(dense(enc_out, p.wv, getattr(p, "bv", None)),
-                     cfg.n_kv_heads, dh)
+    k = _split_heads(_proj(p, enc_out, "k"), cfg.n_kv_heads, dh)
+    v = _split_heads(_proj(p, enc_out, "v"), cfg.n_kv_heads, dh)
     return k, v
 
 
@@ -220,7 +229,7 @@ def attention_decode_step(p: Attention, x: torch.Tensor,
     o = decode_attention(q[:, :, 0], cache_k, cache_v, kv_len=pos + 1,
                          window=window, softcap=cfg.attn_softcap,
                          scale=_scale(cfg))
-    return dense(o.reshape(B, 1, -1), p.wo), cache_k, cache_v
+    return _out(p, o.reshape(B, 1, -1)), cache_k, cache_v
 
 
 # --------------------------------------------------------------------------
@@ -285,7 +294,7 @@ def attention_decode_step_ring(p: Attention, x: torch.Tensor,
     denom = l1 * a1 + l2 * a2
     denom = torch.where(denom == 0.0, 1.0, denom)
     o = ((n1 * a1 + n2 * a2) / denom).to(q1.dtype)
-    return dense(o.reshape(B, 1, -1), p.wo), ring_k, ring_v
+    return _out(p, o.reshape(B, 1, -1)), ring_k, ring_v
 
 
 def flush_ring(cache_k: torch.Tensor, cache_v: torch.Tensor,

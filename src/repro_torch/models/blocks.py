@@ -16,7 +16,7 @@ which also sums the MoE layers' aux losses.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.utils.checkpoint
@@ -55,8 +55,14 @@ def _norm(d: int, device: torch.device) -> nn.Parameter:
 
 
 class Block(nn.Module):
+    """One layer of `kind`.  `dtype` is the compute dtype; the matmul
+    weights are stored in `param_dtype` (`dtype` when None), the norm
+    scales in fp32; `rcfg` gives the SSM's scan knobs."""
+
     def __init__(self, cfg: ArchConfig, kind: str, dtype: torch.dtype,
-                 device: torch.device) -> None:
+                 device: torch.device,
+                 param_dtype: Optional[torch.dtype] = None,
+                 rcfg: Optional[RunConfig] = None) -> None:
         super().__init__()
         check_kind(kind)
         self.kind = kind
@@ -64,18 +70,18 @@ class Block(nn.Module):
         d = cfg.d_model
         self.ln1 = _norm(d, device)
         if kind in ATTN_KINDS:
-            self.attn = Attention(cfg, dtype, device)
+            self.attn = Attention(cfg, dtype, device, param_dtype)
         if kind in SSM_KINDS:
-            self.ssm = SSMMixer(cfg, dtype, device)
+            self.ssm = SSMMixer(cfg, dtype, device, param_dtype, rcfg)
         if kind in HYBRID_KINDS:
             self.attn_out_norm = _norm(d, device)
             self.ssm_out_norm = _norm(d, device)
         if self.has_ffn:
             self.ln2 = _norm(d, device)
             if cfg.moe is not None:
-                self.moe = MoE(cfg, dtype, device)
+                self.moe = MoE(cfg, dtype, device, param_dtype)
             else:
-                self.ffn = FFN(d, cfg.d_ff, dtype, device)
+                self.ffn = FFN(d, cfg.d_ff, dtype, device, param_dtype)
         if cfg.post_block_norm:
             self.post_ln1 = _norm(d, device)
             if self.has_ffn:
@@ -228,23 +234,34 @@ def segments_forward(layers: Sequence[Block], x: torch.Tensor,
 
 def train_segments_forward(layers: Sequence[Block], x: torch.Tensor,
                            cfg: ArchConfig, rcfg: RunConfig,
-                           positions: Optional[torch.Tensor] = None
+                           positions: Optional[torch.Tensor] = None,
+                           constrain: Optional[Callable] = None
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The training forward of every layer in order: (x, the sum of the
     MoE layers' aux losses, a 0-d fp32 tensor).  Attention and the SSD go
     where `rcfg.kernels` says; with `rcfg.remat` each layer runs under
     `torch.utils.checkpoint`, its activations recomputed in the backward,
-    as the reference's `jax.checkpoint` of the layer scan."""
+    as the reference's `jax.checkpoint` of the layer scan.  `constrain`
+    (the residual stream's sharding, `launch.specs.constrain_fn`) is
+    applied where the reference's scan applies it: after the last layer
+    of each repeat of a segment's kinds."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    ends, i = set(), 0
+    for kinds, rep in cfg.pattern:
+        for _ in range(rep):
+            i += len(kinds)
+            ends.add(i - 1)
 
-    def layer_fn(layer, kind):
+    def layer_fn(layer, kind, last):
         def run(h):
             h, a, _ = _block(layer, h, cfg, kind, positions, False, rcfg)
+            if last and constrain is not None:
+                h = constrain(h)
             return h, (a if a is not None else torch.zeros_like(aux))
         return run
 
-    for layer, kind in zip(layers, cfg.layer_kinds):
-        fn = layer_fn(layer, kind)
+    for i, (layer, kind) in enumerate(zip(layers, cfg.layer_kinds)):
+        fn = layer_fn(layer, kind, i in ends)
         if rcfg.remat:
             x, a = torch.utils.checkpoint.checkpoint(fn, x,
                                                      use_reentrant=False)

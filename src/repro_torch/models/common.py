@@ -1,9 +1,13 @@
 """Shared model primitives: dense, norms, softcap, activation, RoPE,
 embeddings (the port of `repro.models.common`).
 
-Functions take weights as tensors.  Matmul weights are stored in the
-compute dtype, so `dense` casts only the activations; the reference casts
-fp32 weights at every call, which gives the same values.
+Functions take weights as tensors.  The storage dtype of a weight and
+the compute dtype of its product are apart, as in the reference: `dense`,
+`embed` and `unembed` take the compute dtype and cast the weight to it at
+each use.  A model built for serving stores its matmul weights in the
+compute dtype, where the cast is free and computes what a product of the
+stored weight does; a train state stores fp32 master weights, and
+autograd takes the gradient through the cast back to fp32.
 """
 
 from __future__ import annotations
@@ -12,6 +16,9 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+#: the compute dtypes of `RunConfig.dtype` (and `ssd_compute_dtype`)
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 @torch.no_grad()
@@ -26,11 +33,15 @@ def trunc_normal_fill(p: torch.Tensor, std: float,
 
 
 def dense(x: torch.Tensor, w: torch.Tensor,
-          b: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """x (..., d_in) @ w (d_in, d_out) in w's dtype."""
-    y = x.to(w.dtype) @ w
+          b: Optional[torch.Tensor] = None,
+          dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """x (..., d_in) @ w (d_in, d_out) (+ b) in the compute dtype `dtype`
+    (w's own when None): the activation, the weight and the bias each
+    cast to it, as the reference's `dense` does."""
+    dtype = dtype or w.dtype
+    y = x.to(dtype) @ w.to(dtype)
     if b is not None:
-        y = y + b.to(w.dtype)
+        y = y + b.to(dtype)
     return y
 
 
@@ -83,14 +94,18 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return torch.cat([y.to(x.dtype), x[..., rot:]], dim=-1)
 
 
-def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    """The rows of `tokens`.  `F.embedding`, whose backward sums a
-    repeated token's gradients in a fixed order: the backward of
-    `table[tokens]` adds them in parallel on the CPU, in an order that
-    changes from run to run, and a replayed train step would not repeat
-    its weights bit for bit.  On a mesh, a vocab-split table's rows come
-    back replicated (`settle_partial`)."""
-    return settle_partial(F.embedding(tokens, table))
+def embed(table: torch.Tensor, tokens: torch.Tensor,
+          dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """The rows of `tokens`, cast to `dtype` (the table's own when None).
+    The rows are gathered, then cast: the values of the reference's
+    cast-then-gather, without casting the whole table each step.
+    `F.embedding`, whose backward sums a repeated token's gradients in a
+    fixed order: the backward of `table[tokens]` adds them in parallel on
+    the CPU, in an order that changes from run to run, and a replayed
+    train step would not repeat its weights bit for bit.  On a mesh, a
+    vocab-split table's rows come back replicated (`settle_partial`)."""
+    rows = settle_partial(F.embedding(tokens, table))
+    return rows.to(dtype or table.dtype)
 
 
 def settle_partial(x: torch.Tensor) -> torch.Tensor:
@@ -106,12 +121,16 @@ def settle_partial(x: torch.Tensor) -> torch.Tensor:
                                           else p for p in placements])
 
 
-def unembed(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """Tied unembedding, logits = x @ tableᵀ in fp32.  The operands are
-    upcast: the products of bf16 values are exact in fp32, so this is the
-    reference's bf16 product with fp32 accumulation, where a bf16 matmul
-    would round every logit to bf16."""
-    return x.float() @ table.float().t()
+def unembed(table: torch.Tensor, x: torch.Tensor,
+            dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Tied unembedding, logits = x @ tableᵀ in fp32, of x and the table
+    cast to the compute dtype `dtype` (the table's own when None), as the
+    reference's einsum casts them.  The operands are then upcast: the
+    products of bf16 values are exact in fp32, so this is the reference's
+    bf16 product with fp32 accumulation, where a bf16 matmul would round
+    every logit to bf16."""
+    dtype = dtype or table.dtype
+    return x.to(dtype).float() @ table.to(dtype).float().t()
 
 
 def plain_path(rcfg) -> bool:

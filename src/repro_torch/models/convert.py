@@ -9,7 +9,7 @@ repeat, kind by kind (gemma2: swa[0], full[0], swa[1], ...).
 
 from __future__ import annotations
 
-from typing import Any, Dict, Union
+from typing import Any, Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -79,9 +79,13 @@ def _flatten(tree: Dict[str, Any], prefix=()) -> Dict[tuple, np.ndarray]:
 @torch.no_grad()
 def lm_from_numpy(cfg: ArchConfig, tree: Dict[str, Any],
                   rcfg: RunConfig = RunConfig(dtype="float32"),
-                  device: Union[str, torch.device, None] = None) -> LM:
-    """Build the port's LM holding the reference tree's weights."""
-    model = LM(cfg, rcfg, device=device, init=False)
+                  device: Union[str, torch.device, None] = None,
+                  param_dtype: Optional[torch.dtype] = None) -> LM:
+    """Build the port's LM holding the reference tree's weights, stored
+    in `param_dtype` (the compute dtype when None): with fp32 storage the
+    reference's fp32 leaves are copied without rounding."""
+    model = LM(cfg, rcfg, device=device, init=False,
+               param_dtype=param_dtype)
     params = dict(model.named_parameters())
 
     def put(name: str, arr: np.ndarray) -> None:
@@ -122,12 +126,14 @@ def lm_from_numpy(cfg: ArchConfig, tree: Dict[str, Any],
 @torch.no_grad()
 def encdec_from_numpy(cfg: ArchConfig, tree: Dict[str, Any],
                       rcfg: RunConfig = RunConfig(dtype="float32"),
-                      device: Union[str, torch.device, None] = None
+                      device: Union[str, torch.device, None] = None,
+                      param_dtype: Optional[torch.dtype] = None
                       ) -> EncDec:
     """Build the port's EncDec holding the reference `init_encdec` tree's
     weights: the stacked `enc_layers` / `dec_layers` leaves, unstacked
-    into the module's layers."""
-    model = EncDec(cfg, rcfg, device=device, init=False)
+    into the module's layers, stored as `lm_from_numpy` stores them."""
+    model = EncDec(cfg, rcfg, device=device, init=False,
+                   param_dtype=param_dtype)
     params = dict(model.named_parameters())
     top = set(tree) - {"embed", "enc_layers", "dec_layers", "enc_norm",
                        "final_norm", "lm_head"}

@@ -17,15 +17,16 @@ Training: `encdec_forward` / `encdec_loss` take a `RunConfig`, whose
 `kernels` chooses the attention as in `lm_forward`.
 
 Weights are stored as `LM` stores them: matmul weights and the embedding
-in the compute dtype, norm scales in fp32.  The residual streams keep the
-dtype of what enters them, as in the reference: the frames' in the
-encoder, the embedding's in the decoder.
+in `param_dtype` (the compute dtype when None; fp32 in a train state),
+cast to the compute dtype at each use; norm scales in fp32.  The residual
+streams keep the dtype of what enters them, as in the reference: the
+frames' in the encoder, the embedding's in the decoder.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple, Union
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import torch
 import torch.utils.checkpoint
@@ -48,30 +49,34 @@ def _norm(d: int, device: torch.device) -> nn.Parameter:
 
 class EncLayer(nn.Module):
     def __init__(self, cfg: ArchConfig, dtype: torch.dtype,
-                 device: torch.device) -> None:
+                 device: torch.device,
+                 param_dtype: Optional[torch.dtype] = None) -> None:
         super().__init__()
         self.ln1 = _norm(cfg.d_model, device)
-        self.attn = Attention(cfg, dtype, device)
+        self.attn = Attention(cfg, dtype, device, param_dtype)
         self.ln2 = _norm(cfg.d_model, device)
-        self.ffn = FFN(cfg.d_model, cfg.d_ff, dtype, device)
+        self.ffn = FFN(cfg.d_model, cfg.d_ff, dtype, device, param_dtype)
 
 
 class DecLayer(nn.Module):
     def __init__(self, cfg: ArchConfig, dtype: torch.dtype,
-                 device: torch.device) -> None:
+                 device: torch.device,
+                 param_dtype: Optional[torch.dtype] = None) -> None:
         super().__init__()
         self.ln1 = _norm(cfg.d_model, device)
-        self.self_attn = Attention(cfg, dtype, device)
+        self.self_attn = Attention(cfg, dtype, device, param_dtype)
         self.ln_cross = _norm(cfg.d_model, device)
-        self.cross_attn = Attention(cfg, dtype, device)
+        self.cross_attn = Attention(cfg, dtype, device, param_dtype)
         self.ln2 = _norm(cfg.d_model, device)
-        self.ffn = FFN(cfg.d_model, cfg.d_ff, dtype, device)
+        self.ffn = FFN(cfg.d_model, cfg.d_ff, dtype, device, param_dtype)
 
 
 class EncDec(nn.Module):
     """`embed`, `enc_layers`, `dec_layers`, `enc_norm`, `final_norm` and
-    the untied `lm_head`.  `rcfg.dtype` is the compute dtype; `device`
-    defaults to the card.  Weights follow `LM`'s laws (truncated normal at
+    the untied `lm_head`.  `rcfg.dtype` is the compute dtype,
+    `param_dtype` the storage dtype of the matmul weights and the
+    embedding (the compute dtype when None); `device` defaults to the
+    card.  Weights follow `LM`'s laws (truncated normal at
     ±2σ; σ 0.02 for the embedding and the head, 1/sqrt(fan_in) for the
     rest; norm scales 0), drawn from `torch.Generator(device)` seeded with
     `seed`; `init=False` leaves them unset."""
@@ -79,7 +84,8 @@ class EncDec(nn.Module):
     def __init__(self, cfg: ArchConfig, rcfg: RunConfig = RunConfig(),
                  seed: int = 0,
                  device: Union[str, torch.device, None] = None,
-                 init: bool = True) -> None:
+                 init: bool = True,
+                 param_dtype: Optional[torch.dtype] = None) -> None:
         super().__init__()
         cfg.validate()
         if cfg.encoder is None:
@@ -87,19 +93,21 @@ class EncDec(nn.Module):
                              f"repro_torch.models.LM")
         self.cfg = cfg
         self.dtype = DTYPES[rcfg.dtype]
+        store = param_dtype or self.dtype
         dev = resolve_device(device)
         d = cfg.d_model
         self.embed = nn.Parameter(torch.empty(cfg.padded_vocab, d,
-                                              dtype=self.dtype, device=dev))
+                                              dtype=store, device=dev))
         self.enc_layers = nn.ModuleList(
-            EncLayer(cfg, self.dtype, dev)
+            EncLayer(cfg, self.dtype, dev, store)
             for _ in range(cfg.encoder.n_layers))
         self.dec_layers = nn.ModuleList(
-            DecLayer(cfg, self.dtype, dev) for _ in range(cfg.n_layers))
+            DecLayer(cfg, self.dtype, dev, store)
+            for _ in range(cfg.n_layers))
         self.enc_norm = _norm(d, dev)
         self.final_norm = _norm(d, dev)
         self.lm_head = nn.Parameter(torch.empty(d, cfg.padded_vocab,
-                                                dtype=self.dtype, device=dev))
+                                                dtype=store, device=dev))
         if init:
             self._init_weights(torch.Generator(dev).manual_seed(seed))
 
@@ -188,7 +196,8 @@ def decode_stack(model: EncDec, x: torch.Tensor, enc_out: torch.Tensor,
 def _head(model: EncDec, h: torch.Tensor) -> torch.Tensor:
     """fp32 logits: the head's product in the compute dtype, upcast, the
     pad rows masked."""
-    return mask_pad_vocab(dense(h, model.lm_head).float(), model.cfg)
+    return mask_pad_vocab(dense(h, model.lm_head, dtype=model.dtype).float(),
+                          model.cfg)
 
 
 def encdec_forward(model: EncDec, frames: torch.Tensor,
@@ -196,15 +205,17 @@ def encdec_forward(model: EncDec, frames: torch.Tensor,
     """The training forward: (frames, decoder tokens (B, S)) → logits
     (B, S, V) fp32 at every position."""
     enc_out = encode(model, frames, rcfg)
-    h = decode_stack(model, embed(model.embed, tokens), enc_out, rcfg)
+    h = decode_stack(model, embed(model.embed, tokens, model.dtype), enc_out,
+                     rcfg)
     return _head(model, h)
 
 
 def encdec_loss(model: EncDec, batch: Dict[str, torch.Tensor],
-                rcfg: RunConfig
+                rcfg: RunConfig, constrain: Optional[Callable] = None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token cross entropy of `batch` = {"frames", "tokens"}: (loss,
-    {"loss", "aux_loss": 0})."""
+    {"loss", "aux_loss": 0}).  `constrain` is accepted and not applied,
+    as in the reference."""
     logits = encdec_forward(model, batch["frames"], batch["tokens"], rcfg)
     loss = torch.mean(next_token_nll(logits, batch["tokens"]))
     return loss, {"loss": loss, "aux_loss": loss.new_zeros(())}
@@ -246,7 +257,7 @@ def encdec_decode_step(model: EncDec, cache: Dict[str, torch.Tensor],
     token's k/v are written into the cache in place, where the reference
     returns an updated copy."""
     cfg = model.cfg
-    h = embed(model.embed, tokens)
+    h = embed(model.embed, tokens, model.dtype)
     cross_k, cross_v = cross
     for i, lp in enumerate(model.dec_layers):
         a, _, _ = attention_decode_step(lp.self_attn, rmsnorm(lp.ln1, h),

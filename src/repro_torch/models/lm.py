@@ -16,14 +16,17 @@ unembedding, qkv biases, and the VLM's patch-embedding projector).
                         rows past the last whole ring
   flush_decode_caches — every ring into its main cache (every R tokens)
 
-Matmul weights and the embedding table are stored in the compute dtype,
-norm scales and the SSM's small leaves in fp32.  Logits are fp32.
+Matmul weights and the embedding table are stored in `param_dtype`,
+which defaults to the compute dtype (what serving stores); a train state
+stores them in fp32 and every product casts them to the compute dtype at
+use, as the reference does.  Norm scales and the SSM's small leaves are
+fp32.  Logits are fp32.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Optional, Tuple, Union
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -35,10 +38,8 @@ from .blocks import (ATTN_KINDS, SSM_KINDS, Block, Cache, block_decode_step,
                      init_block_cache, ring_layer, segments_forward,
                      train_segments_forward)
 from .ssm import SSM as SSMMixer, ssm_dims
-from .common import (dense, embed, rmsnorm, settle_partial, softcap,
-                     trunc_normal_fill, unembed)
-
-DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+from .common import (DTYPES, dense, embed, rmsnorm, settle_partial,
+                     softcap, trunc_normal_fill, unembed)
 
 
 def _check_supported(cfg: ArchConfig) -> None:
@@ -49,8 +50,11 @@ def _check_supported(cfg: ArchConfig) -> None:
 
 
 class LM(nn.Module):
-    """`rcfg.dtype` is the compute dtype ("bfloat16" or "float32");
-    `device` defaults to the card.  Weights follow the reference's
+    """`rcfg.dtype` is the compute dtype ("bfloat16" or "float32"), and
+    `rcfg.ssd_chunk` / `rcfg.ssd_compute_dtype` the SSM layers' scan
+    knobs; `param_dtype` the storage dtype of the matmul weights and the
+    embedding (the compute dtype when None; `init_train_state` asks for
+    fp32).  `device` defaults to the card.  Weights follow the reference's
     initializers (truncated normal at ±2σ; σ = 1/sqrt(fan_in), 0.02 for
     the embedding, the untied head, the MoE router and the shared-expert
     gate; norm scales and qkv biases 0; the SSM leaves by `init_ssm`'s
@@ -62,25 +66,28 @@ class LM(nn.Module):
     def __init__(self, cfg: ArchConfig, rcfg: RunConfig = RunConfig(),
                  seed: int = 0,
                  device: Union[str, torch.device, None] = None,
-                 init: bool = True) -> None:
+                 init: bool = True,
+                 param_dtype: Optional[torch.dtype] = None) -> None:
         super().__init__()
         cfg.validate()
         _check_supported(cfg)
         self.cfg = cfg
         self.dtype = DTYPES[rcfg.dtype]
+        store = param_dtype or self.dtype
         dev = resolve_device(device)
         self.embed = nn.Parameter(torch.empty(
-            cfg.padded_vocab, cfg.d_model, dtype=self.dtype, device=dev))
+            cfg.padded_vocab, cfg.d_model, dtype=store, device=dev))
         self.layers = nn.ModuleList(
-            Block(cfg, kind, self.dtype, dev) for kind in cfg.layer_kinds)
+            Block(cfg, kind, self.dtype, dev, store, rcfg)
+            for kind in cfg.layer_kinds)
         self.final_norm = nn.Parameter(
             torch.zeros(cfg.d_model, dtype=torch.float32, device=dev))
         if not cfg.tie_embeddings:
             self.lm_head = nn.Parameter(torch.empty(
-                cfg.d_model, cfg.padded_vocab, dtype=self.dtype, device=dev))
+                cfg.d_model, cfg.padded_vocab, dtype=store, device=dev))
         if cfg.vision is not None:
             self.vision_proj = nn.Parameter(torch.empty(
-                cfg.vision.patch_embed_dim, cfg.d_model, dtype=self.dtype,
+                cfg.vision.patch_embed_dim, cfg.d_model, dtype=store,
                 device=dev))
         if init:
             self._init_weights(torch.Generator(dev).manual_seed(seed))
@@ -149,7 +156,7 @@ def _embed_in(model: LM, tokens: torch.Tensor,
     patch_embed_dim), projected by `vision_proj` in the compute dtype,
     replace the first n positions; a prompt of fewer than n tokens raises
     (the reference would return a longer sequence)."""
-    x = embed(model.embed, tokens)
+    x = embed(model.embed, tokens, model.dtype)
     if model.cfg.tie_embeddings:
         x = x * x.new_tensor(math.sqrt(model.cfg.d_model))
     if model.cfg.vision is not None and patch_embeds is not None:
@@ -157,8 +164,8 @@ def _embed_in(model: LM, tokens: torch.Tensor,
         if n > x.shape[1]:
             raise ValueError(f"{n} patch embeddings exceed the prompt of "
                              f"{x.shape[1]} tokens")
-        x = torch.cat([dense(patch_embeds, model.vision_proj), x[:, n:]],
-                      dim=1)
+        proj = dense(patch_embeds, model.vision_proj, dtype=model.dtype)
+        x = torch.cat([proj, x[:, n:]], dim=1)
     return x
 
 
@@ -167,8 +174,8 @@ def _logits(model: LM, x: torch.Tensor) -> torch.Tensor:
     in the compute dtype (in bf16 each logit rounded to bf16), then
     upcast."""
     cfg = model.cfg
-    logits = unembed(model.embed, x) if cfg.tie_embeddings else \
-        dense(x, model.lm_head).float()
+    logits = unembed(model.embed, x, model.dtype) if cfg.tie_embeddings \
+        else dense(x, model.lm_head, dtype=model.dtype).float()
     return mask_pad_vocab(softcap(logits, cfg.final_softcap), cfg)
 
 
@@ -183,16 +190,18 @@ def mask_pad_vocab(logits: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
 
 
 def lm_forward(model: LM, tokens: torch.Tensor, rcfg: RunConfig,
-               patch_embeds: Optional[torch.Tensor] = None
+               patch_embeds: Optional[torch.Tensor] = None,
+               constrain: Optional[Callable] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The training forward: tokens (B, S) → (logits (B, S, V) fp32 at
     every position, the summed MoE aux loss, 0-d fp32).  Attention and
     the SSD go where `rcfg.kernels` says, each layer under
-    `torch.utils.checkpoint` with `rcfg.remat`."""
+    `torch.utils.checkpoint` with `rcfg.remat`; `constrain` as
+    `train_segments_forward` applies it."""
     x = _embed_in(model, tokens, patch_embeds)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     x, aux = train_segments_forward(model.layers, x, model.cfg, rcfg,
-                                    positions=positions)
+                                    positions=positions, constrain=constrain)
     x = rmsnorm(model.final_norm, x)
     return _logits(model, x), aux
 
@@ -207,14 +216,16 @@ def next_token_nll(logits: torch.Tensor, tokens: torch.Tensor
     return torch.logsumexp(lg, dim=-1) - picked
 
 
-def lm_loss(model: LM, batch: Dict[str, torch.Tensor], rcfg: RunConfig
+def lm_loss(model: LM, batch: Dict[str, torch.Tensor], rcfg: RunConfig,
+            constrain: Optional[Callable] = None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token cross entropy over `batch` = {"tokens": (B, S)[,
     "patch_embeds"]}: (loss + aux, {"loss", "aux_loss", "tokens"}).  A
     VLM does not train on the positions its patches fill."""
     tokens = batch["tokens"]
     logits, aux = lm_forward(model, tokens, rcfg,
-                             patch_embeds=batch.get("patch_embeds"))
+                             patch_embeds=batch.get("patch_embeds"),
+                             constrain=constrain)
     nll = next_token_nll(logits, tokens)
     mask = torch.ones_like(nll)
     if model.cfg.vision is not None:

@@ -27,9 +27,11 @@ expert GEMMs are split over 'model' on d_ff, and one reduction over
 'model' finishes them — `psum` of the (E, C, d) outputs, `scatter`
 (reduce-scatter over d, combine on the shard, all-gather) or
 `combine_first` (combine the partial outputs into (T, d), then sum).
-The collectives are DTensor redistributions on the mesh's sub-meshes.
-The tests hold its forward, as the reference's do; gradients through it
-are not held (ROADMAP.md, queue 1 item 8).
+The collectives are DTensor redistributions on the mesh's sub-meshes,
+each differentiated as its `shard_map` counterpart is (`_Collective`), so
+gradients through the dispatch are the reference's `jax.grad` of its
+sharded run: a replicated weight's gradient is summed over the data
+ranks once.
 """
 
 from __future__ import annotations
@@ -53,20 +55,23 @@ class MoE(nn.Module):
     """The router (d, E), the stacked expert weights `w_gate` / `w_up`
     (E, d, f) and `w_down` (E, f, d), and with shared experts the
     always-on `shared` FFN of `d_ff_shared` and its sigmoid gate
-    `shared_gate` (d, 1).  All in the compute dtype."""
+    `shared_gate` (d, 1).  `dtype` is the compute dtype; all are stored
+    in `param_dtype` (`dtype` when None)."""
 
     def __init__(self, cfg: ArchConfig, dtype: torch.dtype,
-                 device: torch.device) -> None:
+                 device: torch.device,
+                 param_dtype: Optional[torch.dtype] = None) -> None:
         super().__init__()
+        self.dtype = dtype
         mc, d = cfg.moe, cfg.d_model
         E, f = mc.n_experts, mc.d_ff_expert
-        kw = dict(dtype=dtype, device=device)
+        kw = dict(dtype=param_dtype or dtype, device=device)
         self.router = nn.Parameter(torch.empty(d, E, **kw))
         self.w_gate = nn.Parameter(torch.empty(E, d, f, **kw))
         self.w_up = nn.Parameter(torch.empty(E, d, f, **kw))
         self.w_down = nn.Parameter(torch.empty(E, f, d, **kw))
         if mc.n_shared_experts:
-            self.shared = FFN(d, mc.d_ff_shared, dtype, device)
+            self.shared = FFN(d, mc.d_ff_shared, dtype, device, param_dtype)
             self.shared_gate = nn.Parameter(torch.empty(d, 1, **kw))
 
 
@@ -90,14 +95,18 @@ class Routing(NamedTuple):
     keep: torch.Tensor        # (T·k,) bool
     slot: torch.Tensor        # (T·k,) int64
     capacity: int
+    order: torch.Tensor       # (T·k,) the pairs' token-major indices
 
 
-def route(router: torch.Tensor, x2: torch.Tensor, mc: MoEConfig) -> Routing:
-    """mp_split: the router's top-k of x2 (T, d), grouped by expert id."""
+def route(router: torch.Tensor, x2: torch.Tensor, mc: MoEConfig,
+          dtype: Optional[torch.dtype] = None) -> Routing:
+    """mp_split: the router's top-k of x2 (T, d), grouped by expert id;
+    the logits are the product in the compute dtype `dtype` (the
+    router's own when None), upcast."""
     T = x2.shape[0]
     E, k = mc.n_experts, mc.top_k
     C = _capacity(T, mc)
-    logits = dense(x2, router).float()
+    logits = dense(x2, router, dtype=dtype).float()
     probs = torch.softmax(logits, dim=-1)
     # stable descending sort: ties go to the lower expert id
     gate, expert_idx = torch.sort(probs, dim=-1, descending=True,
@@ -113,7 +122,8 @@ def route(router: torch.Tensor, x2: torch.Tensor, mc: MoEConfig) -> Routing:
     rank = torch.arange(T * k, device=x2.device) - first
     keep = rank < C
     slot = torch.where(keep, e_s * C + rank, torch.full_like(e_s, E * C))
-    return Routing(logits, probs, expert_idx, e_s, t_s, g_s, keep, slot, C)
+    return Routing(logits, probs, expert_idx, e_s, t_s, g_s, keep, slot, C,
+                   order)
 
 
 def dispatch(x2: torch.Tensor, r: Routing, n_experts: int) -> torch.Tensor:
@@ -124,7 +134,15 @@ def dispatch(x2: torch.Tensor, r: Routing, n_experts: int) -> torch.Tensor:
     cut off (no boolean mask, so the host never waits for the card)."""
     d = x2.shape[1]
     buf = x2.new_zeros(n_experts * r.capacity + 1, d)
-    buf[r.slot] = x2[r.t_s]
+    if torch.is_grad_enabled() and x2.requires_grad:
+        # the same rows, each token's once per choice, gathered by a
+        # permutation: its backward adds no two rows into one place, so
+        # the token gradients are the same bits run after run on the card
+        # (the backward of x2[t_s] adds a token's k rows by atomics)
+        k = r.expert_idx.shape[1]
+        buf[r.slot] = x2.repeat_interleave(k, dim=0)[r.order]
+    else:
+        buf[r.slot] = x2[r.t_s]
     return buf[:-1].view(n_experts, r.capacity, d)
 
 
@@ -146,13 +164,56 @@ def _combine(out_flat: torch.Tensor, r: Routing, k: int) -> torch.Tensor:
     return y
 
 
-def _redist(t: torch.Tensor, mesh, src, dst) -> torch.Tensor:
+def _move(t: torch.Tensor, mesh, src, dst) -> torch.Tensor:
     """A local tensor of placements `src` on `mesh` redistributed to
-    `dst`, as a local tensor (differentiable)."""
+    `dst`, as a local tensor, outside autograd."""
     from torch.distributed.tensor import DTensor
 
     return DTensor.from_local(t, mesh, src).redistribute(mesh, dst) \
         .to_local()
+
+
+class _Collective(torch.autograd.Function):
+    """A redistribution of local tensors on `mesh` whose backward is its
+    transpose, as the collectives of the reference's `shard_map`
+    differentiate: inside the mesh dispatch the local gradient of a value
+    replicated over a mesh dim is this rank's part of a sum.  A sum to
+    replicated (psum) goes back as a psum, a reduce-scatter as an
+    all-gather, an all-gather as a reduce-scatter; a replicated input
+    split onto the ranks goes back as the sum of the parts, whole on
+    every rank."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, src, dst):
+        ctx.mesh, ctx.src, ctx.dst = mesh, src, dst
+        return _move(t, mesh, src, dst)
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import Partial, Replicate
+
+        back_src = tuple(Partial() if q.is_replicate() else q
+                         for q in ctx.dst)
+        back_dst = tuple(Replicate() if q.is_partial() else q
+                         for q in ctx.src)
+        return _move(g.contiguous(), ctx.mesh, back_src, back_dst), None, \
+            None, None
+
+
+class _ScaleGrad(torch.autograd.Function):
+    """The identity, whose backward scales the gradient: a value leaving
+    the mesh dispatch replicated over n ranks gets 1/n of the (whole,
+    replicated) gradient on each, as `shard_map` divides the cotangent
+    of an output by the size of the mesh dims its spec leaves out."""
+
+    @staticmethod
+    def forward(ctx, t, scale):
+        ctx.scale = scale
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.scale, None
 
 
 def _sum_over(t: torch.Tensor, sub, dst=None) -> torch.Tensor:
@@ -160,17 +221,20 @@ def _sum_over(t: torch.Tensor, sub, dst=None) -> torch.Tensor:
     placement (``Shard(d)``), reduce-scattered to it."""
     from torch.distributed.tensor import Partial, Replicate
 
-    return _redist(t, sub, [Partial()], [dst or Replicate()])
+    return _Collective.apply(t, sub, (Partial(),), (dst or Replicate(),))
 
 
 def moe_dispatch_compute(p, x2: torch.Tensor, mc: MoEConfig, act: str,
                          psum_axis: Optional[str] = None,
                          reduce_mode: str = "psum",
-                         comm_dtype: Optional[torch.dtype] = None
+                         comm_dtype: Optional[torch.dtype] = None,
+                         dtype: Optional[torch.dtype] = None
                          ) -> Tuple[torch.Tensor, torch.Tensor,
                                     torch.Tensor]:
-    """Routed experts over flat tokens x2 (T, d), in the weights' dtype.
-    Returns (y (T, d), aux loss, dropped fraction), both fp32 scalars.
+    """Routed experts over flat tokens x2 (T, d), in the compute dtype
+    `dtype` (the router's when None): the tokens and each weight cast to
+    it.  Returns (y (T, d), aux loss, dropped fraction), both fp32
+    scalars.
 
     `psum_axis` names the dim of the installed MoE mesh (`set_moe_mesh`)
     over which `p`'s expert weights are split on d_ff: the expert
@@ -180,14 +244,16 @@ def moe_dispatch_compute(p, x2: torch.Tensor, mc: MoEConfig, act: str,
     from torch.distributed.tensor import Replicate, Shard
 
     E, k = mc.n_experts, mc.top_k
-    x2 = x2.to(p.router.dtype)
-    r = route(p.router, x2, mc)
+    cdt = dtype or p.router.dtype
+    x2 = x2.to(cdt)
+    r = route(p.router, x2, mc, cdt)
     buf = dispatch(x2, r, E)
-    h = activate(torch.bmm(buf, p.w_gate), act) * torch.bmm(buf, p.w_up)
-    out_buf = torch.bmm(h, p.w_down)                      # (E, C, d)
+    h = activate(torch.bmm(buf, p.w_gate.to(cdt)), act) * \
+        torch.bmm(buf, p.w_up.to(cdt))
+    out_buf = torch.bmm(h, p.w_down.to(cdt))              # (E, C, d)
     if comm_dtype is not None:
         out_buf = out_buf.to(comm_dtype)
-    EC, cdt = E * r.capacity, x2.dtype
+    EC = E * r.capacity
     if psum_axis is None:
         y = _combine(out_buf.to(cdt).reshape(EC, -1), r, k)
     else:
@@ -205,7 +271,7 @@ def moe_dispatch_compute(p, x2: torch.Tensor, mc: MoEConfig, act: str,
             # reduce-scatter d, combine on the shard, all-gather once
             out_buf = _sum_over(out_buf, sub, Shard(2))
             y = _combine(out_buf.to(cdt).reshape(EC, -1), r, k)
-            y = _redist(y, sub, [Shard(1)], [Replicate()])
+            y = _Collective.apply(y, sub, (Shard(1),), (Replicate(),))
         elif reduce_mode == "psum":
             y = _combine(_sum_over(out_buf, sub).to(cdt).reshape(EC, -1),
                          r, k)
@@ -246,18 +312,28 @@ def _mesh_dispatch(p: MoE, x2: torch.Tensor, mc: MoEConfig, act: str,
     the router whole; each rank runs `moe_dispatch_compute` on its
     shards, and the aux loss is averaged over the data dims.  Takes
     plain tensors (the same on every rank) or DTensors; y comes back
-    whole on every rank, or as a DTensor split over the data dims."""
+    whole on every rank, or as a DTensor split over the data dims (and
+    the aux loss as a replicated DTensor).
+
+    Gradients follow `shard_map`'s: inside, the local gradient of a value
+    replicated over a mesh dim is a part of a sum (`_Collective`), so a
+    replicated input's local gradient goes out as `Partial()` on the dims
+    it was replicated over and is summed there, once (a DTensor's by
+    `to_local(grad_placements=...)`, a plain tensor's whole on every
+    rank), and the outputs' gradients come in divided over the ranks
+    that hold them replicated (`_ScaleGrad`)."""
     from torch.distributed.tensor import DTensor, Partial, Replicate
 
     dp = data_axes(mesh)
     model = "model" if "model" in mesh.mesh_dim_names else None
-    whole = [Replicate()] * mesh.ndim
+    whole = (Replicate(),) * mesh.ndim
 
     def local(t: torch.Tensor, spec: P) -> torch.Tensor:
         pl = placements(mesh, spec)
         if isinstance(t, DTensor):
-            return t.redistribute(mesh, pl).to_local()
-        return _redist(t, mesh, whole, pl)
+            grad = tuple(Partial() if q.is_replicate() else q for q in pl)
+            return t.redistribute(mesh, pl).to_local(grad_placements=grad)
+        return _Collective.apply(t, mesh, whole, pl)
 
     shards = SimpleNamespace(
         router=local(p.router, P(None, None)),
@@ -267,13 +343,20 @@ def _mesh_dispatch(p: MoE, x2: torch.Tensor, mc: MoEConfig, act: str,
     comm = torch.bfloat16 if rcfg.moe_comm_dtype == "bfloat16" else None
     y, aux, _dropped = moe_dispatch_compute(
         shards, local(x2, P(dp or None, None)), mc, act, psum_axis=model,
-        reduce_mode=rcfg.moe_reduce, comm_dtype=comm)
+        reduce_mode=rcfg.moe_reduce, comm_dtype=comm, dtype=p.dtype)
+    ranks, dp_size = mesh.size(), 1
     if dp:
         sub = mesh[dp]
-        aux = _redist(aux, sub, [Partial()] * len(dp),
-                      [Replicate()] * len(dp)) / sub.size()
+        dp_size = sub.size()
+        aux = _Collective.apply(aux, sub, (Partial(),) * len(dp),
+                                (Replicate(),) * len(dp)) / dp_size
+    # y is replicated over the dims past the data dims, aux over all
+    y = _ScaleGrad.apply(y, dp_size / ranks)
+    aux = _ScaleGrad.apply(aux, 1.0 / ranks)
     y = DTensor.from_local(y, mesh, placements(mesh, P(dp or None, None)))
-    return (y if isinstance(x2, DTensor) else y.full_tensor()), aux
+    if not isinstance(x2, DTensor):
+        return y.full_tensor(), aux
+    return y, DTensor.from_local(aux, mesh, whole)
 
 
 def moe_forward(p: MoE, x: torch.Tensor, cfg: ArchConfig,
@@ -299,10 +382,11 @@ def moe_forward(p: MoE, x: torch.Tensor, cfg: ArchConfig,
     if mesh is not None:
         y2, aux = _mesh_dispatch(p, x2, mc, cfg.act, mesh, rcfg)
     else:
-        y2, aux, _dropped = moe_dispatch_compute(p, x2, mc, cfg.act)
+        y2, aux, _dropped = moe_dispatch_compute(p, x2, mc, cfg.act,
+                                                 dtype=p.dtype)
     y = y2.reshape(B, S, d)
     if mc.n_shared_experts:
         shared = ffn_forward(p.shared, x, cfg.act)
-        sg = torch.sigmoid(dense(x, p.shared_gate).float())
+        sg = torch.sigmoid(dense(x, p.shared_gate, dtype=p.dtype).float())
         y = y + sg.to(y.dtype) * shared
     return y, aux * mc.router_aux_weight

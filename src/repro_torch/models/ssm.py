@@ -15,9 +15,13 @@ cache {"conv": last K-1 raw conv inputs, "state": (B, H, N, P) fp32}, so
 a step costs the same at any length; it is plain PyTorch, as in the
 reference, which has no kernel for it.
 
-`in_proj` and `out_proj` run in the compute dtype; the conv, the
-softplus and the scan run in fp32 (the reference's default
-`ssd_compute_dtype`), and the small leaves are stored in fp32.
+`in_proj` and `out_proj` run in the compute dtype; the conv and the
+softplus run in fp32, and the small leaves are stored in fp32.  The scan
+reads two knobs of the `RunConfig` the layer was built with, as the
+reference's forward reads them: its chunk is `ssd_chunk` (the arch's
+`ssm.chunk` when 0), and under `ssd_compute_dtype="bfloat16"` its x, B
+and C go in as bf16 (the decay path and every product still accumulate
+in fp32), else as fp32.
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ from repro_torch.configs.base import ArchConfig, RunConfig
 from repro_torch.dist.sharding import hint
 from repro_torch.kernels.ssd.ops import ssd
 from repro_torch.kernels.ssd.ref import ssd_chunked_ref
-from .common import dense, needs_grad, plain_path, rmsnorm
+from .common import DTYPES, dense, needs_grad, plain_path, rmsnorm
 
 SSMCache = Dict[str, torch.Tensor]
 
@@ -52,14 +56,23 @@ def conv_dim(cfg: ArchConfig) -> int:
 
 
 class SSM(nn.Module):
-    """The leaves of the reference's `init_ssm`; `LM` draws their values."""
+    """The leaves of the reference's `init_ssm`; `LM` draws their values.
+    `dtype` is the compute dtype of `in_proj` and `out_proj`, which are
+    stored in `param_dtype` (`dtype` when None); `rcfg` gives the scan's
+    chunk and x/B/C dtype (`chunk`, `ssd_dtype`)."""
 
     def __init__(self, cfg: ArchConfig, dtype: torch.dtype,
-                 device: torch.device) -> None:
+                 device: torch.device,
+                 param_dtype: Optional[torch.dtype] = None,
+                 rcfg: Optional[RunConfig] = None) -> None:
         super().__init__()
+        rcfg = rcfg or RunConfig()
+        self.dtype = dtype
+        self.chunk = rcfg.ssd_chunk or cfg.ssm.chunk
+        self.ssd_dtype = DTYPES[rcfg.ssd_compute_dtype]
         d_inner, H, P, G, N = ssm_dims(cfg)
         d_conv = conv_dim(cfg)
-        kw = dict(dtype=dtype, device=device)
+        kw = dict(dtype=param_dtype or dtype, device=device)
         f32 = dict(dtype=torch.float32, device=device)
         self.in_proj = nn.Parameter(torch.empty(
             cfg.d_model, 2 * d_inner + 2 * G * N + H, **kw))
@@ -91,7 +104,7 @@ def _split_proj(proj: torch.Tensor, cfg: ArchConfig):
 
 def _gated_out(p: SSM, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
     y = rmsnorm(p.gate_norm, y * F.silu(z.float()))
-    return dense(y, p.out_proj)
+    return dense(y, p.out_proj, dtype=p.dtype)
 
 
 def ssm_forward(p: SSM, x: torch.Tensor, cfg: ArchConfig,
@@ -102,8 +115,9 @@ def ssm_forward(p: SSM, x: torch.Tensor, cfg: ArchConfig,
     sc = cfg.ssm
     Bb, S, _ = x.shape
     d_inner, H, P, G, N = ssm_dims(cfg)
+    L = p.chunk
 
-    z, xbc_raw, dt_raw = _split_proj(dense(x, p.in_proj), cfg)
+    z, xbc_raw, dt_raw = _split_proj(dense(x, p.in_proj, dtype=p.dtype), cfg)
     xbc_raw = xbc_raw.float()
     xbc = _causal_conv(xbc_raw, p.conv_w, p.conv_b)
     dt = F.softplus(dt_raw.float() + p.dt_bias)
@@ -111,7 +125,7 @@ def ssm_forward(p: SSM, x: torch.Tensor, cfg: ArchConfig,
 
     # pad the sequence to the chunk with zeros: zero dt gives exp(A·0) = 1
     # and no input, so the final state is the state at S
-    pad = (-S) % sc.chunk
+    pad = (-S) % L
     if pad:
         xbc, dt = F.pad(xbc, (0, 0, 0, pad)), F.pad(dt, (0, 0, 0, pad))
     xs, Bs, Cs = torch.split(xbc, [d_inner, G * N, G * N], dim=-1)
@@ -122,14 +136,15 @@ def ssm_forward(p: SSM, x: torch.Tensor, cfg: ArchConfig,
     dth = hint("ssm_dt3", dt.transpose(1, 2))
     Bg = Bs.reshape(Bb, -1, G, N).transpose(1, 2)
     Cg = Cs.reshape(Bb, -1, G, N).transpose(1, 2)
+    if p.ssd_dtype != torch.float32:
+        xh, Bg, Cg = (t.to(p.ssd_dtype) for t in (xh, Bg, Cg))
     args = (xh, dth, A, p.D, Bg, Cg)
     if plain_path(rcfg):
-        res = ssd_chunked_ref(*args, chunk=sc.chunk,
-                              return_state=return_state)
+        res = ssd_chunked_ref(*args, chunk=L, return_state=return_state)
     else:
         if rcfg is not None:
             needs_grad(*args, what="SSD")
-        res = ssd(*args, chunk=sc.chunk, return_state=return_state)
+        res = ssd(*args, chunk=L, return_state=return_state)
     y = hint("ssm_x4", res[0] if return_state else res)
     y = y[:, :, :S].transpose(1, 2).reshape(Bb, S, d_inner)
     out = _gated_out(p, y, z)
@@ -161,7 +176,8 @@ def ssm_decode_step(p: SSM, x: torch.Tensor, cache: SSMCache,
     Bb = x.shape[0]
     d_inner, H, P, G, N = ssm_dims(cfg)
 
-    z, xbc, dt_raw = _split_proj(dense(x, p.in_proj)[:, 0], cfg)
+    z, xbc, dt_raw = _split_proj(dense(x, p.in_proj, dtype=p.dtype)[:, 0],
+                                 cfg)
     wind = torch.cat([cache["conv"], xbc.float()[:, None]], dim=1)
     conv_out = F.silu(torch.einsum("bkc,kc->bc", wind, p.conv_w) + p.conv_b)
     xs, Bs, Cs = torch.split(conv_out, [d_inner, G * N, G * N], dim=-1)

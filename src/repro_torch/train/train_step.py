@@ -13,9 +13,12 @@ untouched state, as in the reference.
 The forward is the training one (`lm_loss` or `encdec_loss`), whose
 attention and SSD `rcfg.kernels` chooses: "xla", the plain PyTorch
 versions, is what the reference's launcher trains with; "pallas" raises,
-since no kernel has a backward.  Training is fp32: the port's models keep
-their matmul weights in the compute dtype, so bf16 training would need
-fp32 master weights, which are not ported.
+since no kernel has a backward.  The state keeps fp32 leaves whatever
+`rcfg.dtype` says, as the reference's `init_train_state` does (its
+`param_dtype` is read nowhere, here or there): under the reference's
+default `dtype="bfloat16"` every product casts its fp32 master weight to
+bf16 at use, autograd takes the gradient back through the cast to fp32,
+and AdamW updates the fp32 leaves.  Remat recomputes the same casts.
 
 On a mesh: `distribute_train_state` puts the parameters and moments on
 a `DeviceMesh` as DTensors with the rule table's placements
@@ -32,12 +35,14 @@ many microbatches, run one after another, their gradients summed into
 from __future__ import annotations
 
 import contextlib
-from typing import Any, Callable, Dict, Tuple, Union
+from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import torch
 
 from repro_torch.configs.base import ArchConfig, RunConfig
 from repro_torch.models import EncDec, LM, encdec_loss, lm_loss
+from repro_torch.models.common import DTYPES
+from repro_torch.models.ssm import SSM
 from repro_torch.optim import adamw_init, adamw_update, cosine_schedule
 
 TrainState = Dict[str, Any]     # {"params", "opt", "step"}
@@ -57,12 +62,29 @@ def init_fn_for(cfg: ArchConfig) -> Callable:
 
 
 def check_train_dtype(rcfg: RunConfig) -> None:
-    if rcfg.dtype != "float32":
-        raise NotImplementedError(
-            f"training with dtype={rcfg.dtype!r} needs fp32 master weights, "
-            f"which the port does not keep (its models store matmul "
-            f"weights in the compute dtype); train with "
-            f"RunConfig(dtype='float32'), as the reference's launcher does")
+    """A compute dtype neither package has raises (the reference's are
+    "bfloat16" and "float32")."""
+    if rcfg.dtype not in DTYPES:
+        raise ValueError(f"unknown compute dtype {rcfg.dtype!r}: the "
+                         f"reference computes in {sorted(DTYPES)}")
+
+
+def check_model(model: torch.nn.Module, cfg: ArchConfig,
+                rcfg: RunConfig) -> None:
+    """`model` must have been built with `rcfg`'s numerics (a model reads
+    its compute dtype and SSD knobs when it is built): else ValueError."""
+    want = (DTYPES[rcfg.dtype], rcfg.ssd_chunk or
+            (cfg.ssm.chunk if cfg.ssm else 0), DTYPES[rcfg.ssd_compute_dtype])
+    for m in model.modules():
+        if isinstance(m, SSM):
+            got = (model.dtype, m.chunk, m.ssd_dtype)
+            break
+    else:
+        got = (model.dtype,) + want[1:]
+    if got != want:
+        raise ValueError(f"the model computes with (dtype, ssd chunk, ssd "
+                         f"dtype) {got}, the RunConfig says {want}: build "
+                         f"it with this RunConfig")
 
 
 def train_state(model: torch.nn.Module) -> TrainState:
@@ -76,10 +98,12 @@ def init_train_state(seed: int, cfg: ArchConfig, rcfg: RunConfig,
                      device: Union[str, torch.device, None] = None,
                      init: bool = True) -> TrainState:
     """The model's weights drawn from `seed` on `device` (the card unless
-    it says otherwise) and a fresh optimizer state; `init=False` leaves
-    the weights unset, for a restore to fill."""
+    it says otherwise), stored in fp32 and computed in `rcfg.dtype`, and
+    a fresh optimizer state; `init=False` leaves the weights unset, for a
+    restore to fill."""
     check_train_dtype(rcfg)
-    model = init_fn_for(cfg)(cfg, rcfg, seed=seed, device=device, init=init)
+    model = init_fn_for(cfg)(cfg, rcfg, seed=seed, device=device, init=init,
+                             param_dtype=torch.float32)
     return train_state(model)
 
 
@@ -114,9 +138,12 @@ def _on_mesh(model: torch.nn.Module):
 
 
 def make_train_step(cfg: ArchConfig, rcfg: RunConfig,
+                    constrain: Optional[Callable] = None,
                     total_steps: int = 10_000) -> Callable:
     """Returns step(state, batch) → (state, metrics); `batch` is a dict
-    of tensors on the model's device."""
+    of tensors on the model's device, `state["params"]` a model built
+    with `rcfg` (`check_model`).  `constrain` goes to the loss, as in the
+    reference (`lm_loss` applies it between layers)."""
     check_train_dtype(rcfg)
     loss_fn = loss_fn_for(cfg)
     warmup = min(100, max(1, total_steps // 10))
@@ -131,7 +158,7 @@ def make_train_step(cfg: ArchConfig, rcfg: RunConfig,
             for i in range(M):
                 mb = {k: v.reshape(M, v.shape[0] // M, *v.shape[1:])[i]
                       for k, v in batch.items()}
-                loss, metrics = loss_fn(model, mb, rcfg)
+                loss, metrics = loss_fn(model, mb, rcfg, constrain)
                 loss.backward()
                 loss_sum = loss_sum + loss.detach().cpu()
             for p in params.values():
@@ -139,7 +166,7 @@ def make_train_step(cfg: ArchConfig, rcfg: RunConfig,
                     p.grad.div_(M)
             metrics = dict(metrics, loss=loss_sum / M)
         else:
-            loss, metrics = loss_fn(model, batch, rcfg)
+            loss, metrics = loss_fn(model, batch, rcfg, constrain)
             loss.backward()
         grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
                  for n, p in params.items()}
@@ -147,6 +174,7 @@ def make_train_step(cfg: ArchConfig, rcfg: RunConfig,
 
     def step(state: TrainState, batch: Dict[str, Any]
              ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        check_model(state["params"], cfg, rcfg)
         with _on_mesh(state["params"]):
             params, grads, metrics = compute_grads(state["params"], batch)
         lr = cosine_schedule(state["step"], peak_lr=rcfg.learning_rate,

@@ -1,7 +1,7 @@
 """The port's distributed layer on four ranks against the reference's on
 four devices, on the CPU: the sharded train step, the MoE mesh dispatch
-in its three reductions, `gpipe`, `compressed_psum` and the elastic
-restore.
+in its three reductions (forward and gradients), the bf16 train step
+over fp32 leaves, `gpipe`, `compressed_psum` and the elastic restore.
 
 The port runs in four processes joined by `torch.distributed`'s gloo
 backend on a (2, 2) data×model mesh (a (4,) one for the pipeline and the
@@ -24,6 +24,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro.configs import get as j_get
 from repro.configs.base import RunConfig as JRunConfig, reduced as j_reduced
@@ -142,7 +143,10 @@ from repro.models import init_lm, lm_loss
 
 tmp = {tmp!r}
 out = {{}}
-mesh = jax.make_mesh((2, 2), ("data", "model"))
+# Auto axes: on Explicit ones (the default) the backward's contraction
+# over the data-split tokens has no output sharding to take
+mesh = jax.make_mesh((2, 2), ("data", "model"),
+                     (jax.sharding.AxisType.Auto,) * 2)
 for cf in {factors!r}:
     base = reduced(get("mixtral-8x7b"), **{dims!r})
     cfg = dataclasses.replace(base, moe=dataclasses.replace(
@@ -158,11 +162,14 @@ for cf in {factors!r}:
                          moe_reduce=mode)
         shd.set_moe_mesh(mesh)
         with mesh:
-            loss, m = jax.jit(lambda p, b: lm_loss(p, b, cfg, rcfg))(
+            (loss, m), grads = jax.jit(jax.value_and_grad(
+                lambda p, b: lm_loss(p, b, cfg, rcfg), has_aux=True))(
                 params, batch)
         shd.set_moe_mesh(None)
         out[f"moe {{cf}} {{mode}}"] = [float(loss), float(m["loss"]),
                                       float(m["aux_loss"])]
+        np.savez(f"{{tmp}}/ref_grads_{{cf}}_{{mode}}.npz", *[
+            np.asarray(g) for g in jax.tree_util.tree_leaves(grads)])
 
 pipe = np.load(f"{{tmp}}/pipe.npz")
 smesh = jax.make_mesh((4,), ("stage",))
@@ -188,6 +195,7 @@ import dataclasses, json
 import numpy as np
 from torch.distributed.device_mesh import init_device_mesh
 from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import implicit_replication
 from repro_torch.configs import get
 from repro_torch.configs.base import RunConfig, reduced
 from repro_torch.dist import checkpoint as ckpt, sharding as shd
@@ -234,6 +242,20 @@ out["moment placements"] = {
     for n, t in state["opt"]["mu"].items()}
 for n, p in state["params"].named_parameters():
     arrays["train " + n] = whole(p.detach()).numpy()
+# the same step in bf16 over fp32 leaves
+rcfg16 = dataclasses.replace(rcfg, dtype="bfloat16")
+state = train_state(load(LM(cfg, rcfg16, device="cpu", init=False,
+                            param_dtype=torch.float32), tin))
+shd.set_hint_fn(shd.make_hint_fn(mesh, cfg.n_kv_heads, True))
+distribute_train_state(state, mesh)
+state, m = make_train_step(cfg, rcfg16)(state, batch)
+shd.set_hint_fn(None)
+out["train bf16"] = [float(whole(m["loss"])), float(whole(m["grad_norm"]))]
+out["train bf16 placements"] = {
+    n: [str(pl) for pl in p.placements] + [str(p.dtype)]
+    for n, p in state["params"].named_parameters()}
+for n, p in state["params"].named_parameters():
+    arrays["step16 " + n] = whole(p.detach()).numpy()
 
 # the MoE mesh dispatch against the local path
 for cf in FACTORS:
@@ -256,6 +278,54 @@ for cf in FACTORS:
                                       float(dm["aux_loss"]), float(loss),
                                       float(ml["loss"]),
                                       float(ml["aux_loss"])]
+
+# gradients through the MoE mesh dispatch: plain weights (the same on
+# every rank, each gradient whole on every rank), and for combine_first
+# DTensor weights on the mesh with a data-split batch, in fp32 and with
+# bf16 compute over the fp32 leaves
+for cf in FACTORS:
+    base = reduced(get("mixtral-8x7b"), **DIMS)
+    mcfg = dataclasses.replace(base, moe=dataclasses.replace(
+        base.moe, capacity_factor=cf))
+    npz = np.load(f"{tmp}/moe_{cf}_port.npz")
+    tokens = {"tokens": torch.from_numpy(npz["tokens"])}
+    for mode in MODES:
+        r = RunConfig(kernels="xla", dtype="float32", remat=False,
+                      moe_reduce=mode)
+        model = load(LM(mcfg, r, device="cpu", init=False), npz)
+        for on_mesh in (True, False):
+            shd.set_moe_mesh(mesh if on_mesh else None)
+            loss, _ = lm_loss(model, tokens, r)
+            loss.backward()
+            shd.set_moe_mesh(None)
+            tag = "mesh" if on_mesh else "local"
+            for n, p in model.named_parameters():
+                arrays[f"grad {tag} {cf} {mode} {n}"] = p.grad.numpy().copy()
+                p.grad = None
+    for dtype in ("float32", "bfloat16"):
+        r = RunConfig(kernels="xla", dtype=dtype, remat=False,
+                      moe_reduce="combine_first")
+        model = load(LM(mcfg, r, device="cpu", init=False,
+                        param_dtype=torch.float32), npz)
+        if dtype == "bfloat16":       # plain weights, for the DTensor run
+            shd.set_moe_mesh(mesh)
+            loss, _ = lm_loss(model, tokens, r)
+            loss.backward()
+            shd.set_moe_mesh(None)
+            for n, p in model.named_parameters():
+                arrays[f"grad mesh16 {cf} {n}"] = p.grad.numpy().copy()
+                p.grad = None
+        shd.distribute_params(model, mesh)
+        shd.set_moe_mesh(mesh)
+        with implicit_replication():
+            loss, _ = lm_loss(model, shd.distribute_batch(tokens, mesh), r)
+            loss.backward()
+        shd.set_moe_mesh(None)
+        for n, p in model.named_parameters():
+            arrays[f"grad dtensor {dtype} {cf} {n}"] = whole(p.grad).numpy()
+            out[f"grad placements {dtype} {cf} {n}"] = [
+                [str(pl) for pl in p.placements],
+                [str(pl) for pl in p.grad.placements]]
 
 # gpipe over four stages and the compressed sum
 pipe = np.load(f"{tmp}/pipe.npz")
@@ -360,6 +430,12 @@ def runs(tmp_path_factory):
     single = train_state(model)
     single, m = make_train_step(port_cfg(jcfg), rcfg)(
         single, {"tokens": torch.from_numpy(tokens)})
+    rcfg16 = dataclasses.replace(rcfg, dtype="bfloat16")
+    single16 = train_state(lm_from_numpy(
+        port_cfg(jcfg), jax.tree_util.tree_map(np.asarray, params), rcfg16,
+        device="cpu", param_dtype=torch.float32))
+    single16, m16 = make_train_step(port_cfg(jcfg), rcfg16)(
+        single16, {"tokens": torch.from_numpy(tokens)})
     # the local MoE loss of the reference (no mesh) for each case
     j_local = {}
     for cf, (mj, mp, mtok) in moe_batches.items():
@@ -379,7 +455,8 @@ def runs(tmp_path_factory):
         ref_arrays=dict(np.load(tmp / "reference.npz")),
         jm=jm, jparams=jstate["params"], jcfg=jcfg, single=single,
         single_m=m, j_local=j_local, pipe=dict(np.load(tmp / "pipe.npz")),
-        elastic=elastic)
+        elastic=elastic, moe_batches=moe_batches, tmp=tmp,
+        single16=single16, single16_m=m16)
 
 
 def as_port_names(jcfg, tree):
@@ -452,6 +529,106 @@ def test_moe_mesh_dispatch_matches_local_where_nothing_drops(runs, mode):
     np.testing.assert_allclose(got[1], got[4], rtol=F32_RTOL)
     np.testing.assert_allclose(got[0], got[3], rtol=MOE_RTOL)
     np.testing.assert_allclose(got[3], runs["j_local"][8.0], rtol=F32_RTOL)
+
+
+def test_sharded_bf16_train_step_keeps_the_rules_and_fp32_leaves(runs):
+    """The (2, 2) step in bf16 over fp32 leaves: every parameter on the
+    placements of the fp32 step (the rule table does not read the dtype)
+    and fp32; the loss and grad norm within the bf16 tolerance of the
+    single-process bf16 step, and the weights within 2·lr of its (Adam
+    moves a weight by at most about lr a step)."""
+    port = runs["port"]
+    pl = port["train bf16 placements"]
+    assert {n: v[:-1] for n, v in pl.items()} == port["train placements"]
+    assert {v[-1] for v in pl.values()} == {str(torch.float32)}
+    loss, gnorm = port["train bf16"]
+    np.testing.assert_allclose(loss, float(runs["single16_m"]["loss"]),
+                               rtol=2e-2)
+    np.testing.assert_allclose(gnorm, float(runs["single16_m"]["grad_norm"]),
+                               rtol=2e-2)
+    lr = float(runs["single16_m"]["lr"])
+    for n, p in runs["single16"]["params"].named_parameters():
+        got = runs["arrays"]["step16 " + n]
+        assert np.max(np.abs(got - p.detach().numpy())) <= 2 * lr + 1e-7, n
+
+
+def reference_grads(runs, cf, mode):
+    """The reference's sharded-run gradients of a MoE case, by port
+    name."""
+    mj, mp, _ = runs["moe_batches"][cf]
+    npz = np.load(runs["tmp"] / f"ref_grads_{cf}_{mode}.npz")
+    leaves = [npz[f"arr_{i}"] for i in range(len(npz.files))]
+    return as_port_names(mj, jax.tree_util.tree_unflatten(
+        jax.tree_util.tree_structure(mp), leaves))
+
+
+def grad_err(got, want) -> float:
+    return float(np.max(np.abs(got - want)) / max(np.max(np.abs(want)),
+                                                   1e-30))
+
+
+@pytest.mark.parametrize("cf", MOE_FACTORS)
+@pytest.mark.parametrize("mode", MOE_MODES)
+def test_moe_mesh_dispatch_gradients_match_the_reference(runs, mode, cf):
+    """The backward through the mesh dispatch on four gloo ranks against
+    `jax.grad` of the reference's `shard_map` run on four fake devices:
+    every parameter's gradient within the MoE tolerance, 2e-4 of its
+    leaf's largest."""
+    want = reference_grads(runs, cf, mode)
+    for name, w in want.items():
+        got = runs["arrays"][f"grad mesh {cf} {mode} {name}"]
+        assert grad_err(got, w) < MOE_RTOL, (name, grad_err(got, w))
+
+
+@pytest.mark.parametrize("mode", MOE_MODES)
+def test_moe_mesh_gradients_sum_over_the_data_ranks_once(runs, mode):
+    """Where no pair drops (capacity factor 8), the last layer's expert
+    weights' gradients on the (2, 2) mesh equal the local path's within
+    f32 rounding (no aux loss lies past them, and the aux loss, averaged
+    per data shard on the mesh, is all that parts the two runs): each
+    rank's part is summed over the data ranks once, not left alone or
+    doubled."""
+    a = runs["arrays"]
+    last = TRAIN_DIMS["n_layers"] - 1
+    experts = [k.split(" ", 4)[-1] for k in a
+               if k.startswith(f"grad mesh 8.0 {mode} layers.{last}.moe.w_")]
+    assert len(experts) == 3
+    for n in experts:
+        got, loc = a[f"grad mesh 8.0 {mode} {n}"], \
+            a[f"grad local 8.0 {mode} {n}"]
+        assert grad_err(got, loc) < F32_RTOL, (n, grad_err(got, loc))
+
+
+@pytest.mark.parametrize("cf", MOE_FACTORS)
+def test_moe_gradients_of_dtensor_weights_on_the_mesh(runs, cf):
+    """DTensor weights on the mesh with a data-split batch: each rank's
+    part of a gradient is summed once (fp32: the plain weights' gradients
+    within 2e-5 of the leaf's max), and in bf16 over the fp32 leaves the
+    weights and their gradients take the placements of the fp32 run and
+    the gradients are fp32, where nothing drops (capacity factor 8)
+    within 2e-2 in norm of the plain weights' bf16 gradients.  (Where
+    pairs drop, a bf16 rounding that moves a token across an expert's
+    capacity moves its gradients by far more than rounding.)"""
+    a, port = runs["arrays"], runs["port"]
+    names = [k.split(" ", 4)[-1] for k in a
+             if k.startswith(f"grad dtensor float32 {cf} ")]
+    assert names
+    got16, want32 = [], []
+    for n in names:
+        f32 = a[f"grad dtensor float32 {cf} {n}"]
+        plain = a[f"grad mesh {cf} combine_first {n}"]
+        assert grad_err(f32, plain) < F32_RTOL, (n, grad_err(f32, plain))
+        assert port[f"grad placements bfloat16 {cf} {n}"] == \
+            port[f"grad placements float32 {cf} {n}"], n
+        g16 = a[f"grad dtensor bfloat16 {cf} {n}"]
+        assert g16.dtype == np.float32
+        got16.append(g16.ravel())
+        want32.append(a[f"grad mesh16 {cf} {n}"].ravel())
+    got16, want32 = np.concatenate(got16), np.concatenate(want32)
+    assert np.all(np.isfinite(got16))
+    if cf == 8.0:
+        assert np.linalg.norm(got16 - want32) < \
+            2e-2 * np.linalg.norm(want32)
 
 
 def test_gpipe_matches_sequential_and_the_reference(runs):

@@ -70,7 +70,7 @@ def test_every_module_imports_without_jax_or_repro():
                   "dist.fault", "dist.checkpoint", "models.encdec",
                   "configs.seamless_m4t_large_v2", "launch.train",
                   "dist.sharding", "dist.pipeline_parallel",
-                  "launch.mesh"):
+                  "launch.mesh", "launch.specs"):
             assert "repro_torch." + n in names, n
         for n in names:
             importlib.import_module(n)
@@ -324,3 +324,20 @@ def test_production_mesh_refuses_a_world_of_4(tmp_path):
         # are {0, 2} and {1, 3}
         want = 2.0 if rank % 2 == 0 else 4.0
         assert f"sum [{want}, {want}, {want}, {want}]" in out, out
+
+
+def test_specs_build_every_cell_without_jax():
+    """`python -m repro_torch.launch.specs --all` where `jax` cannot be
+    imported: every cell of the ten archs on the fake (16, 16) mesh."""
+    out = _run("""
+        import runpy, sys
+        sys.argv = ["specs", "--all"]
+        try:
+            runpy.run_module("repro_torch.launch.specs",
+                             run_name="__main__")
+        except SystemExit as e:
+            assert e.code == 0, e.code
+    """)
+    lines = [ln for ln in out.splitlines() if ln.startswith('{"cell"')]
+    assert len(lines) == 33, out
+

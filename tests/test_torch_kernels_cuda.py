@@ -532,8 +532,60 @@ def test_ssd_unsupported_shapes_raise(cuda):
     with pytest.raises(TypeError):
         ssd(x.half(), dt, A, D, Bm.half(), Cm.half(), chunk=32)
     big = dict(B=1, H=1, G=1, S=256, P=256, N=256, chunk=256)
-    with pytest.raises(RuntimeError):     # tiles over 227 KB of smem
+    before = SK.launches
+    with pytest.raises(ValueError, match="shared memory"):  # over 227 KB
         ssd(*_ssd_inputs(big, torch.float32, cuda, 15), chunk=256)
+    assert SK.launches == before
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ssd_mamba2_chunk_64_on_the_tensor_cores(cuda, dtype):
+    """`RunConfig(ssd_chunk=64)` at mamba2-1.3b's prefill shape on the
+    model's views: the tensor-core route, against the plain version at
+    chunk 64."""
+    args = _ssd_view_inputs(4, 64, 1, 4608, 64, 128, dtype, cuda, 29)
+    assert SK.route(args[0], args[4], args[5], 64) == "tensor_cores"
+    before = dict(SK.launches_by_route)
+    y, state = ssd(*args, chunk=64, return_state=True)
+    assert SK.launches_by_route["tensor_cores"] == \
+        before["tensor_cores"] + 1
+    want_y, want_state = ssd_chunked_ref(*args, chunk=64, return_state=True)
+    assert _rel_err(y, want_y) < TOL[dtype]
+    assert _rel_err(state, want_state) < TOL[dtype]
+
+
+@pytest.mark.parametrize("chunk", [64, 128])
+def test_ssd_bf16_compute_on_the_tensor_cores(cuda, chunk):
+    """`RunConfig(ssd_compute_dtype="bfloat16")` hands the scan x, B and C
+    cast to bf16 (fresh dense tensors) and dt in fp32: the tensor-core
+    route, against the plain version of the same operands."""
+    view = _ssd_view_inputs(4, 64, 1, 4608, 64, 128, torch.float32, cuda,
+                            30)
+    x, dt, A, D, Bm, Cm = view
+    args = (x.bfloat16(), dt, A, D, Bm.bfloat16(), Cm.bfloat16())
+    assert SK.route(args[0], args[4], args[5], chunk) == "tensor_cores"
+    before = dict(SK.launches_by_route)
+    y, state = ssd(*args, chunk=chunk, return_state=True)
+    assert SK.launches_by_route["tensor_cores"] == \
+        before["tensor_cores"] + 1
+    assert y.dtype == torch.bfloat16 and state.dtype == torch.float32
+    want_y, want_state = ssd_chunked_ref(*args, chunk=chunk,
+                                         return_state=True)
+    assert _rel_err(y, want_y) < TOL[torch.bfloat16]
+    assert _rel_err(state, want_state) < TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ssd_chunk_256_at_mamba2s_state_is_refused(cuda, dtype):
+    """`ssd_chunk=256` at N 128, P 64: over the tensor-core route's chunk
+    of 128, and the CUDA-core route would need 332,800 bytes of shared
+    memory a block; refused before launch with an error naming it, and
+    never sent to the plain version."""
+    args = _ssd_view_inputs(1, 8, 1, 512, 64, 128, dtype, cuda, 31)
+    before = (SK.launches, dict(SK.launches_by_route))
+    with pytest.raises(ValueError, match="chunk 256 at N 128"):
+        ssd(*args, chunk=256)
+    assert (SK.launches, dict(SK.launches_by_route)) == before
 
 
 # --------------------------------------------------------------------------

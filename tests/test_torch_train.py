@@ -395,11 +395,19 @@ def test_pallas_kernels_under_autograd_raise(arch, what):
 
 
 def test_bf16_training_raises():
+    """bf16 training no longer raises: it keeps fp32 master weights
+    (`tests/test_torch_train_bf16.py` holds it against the reference).
+    A compute dtype neither package has still raises."""
     bf16 = dataclasses.replace(RCFG, dtype="bfloat16")
-    with pytest.raises(NotImplementedError, match="master weights"):
-        make_train_step(_tiny("gemma2-2b"), bf16)
-    with pytest.raises(NotImplementedError, match="master weights"):
-        init_train_state(0, _tiny("gemma2-2b"), bf16, device="cpu")
+    state = init_train_state(0, _tiny("gemma2-2b"), bf16, device="cpu")
+    assert {p.dtype for p in state["params"].parameters()} == \
+        {torch.float32}
+    make_train_step(_tiny("gemma2-2b"), bf16)
+    fp16 = dataclasses.replace(RCFG, dtype="float16")
+    with pytest.raises(ValueError, match="unknown compute dtype"):
+        make_train_step(_tiny("gemma2-2b"), fp16)
+    with pytest.raises(ValueError, match="unknown compute dtype"):
+        init_train_state(0, _tiny("gemma2-2b"), fp16, device="cpu")
 
 
 @pytest.mark.parametrize("arch", ["gemma2-2b", "mamba2-1.3b",
