@@ -270,7 +270,35 @@ lines tagged with its name:
                pair of the ten archs on the (16, 16) data x model
                production mesh over torch's fake process group of 256
                ranks, on the meta device; each cell's count of argument
-               leaves and its seconds, 33 cells.
+               leaves and its seconds, 33 cells;
+ 14. dryrun  — `python -m repro_torch.launch.dryrun --cells ...` in a
+               child process: gemma2-2b's train, prefill and decode cells,
+               qwen2-moe-a2.7b train, mamba2-1.3b prefill, qwen2.5-32b
+               decode and seamless-m4t-large-v2 decode on the fake (16, 16)
+               mesh, and gemma2-2b decode on the (2, 16, 16) one (the plain
+               path on meta tensors: no kernel runs), into
+               `build/dryrun_torch`: exit 0, each JSON with the reference's
+               keys, flops, bytes and temp bytes > 0, collective bytes > 0
+               in the train cells; each cell's compute, memory and
+               collective seconds on the H100's terms, bottleneck, model
+               over counted flops and seconds; then `python -m
+               repro_torch.launch.debug_collectives --arch gemma2-2b
+               --shape train_4k`, which must print its header;
+ 15. roofline — the cost counter on a real step: gemma2-2b's bf16 step
+               over fp32 masters (B 4 x 512, no mesh) counted on the card
+               by `launch.hlo_cost.count_call` equals, in flops,
+               transcendentals and bytes, the same step traced on the meta
+               device; the step alone and counted, 3 rounds in turns; the
+               fastest step must take at least the count's compute term;
+               compute and memory terms, their shares of the step, and
+               model flops over the step's time, beside the card's name
+               and power limit.
+
+The dry-run and debug_collectives run on the CPU as well, from the root
+of a checkout: `PYTHONPATH=src python -m repro_torch.launch.dryrun --arch
+gemma2-2b --shape train_4k` (or `--all`, 33 cells, minutes) and
+`PYTHONPATH=src python -m repro_torch.launch.debug_collectives --arch
+gemma2-2b --shape train_4k [--bytes]`.
 
 Any failure raises and exits non-zero.  The second-to-last line is a JSON
 object with one entry per kernel; the last is the device line.
@@ -3876,21 +3904,26 @@ def phase_mesh(mods):
     free_card()
 
 
+def child(args, timeout):
+    """`python3 -m ...args` from the checkout, in a child process (this
+    one's default process group was NCCL's); its stdout."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    proc = subprocess.run([sys.executable, "-m"] + args, capture_output=True,
+                          text=True, env=env, cwd=str(ROOT), timeout=timeout)
+    if proc.returncode:
+        raise AssertionError(f"{args[0]}: exit {proc.returncode}\n"
+                             f"{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+    return proc.stdout
+
+
 def phase_specs():
     """Every (arch × shape) cell of `launch.specs.build_cell` on the fake
     (16, 16) production mesh, in a child process: this one's default
     process group was NCCL's (the mesh phase), and a process holds one.
     Each cell's count of argument leaves and its seconds; 33 cells."""
     t0 = time.perf_counter()
-    env = dict(os.environ, PYTHONPATH=str(SRC))
-    proc = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.specs", "--all"],
-        capture_output=True, text=True, env=env, cwd=str(ROOT),
-        timeout=300)
-    if proc.returncode:
-        raise AssertionError(f"specs: exit {proc.returncode}\n"
-                             f"{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
-    cells = [json.loads(ln) for ln in proc.stdout.splitlines()
+    text = child(["repro_torch.launch.specs", "--all"], 300)
+    cells = [json.loads(ln) for ln in text.splitlines()
              if ln.startswith('{"cell"')]
     if len(cells) != 33 or not all(c["leaves"] > 0 for c in cells):
         raise AssertionError(f"specs: {len(cells)} cells: {cells}")
@@ -3901,6 +3934,128 @@ def phase_specs():
     total = sum(c["s"] for c in cells)
     log(f"[specs] {len(cells)} cells, build_cell {total:.2f} s in all; "
         f"phase {time.perf_counter() - t0:.1f} s with the child's start")
+
+
+#: the dry-run phase's cells on the fake (16, 16) mesh, and its one cell
+#: on the (2, 16, 16) one
+DRYRUN_CELLS = ("gemma2-2b:train_4k", "gemma2-2b:prefill_32k",
+                "gemma2-2b:decode_32k", "qwen2-moe-a2.7b:train_4k",
+                "mamba2-1.3b:prefill_32k", "qwen2.5-32b:decode_32k",
+                "seamless-m4t-large-v2:decode_32k")
+DRYRUN_POD2 = "gemma2-2b:decode_32k"
+RESULT_KEYS = {"name", "mesh", "n_devices", "cost", "cost_raw", "memory",
+               "collectives", "while_trips", "roofline", "lower_s",
+               "compile_s", "model_flops_global", "shape", "run_config"}
+
+
+def phase_dryrun():
+    """`python -m repro_torch.launch.dryrun` over `DRYRUN_CELLS` on the
+    fake (16, 16) mesh and `DRYRUN_POD2` on the (2, 16, 16) one, in
+    child processes, into `build/dryrun_torch`: exit 0, every file with
+    the reference's keys, flops, bytes and temp bytes > 0, collective
+    bytes > 0 in the train cells; each cell's three terms, bottleneck,
+    model over counted flops and seconds.  Then `debug_collectives` on
+    gemma2-2b's train cell, which must print the reference's header."""
+    t0 = time.perf_counter()
+    out_dir = ROOT / "build" / "dryrun_torch"
+    dr = ["repro_torch.launch.dryrun", "--out", str(out_dir)]
+    child(dr + ["--cells", ",".join(DRYRUN_CELLS)], 900)
+    child(dr + ["--cells", DRYRUN_POD2, "--multi-pod"], 300)
+    for cell, tag in [(c, "pod1") for c in DRYRUN_CELLS] + [
+            (DRYRUN_POD2, "pod2")]:
+        arch, shape = cell.split(":")
+        with open(out_dir / f"{arch}_{shape}_{tag}.json") as f:
+            art = json.load(f)
+        rl, mem = art["roofline"], art["memory"]
+        coll = art["collectives"]["total_bytes"]
+        if set(art) != RESULT_KEYS or not (
+                rl["flops_per_device"] > 0 and rl["bytes_per_device"] > 0
+                and mem["temp_bytes"] > 0) or (
+                shape.startswith("train") and not coll > 0):
+            raise AssertionError(f"dryrun {cell} {tag}: {art}")
+        ratio = art["model_flops_global"] / art["n_devices"] / \
+            rl["flops_per_device"]
+        log(f"[dryrun] {cell} on {rl['mesh']}: compute {rl['compute_s']:.4g}"
+            f" s, memory {rl['memory_s']:.4g} s, collective "
+            f"{rl['collective_s']:.4g} s -> {rl['bottleneck']}-bound; model "
+            f"/ counted flops {ratio:.3f}; temp "
+            f"{mem['temp_bytes'] / 2**30:.2f} GiB a rank; build "
+            f"{art['lower_s']:.1f} s, count {art['compile_s']:.1f} s")
+    text = child(["repro_torch.launch.debug_collectives", "--arch",
+                  "gemma2-2b", "--shape", "train_4k", "--top", "5"], 300)
+    if "total weighted collective bytes/device" not in text:
+        raise AssertionError(f"debug_collectives: {text[-2000:]}")
+    log("[dryrun] debug_collectives gemma2-2b train_4k: " +
+        " | ".join(ln.strip() for ln in text.splitlines()[:6]))
+    log(f"[dryrun] phase {time.perf_counter() - t0:.1f} s")
+
+
+def phase_roofline(smi):
+    """The cost counter on a real step: gemma2-2b's bf16 step over fp32
+    masters (the train-bf16 phase's, B 4 x 512, no mesh) counted on the
+    card under `launch.hlo_cost.count_call` and traced on the meta
+    device: flops, transcendentals and bytes equal.  Then the step alone
+    and the counted step in turns, 3 rounds: the step must take at least
+    the count's `compute_s`; `compute_s`, `memory_s`, their shares of
+    the measured step, and model flops over the measured time."""
+    import torch
+    from repro_torch.configs import RunConfig, get
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.analysis import (HBM_BW, PEAK_FLOPS,
+                                             model_flops)
+    from repro_torch.launch.hlo_cost import count_call
+    from repro_torch.train import init_train_state, make_train_step
+
+    cfg, rcfg = get(TRAIN), RunConfig(**BF16_RCFG)
+    step = make_train_step(cfg, rcfg)
+    meta = torch.device("meta")
+    _, want, _ = count_call(
+        step, init_train_state(0, cfg, rcfg, device=meta, init=False),
+        {"tokens": torch.empty((TRAIN_BATCH, TRAIN_SEQ), dtype=torch.long,
+                               device=meta)})
+    state = init_train_state(0, cfg, rcfg, device="cuda")
+    gen = torch.Generator("cuda").manual_seed(7)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size,
+                                     (TRAIN_BATCH, TRAIN_SEQ),
+                                     generator=gen, device="cuda")}
+    step(state, batch)                              # warm-up
+    times = {"step": [], "counted": []}
+    got = None
+    for _ in range(TURN_ROUNDS):
+        for name in times:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            if name == "counted":
+                _, got, _ = count_call(step, state, batch)
+            else:
+                step(state, batch)
+            torch.cuda.synchronize()
+            times[name].append(time.perf_counter() - t)
+    for key in ("flops", "transcendentals", "bytes"):
+        if getattr(got, key) != getattr(want, key):
+            raise AssertionError(f"roofline: {key} on the card "
+                                 f"{getattr(got, key)} != on meta "
+                                 f"{getattr(want, key)}")
+    compute_s, memory_s = got.flops / PEAK_FLOPS, got.bytes / HBM_BW
+    measured = min(times["step"])
+    if measured < compute_s:
+        raise AssertionError(f"roofline: the step {measured:.4f} s is under "
+                             f"its compute term {compute_s:.4f} s")
+    mf = model_flops(cfg, ShapeSpec("train", TRAIN_SEQ, TRAIN_BATCH,
+                                    "train"))
+    log(f"[roofline] {TRAIN} bf16 over fp32 masters, B {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ} ({smi}): counted on the card == traced on meta: "
+        f"flops {int(got.flops)}, transcendentals {int(got.transcendentals)}"
+        f", bytes {int(got.bytes)} (eager ATen traffic, no fusion), temp "
+        f"{got.temp_bytes / 2**30:.2f} GiB | step s " +
+        " ".join(f"{t:.4f}" for t in times["step"]) + " | counted step s " +
+        " ".join(f"{t:.4f}" for t in times["counted"]) +
+        f" | compute_s {compute_s:.4f} ({compute_s / measured:.1%} of the "
+        f"fastest step), memory_s {memory_s:.4f} ({memory_s / measured:.1%})"
+        f"; model flops {mf:.4g} over the step: "
+        f"{mf / measured / 1e12:.1f} TFLOP/s")
+    del state, batch
+    free_card()
 
 
 def main() -> int:
@@ -3981,6 +4136,8 @@ def main() -> int:
     phase_train_bf16(mods)
     phase_mesh(mods)
     phase_specs()
+    phase_dryrun()
+    phase_roofline(smi)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(smi)

@@ -169,15 +169,16 @@ class RunConfig:
     A model reads its numerics when it is built (`LM(cfg, rcfg)`,
     `EncDec(cfg, rcfg)`): `dtype` is the compute dtype of every matmul,
     `ssd_chunk` and `ssd_compute_dtype` the SSD's chunk and the dtype of
-    its x, B and C.  Serving (`lm_prefill`, `lm_decode_step`, the
-    encoder-decoder's `encdec_prepare_cross` and `encdec_decode_step`)
-    reads nothing else: its attention and SSD always go to the kernel
-    ops, which run the CUDA kernel for tensors on the card.  The training
-    forwards (`lm_forward`, `lm_loss`, `encdec_forward`, `encdec_loss`)
-    also read `kernels`: "xla" takes the plain PyTorch `chunked_flash`
-    and `ssd_chunked_ref`, as the reference's "xla" path does; "pallas"
-    takes the kernel ops, and raises where autograd would need their
-    backward (no kernel has one, in either package).  The `moe_*` fields
+    its x, B and C.  The forwards also read `kernels`: "xla" takes the
+    plain PyTorch `chunked_flash`, `decode_attention_ref` and
+    `ssd_chunked_ref`, as the reference's "xla" path does; "pallas"
+    takes the kernel ops, which run the CUDA kernel for tensors on the
+    card, and raises where autograd would need their backward (no kernel
+    has one, in either package).  Serving (`lm_prefill`,
+    `lm_decode_step`, the encoder-decoder's `encdec_prepare_cross` and
+    `encdec_decode_step`, `serve_step`'s steps) takes an optional
+    `rcfg`: with none it runs the kernel ops, as the served path on the
+    card does.  The `moe_*` fields
     are the MoE mesh dispatch's (`models.moe`, with a mesh installed by
     `dist.sharding.set_moe_mesh`); `sequence_parallel`, `decode_kv_shard`,
     `decode_ring` and `ssm_head_tp` are read by `launch.specs` as the

@@ -286,7 +286,10 @@ def make_hint_fn(mesh, n_kv_heads: int, sequence_parallel: bool,
     """The per-(arch, mesh) hint function for the model call sites.
 
     Attention is head-parallel over ``'model'`` when the KV heads divide
-    the model dim, context-parallel over the q-block dim otherwise; FFN
+    the model dim, context-parallel over the q-block dim otherwise (there
+    a q/k/v projection's output is split on its sequence before its heads
+    are split, `attn_proj`: DTensor cannot split a feature dim sharded
+    unevenly over the heads, where the reference's XLA pads); FFN
     hidden activations shard the d_ff dim; SSM heads shard over
     ``'model'`` when divisible.  Every entry is divisibility-guarded
     against the activation's shape.  A DTensor activation is
@@ -300,15 +303,22 @@ def make_hint_fn(mesh, n_kv_heads: int, sequence_parallel: bool,
     ssm_ok = model > 1 and ssm_heads and ssm_heads % model == 0
 
     def specs_for(name: str, ndim: int):
+        if name == "attn_proj" and ndim == 3:     # (B, S, n·dh)
+            return None if heads_ok else P(dp, "model", None)
         if name == "attn_q6" and ndim == 6:       # (B, Hkv, G, nq, bq, D)
             return P(dp, "model", None, None, None, None) if heads_ok \
                 else P(dp, None, None, "model", None, None)
+        if name == "attn_kv4" and ndim == 4:      # (B, Hkv, Sk, D)
+            return P(dp, "model", None, None) if heads_ok \
+                else P(dp, None, None, None)
         if name == "attn_kv5" and ndim == 5:      # (B, Hkv, nk, bk, D)
             return P(dp, "model", None, None, None) if heads_ok \
                 else P(dp, None, None, None, None)
         if name == "attn_out" and ndim == 4:      # (B, Hq, Sq, D)
             return P(dp, "model", None, None) if heads_ok \
                 else P(dp, None, "model", None)
+        if name == "ssm_conv3" and ndim == 3:     # (B, S, conv channels)
+            return P(dp, None, "model")
         if name == "ffn_hidden" and ndim == 3:    # (B, S, d_ff)
             return P(dp, None, "model")
         if name == "ssm_x4" and ndim == 4:        # (B, H, S, P)

@@ -8,7 +8,8 @@ or a model built on it with `init=False`; a sharding is a tuple of
 DTensor placements (`dist.sharding.placements`), one per mesh dim, in a
 tree shaped like its argument.  `fn` is the port's step: the train step
 of `make_train_step`, or `serve_step`'s prefill and decode steps around
-the meta model.
+the meta model, each given the cell's `RunConfig` (`kernels="xla"`, the
+plain attention and SSD, by default, as the reference's cells).
 
 The reference stacks each segment's layers on a leading axis; the
 port's models and decode caches hold one entry a layer, so a layer's
@@ -244,18 +245,19 @@ def _prefill_cell(cfg, shape, mesh, rcfg) -> Cell:
 
     if cfg.family == "audio":
         def fn(params, frames, tokens):
-            return make_prefill_step(params)(frames, tokens)
+            return make_prefill_step(params, rcfg=rcfg)(frames, tokens)
         args = (model, batch["frames"], batch["tokens"])
         in_sh = (p_sh, batch_sh["frames"], batch_sh["tokens"])
     elif cfg.family == "vlm":
         def fn(params, tokens, pe):
-            return make_prefill_step(params, max_len=max_len)(
+            return make_prefill_step(params, max_len=max_len, rcfg=rcfg)(
                 tokens, patch_embeds=pe)
         args = (model, batch["tokens"], batch["patch_embeds"])
         in_sh = (p_sh, batch_sh["tokens"], batch_sh["patch_embeds"])
     else:
         def fn(params, tokens):
-            return make_prefill_step(params, max_len=max_len)(tokens)
+            return make_prefill_step(params, max_len=max_len,
+                                     rcfg=rcfg)(tokens)
         args = (model, batch["tokens"])
         in_sh = (p_sh, batch_sh["tokens"])
     return Cell(name=f"{cfg.name}:{shape.name}", fn=fn, args=args,
@@ -286,7 +288,8 @@ def _decode_cell(cfg, shape, mesh, rcfg) -> Cell:
         cross_sh = (_named(mesh, x_spec), _named(mesh, x_spec))
 
         def fn(params, caches, cross, tokens, pos):
-            return make_decode_step(params)(caches, cross, tokens, pos)
+            return make_decode_step(params, rcfg)(caches, cross, tokens,
+                                                  pos)
         args = (model, caches, cross, tokens, pos)
         in_sh = (p_sh, c_sh, cross_sh, _named(mesh, tok_spec),
                  _named(mesh, P()))
@@ -297,7 +300,7 @@ def _decode_cell(cfg, shape, mesh, rcfg) -> Cell:
                                how=rcfg.decode_kv_shard)
 
         def fn(params, caches, tokens, pos):
-            return make_decode_step(params)(caches, tokens, pos)
+            return make_decode_step(params, rcfg)(caches, tokens, pos)
         args = (model, caches, tokens, pos)
         in_sh = (p_sh, c_sh, _named(mesh, tok_spec), _named(mesh, P()))
     return Cell(name=f"{cfg.name}:{shape.name}", fn=fn, args=args,
@@ -310,23 +313,25 @@ def _decode_cell(cfg, shape, mesh, rcfg) -> Cell:
 # --------------------------------------------------------------------------
 
 def fake_mesh(shape: Tuple[int, ...] = (16, 16),
-              names: Tuple[str, ...] = ("data", "model")):
+              names: Tuple[str, ...] = ("data", "model"),
+              world: Optional[int] = None):
     """`shape` over torch's fake process group, in this process (as the
     reference's dry run fakes its host devices): the default group is
-    initialized as the fake one, of world prod(shape), unless one
-    exists."""
-    import torch.distributed as dist
-    from torch.distributed.device_mesh import init_device_mesh
+    initialized as the fake one, of `world` ranks (prod(shape) when
+    None), unless one exists; the mesh takes its first prod(shape)."""
+    import math
 
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    n = math.prod(shape)
     if not dist.is_initialized():
         from torch.testing._internal.distributed.fake_pg import FakeStore
 
-        world = 1
-        for n in shape:
-            world *= n
         dist.init_process_group("fake", store=FakeStore(), rank=0,
-                                world_size=world)
-    return init_device_mesh("cpu", shape, mesh_dim_names=names)
+                                world_size=world or n)
+    return DeviceMesh("cpu", torch.arange(n).reshape(shape),
+                      mesh_dim_names=names)
 
 
 def _leaves(tree, shards, path=""):

@@ -139,11 +139,13 @@ def _block(p: Block, x: torch.Tensor, cfg: ArchConfig, kind: str,
 
 def block_forward(p: Block, x: torch.Tensor, cfg: ArchConfig, kind: str,
                   positions: Optional[torch.Tensor] = None,
-                  collect_cache: bool = False):
+                  collect_cache: bool = False,
+                  rcfg: Optional[RunConfig] = None):
     """Serving.  Returns x, or (x, cache) when `collect_cache`: the roped
     k/v of an attention layer, the final state and conv tail of an SSM
-    layer, both of a hybrid layer."""
-    x, _, cache = _block(p, x, cfg, kind, positions, collect_cache, None)
+    layer, both of a hybrid layer.  `rcfg` chooses the attention and the
+    SSD (the kernel ops when None)."""
+    x, _, cache = _block(p, x, cfg, kind, positions, collect_cache, rcfg)
     return (x, cache) if collect_cache else x
 
 
@@ -176,7 +178,8 @@ def init_block_cache(batch: int, max_len: int, cfg: ArchConfig, kind: str,
 
 
 def block_decode_step(p: Block, x: torch.Tensor, cache: Cache, pos: int,
-                      cfg: ArchConfig, kind: str
+                      cfg: ArchConfig, kind: str,
+                      rcfg: Optional[RunConfig] = None
                       ) -> Tuple[torch.Tensor, Cache]:
     """One token through one layer.  An attention cache is written in
     place (a cache with a ring: the ring only, the main cache holding
@@ -193,7 +196,7 @@ def block_decode_step(p: Block, x: torch.Tensor, cache: Cache, pos: int,
     elif kind in ATTN_KINDS:
         a, new_cache["k"], new_cache["v"] = attention_decode_step(
             p.attn, h, cache["k"], cache["v"], pos, cfg,
-            window=_window_for(kind, cfg))
+            window=_window_for(kind, cfg), rcfg=rcfg)
     if kind in SSM_KINDS:
         s, ssm_cache = ssm_decode_step(p.ssm, h, cache, cfg)
         new_cache.update(ssm_cache)
@@ -214,15 +217,17 @@ def _pad_rows(a: torch.Tensor, max_len: int) -> torch.Tensor:
 def segments_forward(layers: Sequence[Block], x: torch.Tensor,
                      cfg: ArchConfig,
                      positions: Optional[torch.Tensor] = None,
-                     cache_len: Optional[int] = None):
+                     cache_len: Optional[int] = None,
+                     rcfg: Optional[RunConfig] = None):
     """Run every layer in order; returns x, or with `cache_len` (x,
     caches), one cache dict per layer, whose k/v go into caches of
     `cache_len` rows as soon as the layer has run, so the unpadded k/v of
-    no more than one layer are held at a time."""
+    no more than one layer are held at a time.  `rcfg` as
+    `block_forward` reads it."""
     caches: List[Cache] = []
     for layer, kind in zip(layers, cfg.layer_kinds):
         out = block_forward(layer, x, cfg, kind, positions,
-                            collect_cache=cache_len is not None)
+                            collect_cache=cache_len is not None, rcfg=rcfg)
         if cache_len is None:
             x = out
             continue

@@ -12,6 +12,7 @@ autograd takes the gradient through the cast back to fp32.
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -39,10 +40,87 @@ def dense(x: torch.Tensor, w: torch.Tensor,
     (w's own when None): the activation, the weight and the bias each
     cast to it, as the reference's `dense` does."""
     dtype = dtype or w.dtype
-    y = x.to(dtype) @ w.to(dtype)
+    y = matmul(x.to(dtype), w.to(dtype))
     if b is not None:
         y = y + b.to(dtype)
     return y
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (..., k) @ w (k, n).  A DTensor x of three or more dims times a
+    DTensor w is multiplied on each rank's shards, mesh dim by mesh dim
+    as w is laid out: where w splits n, x is whole there and y splits n;
+    where w splits k, x splits k and y is a pending sum; where w is
+    whole, x keeps its split of a leading dim (the batch, the sequence)
+    and y that split.  x is redistributed to that layout first; each
+    side's gradient is laid out as its value, or as a pending sum where
+    the other side is split and it is whole.  The matmul of DTensor
+    itself flattens the leading dims, which torch 2.11 cannot do for two
+    split dims (a sequence-parallel residual: the batch over the data
+    dims, the sequence over 'model'), in the forward or the backward."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    if x.ndim < 3 or not isinstance(x, DTensor) or \
+            not isinstance(w, DTensor) or w.ndim != 2 or \
+            any(p.is_partial() for p in w.placements):
+        return x @ w
+    last = x.ndim - 1
+    xt, xg, wg, yp = [], [], [], []
+    for xp, wp in zip(x.placements, w.placements):
+        if wp.is_shard(0):                     # k split
+            xt.append(Shard(last)), xg.append(Shard(last))
+            wg.append(wp), yp.append(Partial())
+        elif wp.is_shard():                    # n split
+            xt.append(Replicate()), xg.append(Partial())
+            wg.append(wp), yp.append(Shard(last))
+        elif xp.is_shard() and xp.dim < last:  # x's rows split, w whole
+            xt.append(xp), xg.append(xp)
+            wg.append(Partial()), yp.append(xp)
+        else:
+            xt.append(Replicate()), xg.append(Replicate())
+            wg.append(Replicate()), yp.append(Replicate())
+    if tuple(xt) != tuple(x.placements):
+        x = x.redistribute(x.device_mesh, xt)
+    y = x.to_local(grad_placements=xg) @ w.to_local(grad_placements=wg)
+    shape = tuple(x.shape[:-1]) + (w.shape[1],)
+    stride = tuple(math.prod(shape[d + 1:]) for d in range(len(shape)))
+    return DTensor.from_local(y, x.device_mesh, yp, run_check=False,
+                              shape=shape, stride=stride)
+
+
+class _GradAsValue(torch.autograd.Function):
+    """The identity, whose backward lays a DTensor's gradient out as the
+    value was (a pending sum as replicated)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        from torch.distributed.tensor import Replicate
+
+        ctx.mesh = x.device_mesh
+        ctx.placements = tuple(Replicate() if p.is_partial() else p
+                               for p in x.placements)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if tuple(g.placements) != ctx.placements:
+            g = g.redistribute(ctx.mesh, ctx.placements)
+        return g
+
+
+def rows_only(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor (B, S, ...) split at most on its batch: any other split
+    gathered, and its gradient laid out the same.  Flattening (B, S)
+    into tokens needs it (torch 2.11's DTensor cannot flatten two split
+    dims into one); any other tensor unchanged."""
+    if not hasattr(x, "device_mesh"):
+        return x
+    from torch.distributed.tensor import Replicate
+
+    keep = tuple(p if p.is_shard(0) else Replicate() for p in x.placements)
+    if keep != tuple(x.placements):
+        x = x.redistribute(x.device_mesh, keep)
+    return _GradAsValue.apply(x)
 
 
 def rmsnorm(scale: torch.Tensor, x: torch.Tensor,
@@ -108,10 +186,9 @@ def embed(table: torch.Tensor, tokens: torch.Tensor,
     return rows.to(dtype or table.dtype)
 
 
-def settle_partial(x: torch.Tensor) -> torch.Tensor:
-    """A DTensor with pending sums (a vocab-split table's rows are
-    partial on each rank) reduced to replicated on those mesh dims; any
-    other tensor unchanged."""
+def _replicate_partial(x: torch.Tensor) -> torch.Tensor:
+    """`x` with every `Partial` placement reduced to `Replicate`; a tensor
+    with none (or no placements) unchanged."""
     placements = getattr(x, "placements", None)
     if placements is None or not any(p.is_partial() for p in placements):
         return x
@@ -119,6 +196,33 @@ def settle_partial(x: torch.Tensor) -> torch.Tensor:
 
     return x.redistribute(x.device_mesh, [Replicate() if p.is_partial()
                                           else p for p in placements])
+
+
+class _SettledGrad(torch.autograd.Function):
+    """The identity, whose backward reduces a partial gradient to
+    replicated: the backward of the redistribute before it must turn
+    the gradient into the lookup's masked partial, which DTensor can do
+    from a replicated gradient but not from a pending sum (a tied
+    unembedding over a vocab-split table gives the residual stream's
+    gradient that)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _replicate_partial(g)
+
+
+def settle_partial(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor with pending sums (a vocab-split table's rows are
+    partial on each rank) reduced to replicated on those mesh dims, its
+    gradient likewise (`_SettledGrad`); any other tensor unchanged."""
+    y = _replicate_partial(x)
+    if y is x:
+        return x
+    return _SettledGrad.apply(y) if y.requires_grad else y
 
 
 def unembed(table: torch.Tensor, x: torch.Tensor,
@@ -130,13 +234,13 @@ def unembed(table: torch.Tensor, x: torch.Tensor,
     bf16 product with fp32 accumulation, where a bf16 matmul would round
     every logit to bf16."""
     dtype = dtype or table.dtype
-    return x.to(dtype).float() @ table.to(dtype).float().t()
+    return matmul(x.to(dtype).float(), table.to(dtype).float().t())
 
 
 def plain_path(rcfg) -> bool:
     """Whether a forward takes the plain PyTorch attention and SSD: a
-    training forward's `RunConfig(kernels="xla")`.  Serving (`rcfg`
-    None) and `kernels="pallas"` take the kernel ops."""
+    `RunConfig(kernels="xla")`, training or serving.  No `rcfg` (the
+    served default) and `kernels="pallas"` take the kernel ops."""
     if rcfg is None or rcfg.kernels == "pallas":
         return False
     if rcfg.kernels == "xla":

@@ -226,10 +226,12 @@ def encdec_loss(model: EncDec, batch: Dict[str, torch.Tensor],
 # --------------------------------------------------------------------------
 
 @torch.no_grad()
-def encdec_prepare_cross(model: EncDec, frames: torch.Tensor) -> CrossKV:
+def encdec_prepare_cross(model: EncDec, frames: torch.Tensor,
+                         rcfg: Optional[RunConfig] = None) -> CrossKV:
     """The encoder pass and every decoder layer's cross K/V, stacked:
-    each (L, B, Hkv, S_enc, dh)."""
-    enc_out = encode(model, frames)
+    each (L, B, Hkv, S_enc, dh).  `rcfg.kernels="xla"` takes the plain
+    attention, None the flash op."""
+    enc_out = encode(model, frames, rcfg)
     kv = [cross_kv(lp.cross_attn, enc_out, model.cfg)
           for lp in model.dec_layers]
     return (torch.stack([k for k, _ in kv]),
@@ -251,23 +253,25 @@ def init_encdec_cache(batch: int, max_len: int, cfg: ArchConfig,
 
 @torch.no_grad()
 def encdec_decode_step(model: EncDec, cache: Dict[str, torch.Tensor],
-                       cross: CrossKV, tokens: torch.Tensor, pos: int
+                       cross: CrossKV, tokens: torch.Tensor, pos: int,
+                       rcfg: Optional[RunConfig] = None
                        ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """tokens (B, 1) at position `pos` → (logits (B, V) fp32, cache).  The
     token's k/v are written into the cache in place, where the reference
-    returns an updated copy."""
+    returns an updated copy.  `rcfg.kernels="xla"` takes the plain
+    attention, None the kernel ops."""
     cfg = model.cfg
     h = embed(model.embed, tokens, model.dtype)
     cross_k, cross_v = cross
     for i, lp in enumerate(model.dec_layers):
         a, _, _ = attention_decode_step(lp.self_attn, rmsnorm(lp.ln1, h),
                                         cache["k"][i], cache["v"][i], pos,
-                                        cfg, window=0)
+                                        cfg, window=0, rcfg=rcfg)
         h = h + a
         h = h + attention_forward(lp.cross_attn, rmsnorm(lp.ln_cross, h),
                                   cfg, window=0,
                                   kv_override=(cross_k[i], cross_v[i]),
-                                  causal=False)
+                                  causal=False, rcfg=rcfg)
         h = h + ffn_forward(lp.ffn, rmsnorm(lp.ln2, h), cfg.act)
     h = rmsnorm(model.final_norm, h)
     return _head(model, h)[:, 0], cache

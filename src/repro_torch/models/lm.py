@@ -211,9 +211,38 @@ def next_token_nll(logits: torch.Tensor, tokens: torch.Tensor
     """(B, S-1) fp32: logsumexp of each position's logits less the logit
     of the token after it."""
     lg = logits[:, :-1]
-    picked = torch.gather(lg, -1, tokens[:, 1:, None].long())
-    picked = settle_partial(picked)[..., 0]
+    picked = settle_partial(_pick(lg, tokens[:, 1:, None].long()))[..., 0]
     return torch.logsumexp(lg, dim=-1) - picked
+
+
+def _pick(lg: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """`torch.gather(lg, -1, idx)`.  For a DTensor split at most on its
+    batch and its vocab (last) dim, each rank picks from its own shard
+    (zero where the target lies on another rank's vocab, the picks then
+    a pending sum there): DTensor's own gather builds the backward's
+    gradient of the logits at their global size on every rank."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    last = lg.ndim - 1
+    if not isinstance(lg, DTensor) or not all(
+            p.is_replicate() or (isinstance(p, Shard) and p.dim in (0, last))
+            for p in lg.placements):
+        return torch.gather(lg, -1, idx)
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset as local_box
+
+    mesh = lg.device_mesh
+    rows = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+            for p in lg.placements]
+    shape, offset = local_box(lg.shape, mesh, lg.placements)
+    local = idx.redistribute(mesh, rows).to_local() - offset[last]
+    hit = (local >= 0) & (local < shape[last])
+    got = torch.gather(lg.to_local(), -1, local.clamp(0, shape[last] - 1))
+    got = torch.where(hit, got, got.new_zeros(()))
+    out = [Partial() if isinstance(p, Shard) and p.dim == last else q
+           for p, q in zip(lg.placements, rows)]
+    return DTensor.from_local(got, mesh, out, run_check=False,
+                              shape=idx.shape, stride=idx.stride())
 
 
 def lm_loss(model: LM, batch: Dict[str, torch.Tensor], rcfg: RunConfig,
@@ -238,13 +267,16 @@ def lm_loss(model: LM, batch: Dict[str, torch.Tensor], rcfg: RunConfig,
 @torch.no_grad()
 def lm_prefill(model: LM, tokens: torch.Tensor,
                max_len: Optional[int] = None,
-               patch_embeds: Optional[torch.Tensor] = None
+               patch_embeds: Optional[torch.Tensor] = None,
+               rcfg: Optional[RunConfig] = None
                ) -> Tuple[torch.Tensor, List[Cache]]:
     """tokens (B, S) (+ a VLM's patch embeddings, see `_embed_in`) →
     (last-position logits (B, V) fp32, caches), one cache per layer:
     {"k", "v"} of an attention layer, each (B, Hkv, max_len, dh) and zero
     past S; {"conv", "state"} of an SSM layer; all four of a hybrid
-    layer."""
+    layer.  `rcfg.kernels="xla"` takes the plain attention and SSD, as
+    the reference's serving step does; None (or "pallas") the kernel
+    ops."""
     B, S = tokens.shape
     max_len = max_len or S
     if S > max_len:
@@ -252,22 +284,26 @@ def lm_prefill(model: LM, tokens: torch.Tensor,
     x = _embed_in(model, tokens, patch_embeds)
     positions = torch.arange(S, device=tokens.device)
     x, caches = segments_forward(model.layers, x, model.cfg,
-                                 positions=positions, cache_len=max_len)
+                                 positions=positions, cache_len=max_len,
+                                 rcfg=rcfg)
     x = rmsnorm(model.final_norm, x[:, -1:])
     return _logits(model, x)[:, 0], caches
 
 
 @torch.no_grad()
 def lm_decode_step(model: LM, caches: List[Cache], tokens: torch.Tensor,
-                   pos: int) -> Tuple[torch.Tensor, List[Cache]]:
+                   pos: int, rcfg: Optional[RunConfig] = None
+                   ) -> Tuple[torch.Tensor, List[Cache]]:
     """tokens (B, 1); `pos` — the current cache fill.  Returns (logits
     (B, V) fp32, caches): attention caches are updated in place, SSM
-    caches replaced, so use the returned list."""
+    caches replaced, so use the returned list.  `rcfg` as `lm_prefill`
+    reads it."""
     x = _embed_in(model, tokens)
     new_caches: List[Cache] = []
     for layer, kind, cache in zip(model.layers, model.cfg.layer_kinds,
                                   caches):
-        x, c = block_decode_step(layer, x, cache, pos, model.cfg, kind)
+        x, c = block_decode_step(layer, x, cache, pos, model.cfg, kind,
+                                 rcfg)
         new_caches.append(c)
     x = rmsnorm(model.final_norm, x)
     return _logits(model, x)[:, 0], new_caches

@@ -47,7 +47,7 @@ from repro_torch.configs.base import ArchConfig, MoEConfig, RunConfig
 from repro_torch.core.vm import expert_gather_batch
 from repro_torch.dist.sharding import (P, data_axes, moe_mesh, placements,
                                       zip_axis)
-from .common import activate, dense
+from .common import activate, dense, rows_only
 from .ffn import FFN, ffn_forward
 
 
@@ -305,7 +305,7 @@ def moe_expert_gather(token_va: np.ndarray, expert_idx: np.ndarray,
 
 
 def _mesh_dispatch(p: MoE, x2: torch.Tensor, mc: MoEConfig, act: str,
-                   mesh, rcfg: RunConfig
+                   mesh, rcfg: RunConfig, split_data: bool = True
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The mesh dispatch (the reference's `shard_map` one): x2 (T, d)
     split over the data dims, the expert weights over 'model' on d_ff,
@@ -321,10 +321,14 @@ def _mesh_dispatch(p: MoE, x2: torch.Tensor, mc: MoEConfig, act: str,
     it was replicated over and is summed there, once (a DTensor's by
     `to_local(grad_placements=...)`, a plain tensor's whole on every
     rank), and the outputs' gradients come in divided over the ranks
-    that hold them replicated (`_ScaleGrad`)."""
+    that hold them replicated (`_ScaleGrad`).
+
+    With `split_data` False the tokens stay whole on every data rank (a
+    DTensor batch the data dims do not divide): every rank routes all of
+    them, as the local path does, and the experts still split on d_ff."""
     from torch.distributed.tensor import DTensor, Partial, Replicate
 
-    dp = data_axes(mesh)
+    dp = data_axes(mesh) if split_data else ()
     model = "model" if "model" in mesh.mesh_dim_names else None
     whole = (Replicate(),) * mesh.ndim
 
@@ -366,25 +370,33 @@ def moe_forward(p: MoE, x: torch.Tensor, cfg: ArchConfig,
     mesh installed (`set_moe_mesh`) and `rcfg.moe_shard_map` (the
     default, also where `rcfg` is None), the routed experts take the
     mesh dispatch when B divides over the data dims, as in the
-    reference; else they run locally."""
+    reference; else they run locally (a DTensor batch: the mesh dispatch
+    with the tokens whole on every data rank, the same values)."""
     mc = cfg.moe
     rcfg = rcfg or RunConfig()
     B, S, d = x.shape
-    x2 = x.reshape(B * S, d)
+    x2 = rows_only(x).reshape(B * S, d)
     mesh = moe_mesh() if rcfg.moe_shard_map else None
+    split = True
     if mesh is not None:
         dp_size = 1
         for name, size in zip_axis(mesh):
             if name in data_axes(mesh):
                 dp_size *= size
         if B % dp_size:
-            mesh = None             # tiny / indivisible batch: local path
+            # tiny / indivisible batch: the local path, and for a DTensor
+            # batch the mesh dispatch with the tokens whole on every data
+            # rank (DTensor has no rule for the local path's index writes)
+            split = False
+            if not hasattr(x2, "device_mesh"):
+                mesh = None
     if mesh is not None:
-        y2, aux = _mesh_dispatch(p, x2, mc, cfg.act, mesh, rcfg)
+        y2, aux = _mesh_dispatch(p, x2, mc, cfg.act, mesh, rcfg,
+                                 split_data=split)
     else:
         y2, aux, _dropped = moe_dispatch_compute(p, x2, mc, cfg.act,
                                                  dtype=p.dtype)
-    y = y2.reshape(B, S, d)
+    y = rows_only(y2.reshape(B, S, d))
     if mc.n_shared_experts:
         shared = ffn_forward(p.shared, x, cfg.act)
         sg = torch.sigmoid(dense(x, p.shared_gate, dtype=p.dtype).float())

@@ -7,10 +7,11 @@ Layer anatomy per [arXiv:2405.21060]:
   y = SSD(x, dt, A, B, C) + D⊙x, y = RMSNormGated(y, z), out_proj.
 
 The full-sequence path goes to the SSD op, which runs its CUDA kernel on
-the card and its plain version on the CPU; a training forward passed
-`RunConfig(kernels="xla")` takes the plain `ssd_chunked_ref` on either
-device, as the reference's does, and `kernels="pallas"` raises where
-autograd would need the kernel's backward.  Decode keeps a recurrent
+the card and its plain version on the CPU; a forward passed
+`RunConfig(kernels="xla")`, training or serving, takes the plain
+`ssd_chunked_ref` on any device, as the reference's does, and
+`kernels="pallas"` raises where autograd would need the kernel's
+backward.  Decode keeps a recurrent
 cache {"conv": last K-1 raw conv inputs, "state": (B, H, N, P) fp32}, so
 a step costs the same at any length; it is plain PyTorch, as in the
 reference, which has no kernel for it.
@@ -26,6 +27,7 @@ in fp32), else as fp32.
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -88,13 +90,90 @@ class SSM(nn.Module):
 
 def _causal_conv(xbc: torch.Tensor, w: torch.Tensor,
                  b: torch.Tensor) -> torch.Tensor:
-    """Depthwise causal conv: xbc (B, S, Cd); w (K, Cd)."""
+    """Depthwise causal conv: xbc (B, S, Cd); w (K, Cd).  A DTensor xbc
+    split on its batch and channels only (the `ssm_conv3` layout) is
+    convolved on each rank's shard, with its channels of w and b: the
+    conv needs nothing from another rank, and torch 2.11's DTensor fails
+    to plan the sequence shift's redistribution."""
+    from torch.distributed.tensor import DTensor, Partial, Shard
+
+    if isinstance(xbc, DTensor) and isinstance(w, DTensor) and all(
+            p.is_replicate() or (isinstance(p, Shard) and p.dim in (0, 2))
+            for p in xbc.placements) and all(
+            p.is_replicate() for p in w.placements + b.placements):
+        from torch.distributed.tensor._utils import \
+            compute_local_shape_and_global_offset as local_box
+
+        mesh = xbc.device_mesh
+        shape, offset = local_box(xbc.shape, mesh, xbc.placements)
+        grad = [Partial() if isinstance(p, Shard) else q
+                for p, q in zip(xbc.placements, w.placements)]
+        wl = w.to_local(grad_placements=grad).narrow(1, offset[2], shape[2])
+        bl = b.to_local(grad_placements=grad).narrow(0, offset[2], shape[2])
+        out = _causal_conv(xbc.to_local(), wl, bl)
+        Bb, S, C = xbc.shape
+        return DTensor.from_local(out, mesh, xbc.placements, run_check=False,
+                                  shape=xbc.shape, stride=(S * C, C, 1))
     K, S = w.shape[0], xbc.shape[1]
     out = xbc * w[K - 1]
     for i in range(1, K):
         shifted = F.pad(xbc, (0, 0, i, 0))[:, :S]
         out = out + shifted * w[K - 1 - i]
     return F.silu(out + b)
+
+
+def _ssd_on_shards(args, chunk: int, return_state: bool):
+    """`ssd_chunked_ref(*args)`; on DTensors split at most on the batch
+    and the heads (x, dt, A, D) with B and C whole on the heads (one
+    group) and split on the batch as x or not at all, each rank scans its
+    own shards: the scan needs nothing from another rank.  On DTensor's
+    own dispatch the scan fails: torch 2.11 has no rule for the flip in
+    the backward of its cumsum, and with the layout DTensor's own matmul
+    gives the in_proj product the gradient of the heads' view of x comes
+    back as a strided shard under a DTensor that reads as contiguous,
+    whose reshape's backward `view` fails."""
+    from torch.distributed.tensor import DTensor, Partial, Shard
+
+    x, dt, A, D, Bg, Cg = args
+    if not all(isinstance(t, DTensor) for t in args) or Bg.shape[1] != 1:
+        return ssd_chunked_ref(*args, chunk=chunk, return_state=return_state)
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset as local_box
+
+    xp, bp = x.placements, Bg.placements
+    x_rows = [i for i, p in enumerate(xp) if p.is_shard(0)]
+    b_rows = [i for i, p in enumerate(bp) if p.is_shard(0)]
+    if not (all(p.is_replicate() or p.is_shard(0) or p.is_shard(1)
+                for p in xp) and dt.placements == xp and
+            Cg.placements == bp and b_rows in ([], x_rows) and
+            all(p.is_replicate() or p.is_shard(0) for p in bp) and
+            all(p.is_replicate() for t in (A, D) for p in t.placements)):
+        return ssd_chunked_ref(*args, chunk=chunk, return_state=return_state)
+
+    mesh = x.device_mesh
+    shape, offset = local_box(x.shape, mesh, xp)
+    grad = [Partial() if isinstance(p, Shard) else q
+            for p, q in zip(xp, A.placements)]
+    bgrad = [Partial() if isinstance(p, Shard) and q.is_replicate() else q
+             for p, q in zip(xp, bp)]
+    h0, nh = offset[1], shape[1]
+    Al = A.to_local(grad_placements=grad).narrow(0, h0, nh)
+    Dl = D.to_local(grad_placements=grad).narrow(0, h0, nh)
+    Bl, Cl = (t.to_local(grad_placements=bgrad) for t in (Bg, Cg))
+    if x_rows and not b_rows:
+        Bl, Cl = (t.narrow(0, offset[0], shape[0]) for t in (Bl, Cl))
+    res = ssd_chunked_ref(x.to_local(), dt.to_local(), Al, Dl, Bl, Cl,
+                          chunk=chunk, return_state=return_state)
+
+    def wrap(o, whole):
+        stride = tuple(math.prod(whole[d + 1:]) for d in range(len(whole)))
+        return DTensor.from_local(o, mesh, xp, run_check=False,
+                                  shape=whole, stride=stride)
+    if not return_state:
+        return wrap(res, tuple(x.shape))
+    y, st = res
+    return wrap(y, tuple(x.shape)), wrap(st, tuple(x.shape[:2]) +
+                                         tuple(st.shape[2:]))
 
 
 def _split_proj(proj: torch.Tensor, cfg: ArchConfig):
@@ -111,14 +190,16 @@ def ssm_forward(p: SSM, x: torch.Tensor, cfg: ArchConfig,
                 return_state: bool = False,
                 rcfg: Optional[RunConfig] = None):
     """x (B, S, d_model) → (B, S, d_model) [, decode cache].  `rcfg`
-    (training) chooses the scan as the module docstring says."""
+    chooses the scan as the module docstring says."""
     sc = cfg.ssm
     Bb, S, _ = x.shape
     d_inner, H, P, G, N = ssm_dims(cfg)
     L = p.chunk
 
     z, xbc_raw, dt_raw = _split_proj(dense(x, p.in_proj, dtype=p.dtype), cfg)
-    xbc_raw = xbc_raw.float()
+    # the conv runs along the whole sequence: on a mesh the channels are
+    # split, never the sequence
+    xbc_raw = hint("ssm_conv3", xbc_raw.float())
     xbc = _causal_conv(xbc_raw, p.conv_w, p.conv_b)
     dt = F.softplus(dt_raw.float() + p.dt_bias)
     A = -torch.exp(p.A_log)
@@ -140,7 +221,7 @@ def ssm_forward(p: SSM, x: torch.Tensor, cfg: ArchConfig,
         xh, Bg, Cg = (t.to(p.ssd_dtype) for t in (xh, Bg, Cg))
     args = (xh, dth, A, p.D, Bg, Cg)
     if plain_path(rcfg):
-        res = ssd_chunked_ref(*args, chunk=L, return_state=return_state)
+        res = _ssd_on_shards(args, L, return_state)
     else:
         if rcfg is not None:
             needs_grad(*args, what="SSD")
@@ -169,6 +250,16 @@ def init_ssm_cache(batch: int, cfg: ArchConfig,
             "state": torch.zeros(batch, H, N, P, **f32)}
 
 
+def _state_read(Ch: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """C·h: (B, H, N), (B, H, N, P) → (B, H, P).  On DTensors split on
+    the batch and the heads it is a product and a sum over N: the batched
+    matmul of the einsum would flatten those two split dims into one,
+    which DTensor cannot (torch 2.11)."""
+    if hasattr(h, "device_mesh"):
+        return (Ch[..., None] * h).sum(2)
+    return torch.einsum("bhn,bhnp->bhp", Ch, h)
+
+
 def ssm_decode_step(p: SSM, x: torch.Tensor, cache: SSMCache,
                     cfg: ArchConfig) -> Tuple[torch.Tensor, SSMCache]:
     """x (B, 1, d_model) → (y (B, 1, d_model), new cache).  The cache's
@@ -179,7 +270,11 @@ def ssm_decode_step(p: SSM, x: torch.Tensor, cache: SSMCache,
     z, xbc, dt_raw = _split_proj(dense(x, p.in_proj, dtype=p.dtype)[:, 0],
                                  cfg)
     wind = torch.cat([cache["conv"], xbc.float()[:, None]], dim=1)
-    conv_out = F.silu(torch.einsum("bkc,kc->bc", wind, p.conv_w) + p.conv_b)
+    # the conv in fp32 whatever conv_w is stored in (a serving cell's
+    # inference-cast copy holds it in bf16), as the reference's einsum
+    # promotes it
+    conv_out = F.silu(torch.einsum("bkc,kc->bc", wind, p.conv_w.float())
+                      + p.conv_b)
     xs, Bs, Cs = torch.split(conv_out, [d_inner, G * N, G * N], dim=-1)
     dt = F.softplus(dt_raw.float() + p.dt_bias)              # (B, H)
     A = -torch.exp(p.A_log)
@@ -189,6 +284,6 @@ def ssm_decode_step(p: SSM, x: torch.Tensor, cache: SSMCache,
     Ch = Cs.reshape(Bb, G, N).repeat_interleave(H // G, dim=1)
     h = cache["state"] * torch.exp(A[None] * dt)[..., None, None] + \
         dt[..., None, None] * Bh[..., :, None] * xh[..., None, :]
-    y = torch.einsum("bhn,bhnp->bhp", Ch, h) + p.D[None, :, None] * xh
+    y = _state_read(Ch, h) + p.D[None, :, None] * xh
     out = _gated_out(p, y.reshape(Bb, 1, d_inner), z[:, None])
     return out, {"conv": wind[:, 1:], "state": h}

@@ -70,7 +70,9 @@ def test_every_module_imports_without_jax_or_repro():
                   "dist.fault", "dist.checkpoint", "models.encdec",
                   "configs.seamless_m4t_large_v2", "launch.train",
                   "dist.sharding", "dist.pipeline_parallel",
-                  "launch.mesh", "launch.specs"):
+                  "launch.mesh", "launch.specs", "launch.analysis",
+                  "launch.hlo_cost", "launch.dryrun",
+                  "launch.debug_collectives"):
             assert "repro_torch." + n in names, n
         for n in names:
             importlib.import_module(n)
@@ -341,3 +343,28 @@ def test_specs_build_every_cell_without_jax():
     lines = [ln for ln in out.splitlines() if ln.startswith('{"cell"')]
     assert len(lines) == 33, out
 
+
+
+def test_dry_run_and_debug_collectives_run_without_jax(tmp_path):
+    """`python -m repro_torch.launch.dryrun` and `debug_collectives` on
+    one cell of the fake (16, 16) mesh where `jax` cannot be imported:
+    the JSON is written, the collectives listed."""
+    out = _run(f"""
+        import json, os, runpy, sys
+        for argv in (["dryrun", "--arch", "gemma2-2b", "--shape",
+                      "decode_32k", "--out", {str(tmp_path)!r}],
+                     ["debug_collectives", "--arch", "gemma2-2b",
+                      "--shape", "decode_32k", "--top", "3"]):
+            sys.argv = argv
+            try:
+                runpy.run_module("repro_torch.launch." + argv[0],
+                                 run_name="__main__")
+            except SystemExit as e:
+                assert not e.code, e.code
+        with open(os.path.join({str(tmp_path)!r},
+                               "gemma2-2b_decode_32k_pod1.json")) as f:
+            print("FLOPS", json.load(f)["cost"]["flops"])
+    """)
+    assert "All 1 dry-run cells passed." in out
+    assert "total weighted collective bytes/device" in out
+    assert float(out.split("FLOPS")[-1]) > 0
