@@ -58,7 +58,13 @@ lines tagged with its name:
                internvl2-26b; 32 / 2: chatglm3-6b; 40 / 8: qwen2.5-32b),
                causal, no softcap, the same way; then at the MoE configs'
                (16 / 16, GQA group 1: qwen2-moe-a2.7b, causal; 32 / 8:
-               mixtral-8x7b, window 4,096);
+               mixtral-8x7b, window 4,096); then at the front door's B = 1
+               shapes of hymba-1.5b (window 1,024), chatglm3-6b and
+               qwen2-moe-a2.7b: flash over the 2,500-token request's
+               prompt, decode over the 4,640-row cache half-way through
+               its new tokens (`kv_len` 2,504),
+               and hymba's SSD (fp32) on the prompt padded to the chunk,
+               each its own kernels-line entry ("kernel arch front");
   4. dma     — the quickstart's path through the port's descriptor
                plane (host NumPy: a register front-end's 3-D gather, the
                presets' 4 KiB cycles), a `plan_nd_copy` plan whose
@@ -131,12 +137,17 @@ lines tagged with its name:
                sanitizer's `check_batch` of those descriptors is clean
                (each capacity slot written once), and a second call gives
                y, aux and dropped bit for bit;
-  7. front   — the same two full-width models behind the continuous-
-               batching front door, `ServeFrontDoor(StepLM(model, ...),
-               layout).submit(req) ... .run()`: six requests of 33 to
-               4,608 prompt tokens, 32 new tokens each, every other one at
-               T=0.8, chunked prefill of 256 rows, over a pool of 420 pages
-               of one gemma2-2b layer's KV rows; once at max_running 4 and
+  7. front   — full-width gemma2-2b, mamba2-1.3b, hymba-1.5b,
+               chatglm3-6b and qwen2-moe-a2.7b, each freed before the next,
+               behind the continuous-batching front door,
+               `ServeFrontDoor(StepLM(model, ...), layout).submit(req) ...
+               .run()`: six requests of 33 to 4,608 prompt tokens, 16 new
+               tokens each (8 for the last three archs), every other one
+               at T=0.8, chunked prefill of
+               256 rows, over a pool of 420 pages of one layer's bf16 KV
+               rows of the arch (mamba2-1.3b, which has none, over
+               gemma2-2b's: the pool holds `StepLM`'s hash mirror, not the
+               model's cache); once at max_running 4 and
                once at 1 (all streams, hot ones included, must be equal),
                and for gemma2-2b a third time at max_running 4 through
                `ServeFrontDoor(..., sanitize=True)`, every drain swept and
@@ -300,8 +311,10 @@ gemma2-2b --shape train_4k` (or `--all`, 33 cells, minutes) and
 `PYTHONPATH=src python -m repro_torch.launch.debug_collectives --arch
 gemma2-2b --shape train_4k [--bytes]`.
 
-Any failure raises and exits non-zero.  The second-to-last line is a JSON
-object with one entry per kernel; the last is the device line.
+Any failure raises and exits non-zero.  Where the tag of the lines
+changes, a `[time]` line gives the wall seconds since the last tag's first
+line and since the start.  The second-to-last line is a JSON object with
+one entry per kernel; the last is the device line.
 """
 
 from __future__ import annotations
@@ -329,7 +342,26 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12,
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 
 
+class Clock:
+    """When the script began, and the `[tag]` of the last line logged and
+    when the run of lines with that tag began."""
+    start = tag_start = time.perf_counter()
+    tag = None
+
+
 def log(msg: str) -> None:
+    """Print `msg`; where its `[tag]` is not the last line's, first print
+    the seconds from the first line of the last tag's run of lines to now,
+    and since the start, so that the output shows where the script's wall
+    goes (a phase that logs only when it ends shows in the tag before
+    it)."""
+    tag = msg[1:msg.find("]")] if msg.startswith("[") else None
+    if tag != Clock.tag:
+        now = time.perf_counter()
+        if Clock.tag:
+            print(f"[time] {Clock.tag} {now - Clock.tag_start:.1f} s "
+                  f"({now - Clock.start:.1f} s since the start)", flush=True)
+        Clock.tag, Clock.tag_start = tag, now
     print(msg, flush=True)
 
 
@@ -960,23 +992,28 @@ def timed_in_turns(arch, label, kern, lib):
     return t["kernel"][0], None if lib is None else t["flex_attention"][0]
 
 
-def attention_layout_cases(cfg, mods, library, gen, windows):
+def attention_layout_cases(cfg, mods, library, gen, windows, B=None, S=None,
+                           kv_len=None, name=None):
     """Flash and decode attention at `cfg`'s heads under the serve phase's
     traffic (B 4, 4,608 prompt tokens, causal, a 4,640-row cache at
-    `kv_len` 4,608, bf16, no softcap), once for each of `windows`: each
-    against its plain version at TOL (flash row by row), then by device
-    time (torch.profiler), 5 rounds in turns with compiled
-    `flex_attention`; the plain version by CUDA events.  Prints each
-    case's time, bound, share of it and factor against `flex_attention`.
-    Returns the entries of flash and decode attention at windows[0], each
-    with the worst abs error over `windows`."""
+    `kv_len` 4,608, bf16, no softcap), or at the given `B`, prompt `S` and
+    `kv_len`, once for each of `windows`: each against its plain version
+    at TOL (flash row by row), then by device time (torch.profiler), 5
+    rounds in turns with compiled `flex_attention`; the plain version by
+    CUDA events.  Prints each case's time, bound, share of it and factor
+    against `flex_attention`.  Returns the entries of flash and decode
+    attention at windows[0], each with the worst abs error over `windows`,
+    named by `name` (the config's name by default)."""
     import torch
     from repro_torch.kernels.decode_attention import decode_attention_ref
     from repro_torch.kernels.flash_attention import attention_ref
     from repro_torch.launch.profile_serve import MAX_LEN, PROMPTS
 
     fa, da = mods["flash_attention"], mods["decode_attention"]
-    arch, B, S = cfg.name, len(PROMPTS), max(PROMPTS)
+    arch = name or cfg.name
+    B = len(PROMPTS) if B is None else B
+    S = max(PROMPTS) if S is None else S
+    kv_len = S if kv_len is None else kv_len
     Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     scale, bf16 = D ** -0.5, "bfloat16"
     entries, found = {}, {}
@@ -1026,20 +1063,20 @@ def attention_layout_cases(cfg, mods, library, gen, windows):
     q = randn(B, Hq, D)
     k, v = randn(B, Hkv, MAX_LEN, D), randn(B, Hkv, MAX_LEN, D)
     for w in windows:
-        kw = dict(kv_len=S, window=w, softcap=0.0, scale=scale)
+        kw = dict(kv_len=kv_len, window=w, softcap=0.0, scale=scale)
         label = (f"decode B{B} Hq{Hq} Hkv{Hkv} cache {MAX_LEN} D{D} kv_len "
-                 f"{S} w{w} bf16")
+                 f"{kv_len} w{w} bf16")
         want = decode_attention_ref(q, k, v, **kw)
         abs_err, rel = check_close(f"{arch} {label}",
                                    da.decode_attention_cuda(q, k, v, **kw),
                                    want, bf16)
         worst = max(worst, abs_err)
         lib = flex_call(library, f"{arch} {label}", q[:, :, None], k, v,
-                        decode_mask(S, w), want[:, :, None], bf16, scale)
+                        decode_mask(kv_len, w), want[:, :, None], bf16, scale)
         ms, lib_ms = timed_in_turns(
             arch, label, lambda: da.decode_attention_cuda(q, k, v, **kw), lib)
         plain_ms = time_ms(lambda: decode_attention_ref(q, k, v, **kw))
-        live = min(S, w) if w else S
+        live = min(kv_len, w) if w else kv_len
         b_ms, b_by = bound(4 * B * Hq * live * D,
                            (2 * B * Hkv * live * D + 2 * q.numel())
                            * q.element_size(), bf16)
@@ -1069,21 +1106,33 @@ def phase_hymba_kernels(mods):
     decode attention, the fp32 SSD."""
     import torch
     from repro_torch.configs import get
-    from repro_torch.kernels.ssd import ssd_chunked_ref
     from repro_torch.launch.profile_serve import PROMPTS
-    from repro_torch.models.ssm import ssm_dims
 
     cfg = get(HYMBA)
-    sk = mods["ssd"]
     gen = torch.Generator("cuda").manual_seed(3)
-    B, S = len(PROMPTS), max(PROMPTS)
     entries = attention_layout_cases(cfg, mods, library_attention(), gen,
                                      (cfg.window, 0))
+    entries["ssd"] = ssd_layout_cases(cfg, mods["ssd"], gen, len(PROMPTS),
+                                      max(PROMPTS), ("float32", "bfloat16"))
+    return {e["name"]: e for e in entries.values()}
 
+
+def ssd_layout_cases(cfg, sk, gen, B, S, dtypes, name=None):
+    """The SSD at `cfg`'s SSM heads on the views `models/ssm.py` hands it,
+    B x S (S a multiple of the chunk), in each of `dtypes`: on the tensor
+    cores (`ssd.route`, counted by route), against its plain version at
+    TOL, then by device time in turns (no library call), and the plain
+    version.  Returns the entry at dtypes[0], named by `name` (the
+    config's name by default), with the worst abs error over `dtypes`."""
+    import torch
+    from repro_torch.kernels.ssd import ssd_chunked_ref
+    from repro_torch.models.ssm import ssm_dims
+
+    arch = name or cfg.name
     worst = 0.0
     _, H, P, G, N = ssm_dims(cfg)
     L = cfg.ssm.chunk
-    for dtype in ("float32", "bfloat16"):
+    for dtype in dtypes:
         args = ssd_view_inputs(gen, B, H, G, S, P, N, dtype)
         label = f"ssd B{B} H{H} G{G} S{S} P{P} N{N} L{L} {dtype}"
         route = sk.route(args[0], args[4], args[5], L)
@@ -1091,15 +1140,15 @@ def phase_hymba_kernels(mods):
         y, state = sk.ssd_cuda(*args, chunk=L)
         if route != "tensor_cores" or \
                 sk.launches_by_route["tensor_cores"] != before + 1:
-            raise AssertionError(f"{HYMBA} {label}: route {route}, want "
+            raise AssertionError(f"{arch} {label}: route {route}, want "
                                  f"tensor_cores")
         wy, wstate = ssd_chunked_ref(*args, chunk=L, return_state=True)
-        errs = [check_close(f"{HYMBA} {label} {what}", got, want, dtype)
+        errs = [check_close(f"{arch} {label} {what}", got, want, dtype)
                 for what, got, want in (("y", y, wy),
                                         ("state", state, wstate))]
         worst = max([worst] + [e for e, _ in errs])
         del y, state, wy, wstate
-        ms, _ = timed_in_turns(HYMBA, label,
+        ms, _ = timed_in_turns(arch, label,
                                lambda: sk.ssd_cuda(*args, chunk=L), None)
         plain_ms = time_ms(lambda: ssd_chunked_ref(*args, chunk=L,
                                                    return_state=True),
@@ -1108,19 +1157,18 @@ def phase_hymba_kernels(mods):
                                         args[0].element_size())
         b_ms, b_by = bound(flops, nbytes,
                            "3xtf32" if dtype == "float32" else dtype)
-        log(f"[kernels] {HYMBA} {label} on route {route}: rel err y "
+        log(f"[kernels] {arch} {label} on route {route}: rel err y "
             f"{errs[0][1]:.2e}, state {errs[1][1]:.2e} (tol "
             f"{TOL[dtype]:.0e}) | kernel {ms:.4f} ms device, plain "
             f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}"
             f"{', 3xTF32' if dtype == 'float32' else ''}), "
             f"{100 * b_ms / ms:.1f}% of bound, {flops / ms / 1e9:.1f} "
             f"TFLOP/s")
-        if dtype == "float32":
+        if dtype == dtypes[0]:
             found = (ms, plain_ms, b_ms, b_by, None)
         del args
         torch.cuda.empty_cache()
-    entries["ssd"] = kernel_entry("ssd", HYMBA, *found, worst)
-    return {e["name"]: e for e in entries.values()}
+    return kernel_entry("ssd", arch, *found, worst)
 
 
 DENSE = ("internlm2-20b", "chatglm3-6b", "qwen2.5-32b")
@@ -2195,24 +2243,39 @@ def phase_vlm_prefill(mods):
 
 
 # the front phase's traffic: six requests of ragged prompts, every other
-# one hot, through ServeFrontDoor(StepLM) over one gemma2-2b layer's paged
-# KV layout (mamba2-1.3b serves the same layout: the pool holds StepLM's
-# hash mirror, not the model's cache)
+# one hot, through ServeFrontDoor(StepLM) over the paged KV layout of one
+# layer of the arch (`front_layout`)
+# arch → new tokens a request, cut from 32 to keep the script inside its
+# time limit: with 32 for all five it took 925 s on one H100 machine and
+# 1,322 s on a slower one; every check holds at any count
+FRONT = {"gemma2-2b": 16, "mamba2-1.3b": 16, HYMBA: 8, "chatglm3-6b": 8,
+         "qwen2-moe-a2.7b": 8}
 FRONT_PROMPTS = (33, 300, 700, 1200, 2500, 4608)
-FRONT_NEW_TOKENS = 32
 FRONT_MAX_LEN = 4640
 FRONT_PAGES = 420
 FRONT_CHUNK = 256
 FRONT_CHECK_STEPS = 3   # decode steps of the kernel check after admission
+FRONT_TIMED = 4         # the request whose B = 1 shapes the kernels time
 
 
-def front_requests(vocab_size: int):
+def front_layout(cfg):
+    """The pool's layout: one layer's KV rows of `cfg`, bf16.  An arch
+    without attention (mamba2-1.3b) keeps gemma2-2b's 4 kv heads of 256:
+    the pool holds `StepLM`'s hash mirror, not the model's cache."""
+    from repro_torch.serve import KVLayout
+    n_kv, D = ((cfg.n_kv_heads, cfg.resolved_head_dim) if layer_counts(cfg)[0]
+               else (4, 256))
+    return KVLayout(n_pages=FRONT_PAGES, page_size=16, n_kv_heads=n_kv,
+                    head_dim=D, itemsize=2)
+
+
+def front_requests(vocab_size: int, new_tokens: int):
     """The same requests on every call, drawn from seed 0."""
     import numpy as np
     from repro_torch.serve import ServeRequest
     rng = np.random.default_rng(0)
     return [ServeRequest(rid=i, prompt=rng.integers(0, vocab_size, n).tolist(),
-                         max_new_tokens=FRONT_NEW_TOKENS,
+                         max_new_tokens=new_tokens,
                          temperature=0.8 if i % 2 else 0.0, seed=i)
             for i, n in enumerate(FRONT_PROMPTS)]
 
@@ -2251,7 +2314,7 @@ def front_run(arch, cfg, model, layout, mods, max_running, sanitize=False):
     fd = ServeFrontDoor(lm, layout, max_seq_len=FRONT_MAX_LEN,
                         max_running=max_running, prefill_chunk=FRONT_CHUNK,
                         sanitize=sanitize)
-    reqs = front_requests(cfg.vocab_size)
+    reqs = front_requests(cfg.vocab_size, FRONT[arch])
     for r in reqs:
         fd.submit(r)
     ssd_tc = mods["ssd"].launches_by_route["tensor_cores"]
@@ -2277,7 +2340,7 @@ def front_run(arch, cfg, model, layout, mods, max_running, sanitize=False):
         raise AssertionError(f"{arch}: {ssd_tc} of {counts['ssd']} SSD "
                              f"launches on the tensor cores")
     for r in reqs:
-        if len(r.output) != FRONT_NEW_TOKENS or not all(
+        if len(r.output) != FRONT[arch] or not all(
                 0 <= tok < cfg.vocab_size for tok in r.output):
             raise AssertionError(f"bad output {r.output}")
     n_new = sum(len(r.output) for r in reqs)
@@ -2403,7 +2466,7 @@ class HeldKernels:
         return {name: len(rows) for name, rows in self.checks.items()}
 
 
-def front_kernels(arch, cfg, model, mods):
+def front_kernels(arch, cfg, model, layout, mods):
     """The front traffic's kernel shapes on the card, each call held
     against its plain version on its own inputs, and a request's logits
     against themselves.  Request 0 alone, then all six requests with
@@ -2419,14 +2482,15 @@ def front_kernels(arch, cfg, model, mods):
     def serve(rids):
         """`rids` admitted in that order and stepped together; the logits
         row behind each sample, by (rid, len(tokens))."""
-        lm = StepLM(model, max_len=FRONT_MAX_LEN, row_bytes=2048)
+        lm = StepLM(model, max_len=FRONT_MAX_LEN, row_bytes=layout.row_bytes)
         rows, sample = {}, lm._sample_row
 
         def record(req, row):
             rows[req.rid, len(req.tokens)] = row.clone()
             return sample(req, row)
         lm._sample_row = record
-        by_rid = {r.rid: r for r in front_requests(cfg.vocab_size)}
+        by_rid = {r.rid: r for r in front_requests(cfg.vocab_size,
+                                                   FRONT[arch])}
         reqs = [by_rid[i] for i in rids]
         for r in reqs:
             r.tokens = list(r.prompt)
@@ -2453,19 +2517,19 @@ def front_kernels(arch, cfg, model, mods):
 def phase_front(arch, mods, sanitize=False):
     """Full-width `arch` behind the continuous-batching front door; with
     ``sanitize``, a third run at max_running 4 through a sanitized front
-    door must give the same streams and the same launches."""
+    door must give the same streams and the same launches.  Returns the
+    launch counts of the run at max_running 4."""
     from repro_torch.configs import RunConfig, get
     from repro_torch.models import LM
-    from repro_torch.serve import KVLayout
 
     cfg = get(arch)
     model = LM(cfg, RunConfig(dtype="bfloat16"), seed=0, device="cuda")
-    layout = KVLayout(n_pages=FRONT_PAGES, page_size=16, n_kv_heads=4,
-                      head_dim=256, itemsize=2)
+    layout = front_layout(cfg)
     log(f"[front] {arch} full width, bf16, StepLM max_len {FRONT_MAX_LEN}; "
-        f"prompts {FRONT_PROMPTS}, {FRONT_NEW_TOKENS} new tokens each, every "
+        f"prompts {FRONT_PROMPTS}, {FRONT[arch]} new tokens each, every "
         f"other request at T=0.8; pool of {FRONT_PAGES} pages of 16 rows of "
-        f"{layout.row_bytes} B, prefill_chunk {FRONT_CHUNK}")
+        f"{layout.row_bytes} B ({layout.n_kv_heads} kv heads of "
+        f"{layout.head_dim}), prefill_chunk {FRONT_CHUNK}")
     run4 = front_run(arch, cfg, model, layout, mods, 4)
     out4 = run4["outputs"]
     out1 = front_run(arch, cfg, model, layout, mods, 1)["outputs"]
@@ -2486,9 +2550,39 @@ def phase_front(arch, mods, sanitize=False):
             f"{san['wall']:.2f} s vs {run4['wall']:.2f} s wall, host outside "
             f"StepLM {san['host']:.2f} s vs {run4['host']:.2f} s "
             f"(sweep and audit {san['host'] - run4['host']:+.2f} s)")
-    front_kernels(arch, cfg, model, mods)
+    front_kernels(arch, cfg, model, layout, mods)
     del model
     free_card()
+    return run4["counts"]
+
+
+def phase_front_kernels(mods):
+    """The front door's B = 1 kernel shapes of hymba-1.5b, chatglm3-6b and
+    qwen2-moe-a2.7b at one request of the front traffic (FRONT_TIMED: its
+    prompt's prefill, and a decode step half-way through its new tokens
+    over the FRONT_MAX_LEN-row cache, at the B = 1 key splits): flash and
+    decode attention at each config's heads and its window, and hymba's
+    SSD on the prompt padded to the chunk, in fp32 as it serves; each as
+    `attention_layout_cases` and `ssd_layout_cases` say.  Returns the
+    entries, named "kernel arch front"."""
+    import torch
+    from repro_torch.configs import get
+    gen = torch.Generator("cuda").manual_seed(8)
+    S = FRONT_PROMPTS[FRONT_TIMED]
+    entries = {}
+    for arch in list(FRONT)[2:]:
+        cfg = get(arch)
+        name = f"{arch} front"
+        found = attention_layout_cases(
+            cfg, mods, library_attention(), gen, (cfg.window,), B=1, S=S,
+            kv_len=S + FRONT[arch] // 2, name=name)
+        if cfg.ssm is not None:
+            L = cfg.ssm.chunk
+            found["ssd"] = ssd_layout_cases(cfg, mods["ssd"], gen, 1,
+                                            -(-S // L) * L, ("float32",),
+                                            name=name)
+        entries.update({e["name"]: e for e in found.values()})
+    return entries
 
 
 def seed_qkv_biases(model, seed):
@@ -4081,6 +4175,7 @@ def main() -> int:
     hymba_entries = phase_hymba_kernels(mods)
     dense_entries = phase_dense_kernels(mods)
     dense_entries.update(phase_moe_kernels(mods))
+    front_entries = phase_front_kernels(mods)
     encdec_entries = phase_encdec_kernels(mods)
     entries.update(phase_dma(mods))
     entries["matmul_dma"] = phase_matmul(mods)
@@ -4103,8 +4198,12 @@ def main() -> int:
         kernel, arch = name.split()
         e["launches"] = served[arch][kernel]
         entries[name] = e
-    phase_front("gemma2-2b", mods, sanitize=True)
-    phase_front("mamba2-1.3b", mods)
+    front = {arch: phase_front(arch, mods, sanitize=arch == "gemma2-2b")
+             for arch in FRONT}
+    for name, e in front_entries.items():
+        kernel, arch, _ = name.split()
+        e["launches"] = front[arch][kernel]
+        entries[name] = e
     gemma2 = dataclasses.replace(get("gemma2-2b"), n_layers=2,
                                  layer_pattern=(((ATTN_SWA, ATTN_FULL), 1),))
     phase_card_vs_cpu(gemma2, "SWA, FULL", mods)

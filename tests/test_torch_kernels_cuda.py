@@ -110,6 +110,18 @@ FLASH_CASES = [
     dict(B=4, Hq=32, Hkv=8, S=4608, D=128, causal=True, window=4096,
          cap=0.0),
     dict(B=2, Hq=4, Hkv=4, S=333, D=128, causal=True, window=0, cap=0.0),
+    # the front door's admissions: one request's prefill at B 1 and its
+    # own ragged length; hymba-1.5b (25 / 5 heads of 64) windowed past the
+    # window and not, then full; chatglm3-6b (32 / 2 of 128, GQA 16);
+    # qwen2-moe-a2.7b (16 / 16 of 128, GQA 1)
+    dict(B=1, Hq=25, Hkv=5, S=33, D=64, causal=True, window=1024, cap=0.0),
+    dict(B=1, Hq=25, Hkv=5, S=1200, D=64, causal=True, window=1024,
+         cap=0.0),
+    dict(B=1, Hq=25, Hkv=5, S=700, D=64, causal=True, window=0, cap=0.0),
+    dict(B=1, Hq=32, Hkv=2, S=33, D=128, causal=True, window=0, cap=0.0),
+    dict(B=1, Hq=32, Hkv=2, S=2500, D=128, causal=True, window=0, cap=0.0),
+    dict(B=1, Hq=16, Hkv=16, S=700, D=128, causal=True, window=0, cap=0.0),
+    dict(B=1, Hq=16, Hkv=16, S=33, D=128, causal=True, window=0, cap=0.0),
 ]
 DECODE_CASES = [
     dict(B=2, Hq=8, Hkv=2, S=512, D=64, kvlen=300, win=0, cap=0.0),
@@ -146,6 +158,15 @@ DECODE_CASES = [
 ] + [
     dict(B=4, Hq=32, Hkv=8, S=4640, D=128, kvlen=n, win=4096, cap=0.0)
     for n in (17, 4608)
+] + [
+    # the front door's decode calls: one request a call (B 1, so its own
+    # key splits) over a 4,640-row cache, after the shortest prompt and
+    # after a long one; hymba-1.5b windowed and full, chatglm3-6b,
+    # qwen2-moe-a2.7b
+    dict(B=1, Hq=Hq, Hkv=Hkv, S=4640, D=D, kvlen=n, win=w, cap=0.0)
+    for Hq, Hkv, D, w in ((25, 5, 64, 1024), (25, 5, 64, 0),
+                          (32, 2, 128, 0), (16, 16, 128, 0))
+    for n in (34, 2516)
 ]
 
 SSD_CASES = [
@@ -163,6 +184,9 @@ SSD_CASES = [
     # then its main path: 50 heads (6 x 8 + 2), N 16
     dict(B=2, H=10, G=1, S=96, P=64, N=16, chunk=32),
     dict(B=4, H=50, G=1, S=4608, P=64, N=16, chunk=128),
+    # hymba-1.5b behind the front door: one request's 700-token prompt,
+    # padded to the chunk
+    dict(B=1, H=50, G=1, S=768, P=64, N=16, chunk=128),
 ]
 
 
@@ -517,6 +541,23 @@ def test_ssd_hymba_shape_on_the_tensor_cores(cuda, dtype):
     args = _ssd_view_inputs(1, 10, 1, 1024, 64, 16, dtype, cuda, 28)
     want_y, want_state = ssd_ref(*args, return_state=True)
     y, state = _ssd_on(args, 128, "tensor_cores")
+    assert _rel_err(y, want_y) < TOL[dtype]
+    assert _rel_err(state, want_state) < TOL[dtype]
+
+
+@pytest.mark.parametrize("S", [128, 2560])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ssd_front_door_shape_on_the_tensor_cores(cuda, dtype, S):
+    """hymba-1.5b's SSD behind the front door: one request (B 1) on the
+    model's views, its 33- and 2,500-token prompts padded to the chunk,
+    through `ssd` on the tensor cores."""
+    args = _ssd_view_inputs(1, 50, 1, S, 64, 16, dtype, cuda, 29)
+    assert SK.route(args[0], args[4], args[5], 128) == "tensor_cores"
+    before = dict(SK.launches_by_route)
+    y, state = ssd(*args, chunk=128, return_state=True)
+    assert SK.launches_by_route["tensor_cores"] == \
+        before["tensor_cores"] + 1
+    want_y, want_state = ssd_chunked_ref(*args, chunk=128, return_state=True)
     assert _rel_err(y, want_y) < TOL[dtype]
     assert _rel_err(state, want_state) < TOL[dtype]
 

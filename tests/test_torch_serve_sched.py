@@ -8,11 +8,15 @@ poll completion and in a pool starved enough to preempt and swap.  The
 cases of tests/test_serve_sched.py are held here on the port, the
 sanitized one included (`repro_torch.sanitize` certifies every drain).
 
-`StepLM` is rewritten in PyTorch.  On reduced gemma2-2b, mamba2-1.3b and
-hymba-1.5b (2 layers, fp32, the same weights in both packages) its greedy
+`StepLM` is rewritten in PyTorch.  On every decoder arch of the registry,
+reduced (2 layers, fp32, the same weights in both packages), its greedy
 streams equal the JAX `StepLM`'s; every stream, hot rows included, is the
 same at `max_running` 4 and 1; and a request's decode logits are
-`torch.equal` whatever other requests are in flight.
+`torch.equal` whatever other requests are in flight.  The reference groups
+the requests at one decode position into one call, which sizes an MoE
+layer's expert capacity from the whole group: past 8 requests an expert
+can overflow and drop a pair there, while the port's one call a request
+never drops at decode.
 """
 
 import dataclasses
@@ -25,10 +29,11 @@ import torch
 import repro.serve.sched as JS
 from repro.configs import get as j_get
 from repro.configs.base import RunConfig as JRunConfig, reduced as j_reduced
+from repro.models import moe as j_moe
 from repro.serve.kvcache import KVLayout as JKVLayout
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import Protocol
-from repro_torch.models import lm_from_numpy
+from repro_torch.models import lm_from_numpy, moe as t_moe
 import repro_torch.serve.sched as TS
 from repro_torch.serve import StepLM
 from repro_torch.serve.kvcache import (KVLayout, span_append_descriptors,
@@ -368,13 +373,18 @@ class RecordingStepLM(StepLM):
         return super()._sample_row(req, logits_row)
 
 
-def _step_setup(arch, seed):
-    jcfg = j_reduced(j_get(arch))
+def _step_weights(jcfg, seed):
+    """The reference's seeded params and the port's model over them."""
     params = seeded_params(jcfg, seed)
     tree = jax.tree_util.tree_map(np.asarray, params)
     cfg = ArchConfig(**{f.name: getattr(jcfg, f.name)
                         for f in dataclasses.fields(jcfg)})
-    model = lm_from_numpy(cfg, tree, device="cpu")
+    return params, lm_from_numpy(cfg, tree, device="cpu")
+
+
+def _step_setup(arch, seed):
+    jcfg = j_reduced(j_get(arch))
+    params, model = _step_weights(jcfg, seed)
     j_lm = JS.StepLM(jcfg, JRunConfig(kernels="xla", dtype="float32",
                                       remat=False),
                      params, max_len=MAX_LEN, row_bytes=32)
@@ -382,31 +392,43 @@ def _step_setup(arch, seed):
     return model, j_out
 
 
-# Weight seeds: with these requests the smallest top-2 margin of a greedy
-# token is 108x (gemma2, seed 0), 136x (mamba2, seed 0) and 153x (hymba,
-# seed 3) the disagreement bound below.
-@pytest.fixture(scope="module")
-def gemma2():
-    return _step_setup("gemma2-2b", 0)
+# Every decoder arch of the registry (seamless-m4t-large-v2 is served by
+# neither `StepLM`), with its weight seed.  With these requests the
+# smallest top-2 margin of a greedy token is this many times the
+# disagreement bound below: 108x (gemma2, seed 0), 136x (mamba2, seed 0),
+# 153x (hymba, seed 3), 49.9x (internlm2, seed 0), 44.8x (chatglm3, seed
+# 0), 186.8x (qwen2.5, seed 1; 1.7x at seed 0), 49.9x (internvl2, seed 0:
+# text only, as the reference's `StepLM` passes no patch embeddings;
+# reduced, that is internlm2's backbone), 21.8x (qwen2-moe, seed 0) and
+# 185.6x (mixtral, seed 0).
+STEP_ARCHS = {"gemma2": ("gemma2-2b", 0), "mamba2": ("mamba2-1.3b", 0),
+              "hymba": ("hymba-1.5b", 3), "internlm2": ("internlm2-20b", 0),
+              "chatglm3": ("chatglm3-6b", 0), "qwen2.5": ("qwen2.5-32b", 1),
+              "internvl2": ("internvl2-26b", 0),
+              "qwen2-moe": ("qwen2-moe-a2.7b", 0),
+              "mixtral": ("mixtral-8x7b", 0)}
 
 
 @pytest.fixture(scope="module")
-def mamba2():
-    return _step_setup("mamba2-1.3b", 0)
+def step_models():
+    """`which` → (the port's model, the JAX front door's streams), each
+    built once a module, on first use."""
+    built = {}
+
+    def setup(which):
+        if which not in built:
+            built[which] = _step_setup(*STEP_ARCHS[which])
+        return built[which]
+    return setup
 
 
-@pytest.fixture(scope="module")
-def hymba():
-    return _step_setup("hymba-1.5b", 3)
-
-
-@pytest.mark.parametrize("which", ["gemma2", "mamba2", "hymba"])
-def test_steplm_greedy_streams_equal_jax(request, which):
+@pytest.mark.parametrize("which", list(STEP_ARCHS))
+def test_steplm_greedy_streams_equal_jax(step_models, which):
     """Greedy rows through the port's `ServeFrontDoor(StepLM)` equal the
     JAX front door's; each greedy token's top-2 margin is many times the
     two frameworks' logit disagreement (1e-4 of max|logit|), so a near-tie
     cannot flip it."""
-    model, j_out = request.getfixturevalue(which)
+    model, j_out = step_models(which)
     lm = RecordingStepLM(model, max_len=MAX_LEN, row_bytes=32)
     out = _serve(TS, lm, KVLayout(**STEP_LAYOUT), model.cfg.vocab_size, 4)
     for i, n in enumerate(PROMPT_LENS):
@@ -423,12 +445,12 @@ def test_steplm_greedy_streams_equal_jax(request, which):
     assert lm.decode_calls == len(PROMPT_LENS) * (NEW_TOKENS - 1)
 
 
-@pytest.mark.parametrize("which", ["gemma2", "mamba2", "hymba"])
-def test_continuous_equals_sequential(request, which):
+@pytest.mark.parametrize("which", list(STEP_ARCHS))
+def test_continuous_equals_sequential(step_models, which):
     """Every stream, hot rows included, is the same at max_running 4 (the
     requests share steps) and 1 (each request alone), down to the bits of
     every logits row it sampled from."""
-    model, _ = request.getfixturevalue(which)
+    model, _ = step_models(which)
     runs, rows = [], []
     for max_running in (4, 1):
         lm = RecordingStepLM(model, max_len=MAX_LEN, row_bytes=32)
@@ -442,12 +464,13 @@ def test_continuous_equals_sequential(request, which):
         assert torch.equal(row, rows[1][key]), key
 
 
-@pytest.mark.parametrize("which", ["gemma2", "mamba2", "hymba"])
-def test_decode_logits_independent_of_other_requests(request, which):
+@pytest.mark.parametrize("which", list(STEP_ARCHS))
+def test_decode_logits_independent_of_other_requests(step_models,
+                                                     which):
     """A request's decode logits are `torch.equal` whether it steps alone
     or among other requests at the same position, before or after them in
     the step, and stay so on the next step."""
-    model, _ = request.getfixturevalue(which)
+    model, _ = step_models(which)
     rng = np.random.default_rng(3)
     prompts = [list(map(int, rng.integers(1, model.cfg.vocab_size, 20)))
                for _ in range(4)]
@@ -475,8 +498,8 @@ def test_decode_logits_independent_of_other_requests(request, which):
     assert (solo.decode_calls, full.decode_calls) == (2, 8)
 
 
-def test_steplm_release_and_hot_draws(gemma2):
-    model, _ = gemma2
+def test_steplm_release_and_hot_draws(step_models):
+    model, _ = step_models("gemma2")
     lm = StepLM(model, max_len=MAX_LEN, row_bytes=32)
     reqs = [TS.ServeRequest(rid=i, prompt=[3, 4, 5]) for i in range(3)]
     for r in reqs:
@@ -489,3 +512,87 @@ def test_steplm_release_and_hot_draws(gemma2):
     hot.tokens = [3, 4]
     row = torch.linspace(-1.0, 1.0, model.cfg.vocab_size)
     assert len({lm._sample_row(hot, row) for _ in range(3)}) == 1
+
+
+# -- MoE at one decode position: the reference groups, the port does not ----
+
+MOE_PROMPT = 6      # a B = 1 prefill of 6 tokens keeps every pair
+MOE_STEPS = 5       # tokens a stream: the prefill's sample and 4 decodes
+
+
+def test_moe_grouped_decode_drops_only_in_reference(monkeypatch):
+    """Reduced qwen2-moe-a2.7b at its real capacity factor 1.25 (4 experts,
+    top 2: capacity 8 for up to 14 tokens), every request greedy with a
+    6-token prompt.  The reference's `StepLM` runs the requests at one
+    decode position as one group, whose capacity comes from the group's
+    size: n requests put at most n pairs on an expert, so no group of 8
+    or fewer can drop.  The smallest group from 9 up where the grouped
+    call drops a pair is found; there the reference's grouped streams
+    differ from those of each request served alone, while the port's one
+    decode call a request (T = 1, capacity 8) gives every request the
+    same stream alone and in the group, and drops nothing."""
+    full = j_get("qwen2-moe-a2.7b")
+    jcfg = j_reduced(full)
+    mc = dataclasses.replace(jcfg.moe, capacity_factor=full.moe
+                             .capacity_factor)
+    jcfg = dataclasses.replace(jcfg, moe=mc)
+    params, model = _step_weights(jcfg, 0)
+    rng = np.random.default_rng(5)
+    prompts = [list(map(int, rng.integers(1, jcfg.vocab_size, MOE_PROMPT)))
+               for _ in range(14)]
+
+    dropped = []            # (tokens of the call, pairs dropped), per layer
+    inner = j_moe.moe_dispatch_compute
+
+    def recording(p, x2, mc, *args, **kw):
+        y, aux, frac = inner(p, x2, mc, *args, **kw)
+        T = x2.shape[0]
+        jax.debug.callback(lambda f, T=T: dropped.append(
+            (T, round(float(f) * T * mc.top_k))), frac)
+        return y, aux, frac
+    monkeypatch.setattr(j_moe, "moe_dispatch_compute", recording)
+
+    def streams(S, lm, rids):
+        reqs = [S.ServeRequest(rid=i, prompt=prompts[i]) for i in rids]
+        for r in reqs:
+            r.tokens = list(r.prompt)
+            lm.on_admit(r)
+        for _ in range(MOE_STEPS):
+            for r, tok in zip(reqs, lm.next_tokens(reqs, [None] * len(reqs))):
+                r.tokens.append(tok)
+        for r in reqs:
+            lm.release(r)
+        return [r.tokens[MOE_PROMPT:] for r in reqs]
+
+    assert all(j_moe._capacity(n, mc) == 8 for n in range(1, 15))
+    j_lm = JS.StepLM(jcfg, JRunConfig(kernels="xla", dtype="float32",
+                                      remat=False),
+                     params, max_len=MAX_LEN, row_bytes=32)
+    for n in range(9, 15):
+        dropped.clear()
+        grouped_streams = streams(JS, j_lm, range(n))
+        grouped = [pairs for T, pairs in dropped if T == n]
+        assert len(grouped) == jcfg.n_layers * (MOE_STEPS - 1)
+        if any(grouped):
+            break
+    else:
+        pytest.fail("no group of 9-14 requests drops a pair")
+    dropped.clear()
+    alone = [streams(JS, j_lm, [i])[0] for i in range(n)]
+    assert not any(pairs for _, pairs in dropped)
+    assert grouped_streams != alone, n
+
+    t_lm = StepLM(model, max_len=MAX_LEN, row_bytes=32)
+    t_alone = [streams(TS, t_lm, [i])[0] for i in range(n)]
+    t_dropped, t_route = [], t_moe.route
+
+    def t_recording(*args, **kw):
+        r = t_route(*args, **kw)
+        t_dropped.append(int((~r.keep).sum()))
+        return r
+    monkeypatch.setattr(t_moe, "route", t_recording)
+    t_grouped = streams(TS, t_lm, range(n))
+    assert t_grouped == t_alone
+    assert t_alone == alone            # the reference's streams, alone
+    assert t_dropped and not any(t_dropped)
+
