@@ -12,9 +12,12 @@ timed, once under `torch.profiler`.  For prefill and for the decode step
 (the model's step plus sampling and the host's wait for the tokens) it
 prints the wall time without the profiler, the device's busy time, its
 idle share against that wall time, the kernel launches and the kernels
-by device time; and the peak device memory of the timed `generate`.  The
-last line is a JSON summary.  Run as a file with another checkout's `src`
-on PYTHONPATH, it measures that checkout's port the same way.
+by device time; the peak device memory of the timed `generate`; and the
+program's spans and counters of the profiled `generate`
+(`repro_torch.spans`, recorded through it): count, host time and self
+time by name.  The last line is a JSON summary.  Run as a file with
+another checkout's `src` on PYTHONPATH, it measures that checkout's port
+the same way.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from repro_torch import spans
 from repro_torch.configs import RunConfig, get
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models import LM
@@ -122,7 +126,9 @@ def main() -> None:
     torch.cuda.reset_peak_memory_stats(dev)
     plain, steps, _ = run_generate(engine, profiled=False)
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
-    under, steps, profs = run_generate(engine, profiled=True)
+    spans.clear()
+    with spans.recording():
+        under, steps, profs = run_generate(engine, profiled=True)
 
     summary = {"arch": cfg.name,
                "config": f"{cfg.name} full width bf16, prompts {PROMPTS} "
@@ -148,6 +154,10 @@ def main() -> None:
                          "idle_share": 1 - busy / wall_ms,
                          "launches": launches,
                          "top": [[k[:60], c, m] for k, c, m in rows[:5]]}
+    print("[spans] the profiled generate's spans and counters: count, "
+          "host ms in all, self ms (less the spans inside)")
+    for name, n, total, own in spans.table(spans.records()):
+        print(f"  {n:7d}  {total:11.3f}  {own:11.3f}  {name}")
     print(json.dumps(summary))
 
 

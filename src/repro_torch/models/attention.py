@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch import spans
 from repro_torch.configs.base import ArchConfig, RunConfig
 from repro_torch.dist.sharding import hint
 from repro_torch.kernels.decode_attention.ops import decode_attention
@@ -250,8 +251,13 @@ def _attend(q, k, v, *, causal: bool, window: int, softcap_v: float,
                              rcfg.attn_chunk_q, rcfg.attn_chunk_k)
     if rcfg is not None:
         needs_grad(q, k, v, what="flash attention")
-    return flash_attention(q, k, v, causal=causal, window=window,
-                           softcap=softcap_v, scale=scale)
+    if not spans.on:
+        return flash_attention(q, k, v, causal=causal, window=window,
+                               softcap=softcap_v, scale=scale)
+    with spans.span("repro_torch.lm.attend", q=q.shape, k=k.shape,
+                    kv_len=k.shape[2]):
+        return flash_attention(q, k, v, causal=causal, window=window,
+                               softcap=softcap_v, scale=scale)
 
 
 def attention_forward(p: Attention, x: torch.Tensor, cfg: ArchConfig, *,
@@ -322,6 +328,10 @@ def attention_decode_step(p: Attention, x: torch.Tensor,
     if plain_path(rcfg):
         o = on_local_shards(functools.partial(decode_attention_ref, **kw),
                             q[:, :, 0], (cache_k, cache_v))
+    elif spans.on:
+        with spans.span("repro_torch.lm.attend", q=q.shape, k=cache_k.shape,
+                        kv_len=pos + 1):
+            o = decode_attention(q[:, :, 0], cache_k, cache_v, **kw)
     else:
         o = decode_attention(q[:, :, 0], cache_k, cache_v, **kw)
     return _out(p, o.reshape(B, 1, -1)), cache_k, cache_v

@@ -22,6 +22,7 @@ import torch
 import torch.utils.checkpoint
 from torch import nn
 
+from repro_torch import spans
 from repro_torch.configs.base import (ArchConfig, ATTN_FULL, ATTN_SWA,
                                       HYBRID, HYBRID_FULL, SSM, RunConfig)
 from .attention import (Attention, attention_decode_step,
@@ -225,15 +226,20 @@ def segments_forward(layers: Sequence[Block], x: torch.Tensor,
     no more than one layer are held at a time.  `rcfg` as
     `block_forward` reads it."""
     caches: List[Cache] = []
-    for layer, kind in zip(layers, cfg.layer_kinds):
-        out = block_forward(layer, x, cfg, kind, positions,
-                            collect_cache=cache_len is not None, rcfg=rcfg)
-        if cache_len is None:
-            x = out
-            continue
-        x, c = out
-        caches.append({name: _pad_rows(a, cache_len) if name in ("k", "v")
-                       else a for name, a in c.items()})
+    for i, (layer, kind) in enumerate(zip(layers, cfg.layer_kinds)):
+        with spans.span("repro_torch.lm.block", layer=i, kind=kind):
+            out = block_forward(layer, x, cfg, kind, positions,
+                                collect_cache=cache_len is not None,
+                                rcfg=rcfg)
+            if cache_len is None:
+                x = out
+                continue
+            x, c = out
+            with spans.span("repro_torch.lm.cache_fill", rows=x.shape[1],
+                            cache_len=cache_len):
+                caches.append({name: _pad_rows(a, cache_len)
+                               if name in ("k", "v") else a
+                               for name, a in c.items()})
     return x if cache_len is None else (x, caches)
 
 

@@ -18,6 +18,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch import spans
+
 #: the compute dtypes of `RunConfig.dtype` (and `ssd_compute_dtype`)
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -40,7 +42,14 @@ def dense(x: torch.Tensor, w: torch.Tensor,
     (w's own when None): the activation, the weight and the bias each
     cast to it, as the reference's `dense` does."""
     dtype = dtype or w.dtype
-    y = matmul(x.to(dtype), w.to(dtype))
+    x, w = x.to(dtype), w.to(dtype)
+    if spans.on:    # the product's span: M (x's rows flattened), K, N, elt
+        K = x.shape[-1]
+        with spans.span("repro_torch.lm.dense", M=x.numel() // K if K else 0,
+                        K=K, N=w.shape[-1], elt=x.element_size()):
+            y = matmul(x, w)
+    else:
+        y = matmul(x, w)
     if b is not None:
         y = y + b.to(dtype)
     return y

@@ -31,6 +31,7 @@ from typing import Callable, Dict, List, Optional, Tuple, Union
 import torch
 from torch import nn
 
+from repro_torch import spans
 from repro_torch.configs.base import ArchConfig, RunConfig
 from repro_torch.kernels.runtime import resolve_device
 from .attention import flush_ring
@@ -281,13 +282,14 @@ def lm_prefill(model: LM, tokens: torch.Tensor,
     max_len = max_len or S
     if S > max_len:
         raise ValueError(f"prompt of {S} tokens exceeds max_len {max_len}")
-    x = _embed_in(model, tokens, patch_embeds)
-    positions = torch.arange(S, device=tokens.device)
-    x, caches = segments_forward(model.layers, x, model.cfg,
-                                 positions=positions, cache_len=max_len,
-                                 rcfg=rcfg)
-    x = rmsnorm(model.final_norm, x[:, -1:])
-    return _logits(model, x)[:, 0], caches
+    with spans.span("repro_torch.lm.prefill", B=B, S=S, cache_len=max_len):
+        x = _embed_in(model, tokens, patch_embeds)
+        positions = torch.arange(S, device=tokens.device)
+        x, caches = segments_forward(model.layers, x, model.cfg,
+                                     positions=positions, cache_len=max_len,
+                                     rcfg=rcfg)
+        x = rmsnorm(model.final_norm, x[:, -1:])
+        return _logits(model, x)[:, 0], caches
 
 
 @torch.no_grad()
@@ -298,15 +300,22 @@ def lm_decode_step(model: LM, caches: List[Cache], tokens: torch.Tensor,
     (B, V) fp32, caches): attention caches are updated in place, SSM
     caches replaced, so use the returned list.  `rcfg` as `lm_prefill`
     reads it."""
-    x = _embed_in(model, tokens)
-    new_caches: List[Cache] = []
-    for layer, kind, cache in zip(model.layers, model.cfg.layer_kinds,
-                                  caches):
-        x, c = block_decode_step(layer, x, cache, pos, model.cfg, kind,
-                                 rcfg)
-        new_caches.append(c)
-    x = rmsnorm(model.final_norm, x)
-    return _logits(model, x)[:, 0], new_caches
+    with spans.span("repro_torch.lm.decode_step", B=tokens.shape[0],
+                    pos=pos):
+        x = _embed_in(model, tokens)
+        new_caches: List[Cache] = []
+        for i, (layer, kind, cache) in enumerate(
+                zip(model.layers, model.cfg.layer_kinds, caches)):
+            if spans.on:
+                with spans.span("repro_torch.lm.block", layer=i, kind=kind):
+                    x, c = block_decode_step(layer, x, cache, pos, model.cfg,
+                                             kind, rcfg)
+            else:
+                x, c = block_decode_step(layer, x, cache, pos, model.cfg,
+                                         kind, rcfg)
+            new_caches.append(c)
+        x = rmsnorm(model.final_norm, x)
+        return _logits(model, x)[:, 0], new_caches
 
 
 def init_decode_cache(batch: int, max_len: int, cfg: ArchConfig,

@@ -17,6 +17,7 @@ from typing import List, Tuple
 
 import torch
 
+from repro_torch import spans
 from repro_torch.models import LM
 from .serve_step import (greedy_sample, make_decode_step, make_prefill_step,
                          temperature_sample)
@@ -62,7 +63,12 @@ class ServeEngine:
         self._decode = make_decode_step(model)
 
     def generate(self, requests: List[Request]) -> List[Request]:
-        """Run a padded batch of requests to completion."""
+        """Run a padded batch of requests to completion.  Its records
+        (`repro_torch.spans`) carry the call's number; its counters:
+        `serve.prefill_tokens` (own: the prompts' tokens, padded: B x the
+        padded width) once the prefill returns, and `serve.kv_rows`
+        (reserved: B x max_len cache rows, own: the rows of requests still
+        served) after each decode step's tokens are appended."""
         B = len(requests)
         dev = self.model.device
         tokens = left_pad([r.prompt for r in requests]).to(dev)
@@ -72,22 +78,37 @@ class ServeEngine:
                 self.seed * 65_537 + i))
         gens = self._gens[:B]
 
-        logits, caches = self._prefill(tokens)
-        max_new = max(r.max_new_tokens for r in requests)
-        pos = prompt_len
-        cur = self._sample(logits, requests, gens)
-        for r, t in zip(requests, cur.tolist()):
-            r.output.append(t)
-
-        for _ in range(max_new - 1):
-            if all(r.finished for r in requests):
-                break  # every request hit max_new or a stop token
-            logits, caches = self._decode(caches, cur[:, None].long(), pos)
+        with spans.call("repro_torch.serve.generate", B=B,
+                        width=prompt_len):
+            logits, caches = self._prefill(tokens)
+            if spans.active():
+                spans.count("repro_torch.serve.prefill_tokens",
+                            own=sum(len(r.prompt) for r in requests),
+                            padded=B * prompt_len)
+            max_new = max(r.max_new_tokens for r in requests)
+            pos = prompt_len
             cur = self._sample(logits, requests, gens)
-            pos += 1
-            for r, t in zip(requests, cur.tolist()):
-                if not r.finished:
+            with spans.span("repro_torch.serve.emit", B=B):
+                for r, t in zip(requests, cur.tolist()):
                     r.output.append(t)
+
+            for k in range(1, max_new):
+                if all(r.finished for r in requests):
+                    break  # every request hit max_new or a stop token
+                logits, caches = self._decode(caches, cur[:, None].long(),
+                                              pos)
+                cur = self._sample(logits, requests, gens)
+                pos += 1
+                with spans.span("repro_torch.serve.emit", B=B):
+                    for r, t in zip(requests, cur.tolist()):
+                        if not r.finished:
+                            r.output.append(t)
+                if spans.active():
+                    # a request served in step k holds k + 1 tokens
+                    spans.count("repro_torch.serve.kv_rows",
+                                reserved=B * self.max_len,
+                                own=sum(len(r.prompt) + k for r in requests
+                                        if len(r.output) == k + 1))
         return requests
 
     def _sample(self, logits: torch.Tensor, requests: List[Request],
@@ -95,9 +116,10 @@ class ServeEngine:
         """Greedy rows are exact argmax, never touched by a neighbour's
         temperature; each hot row draws at its own temperature from its
         own generator."""
-        cur = greedy_sample(logits)
-        for i, r in enumerate(requests):
-            if r.temperature > 0:
-                cur[i] = temperature_sample(gens[i], logits[i:i + 1],
-                                            max(r.temperature, 1e-4))[0]
-        return cur
+        with spans.span("repro_torch.serve.sample", B=len(requests)):
+            cur = greedy_sample(logits)
+            for i, r in enumerate(requests):
+                if r.temperature > 0:
+                    cur[i] = temperature_sample(gens[i], logits[i:i + 1],
+                                                max(r.temperature, 1e-4))[0]
+            return cur

@@ -1149,3 +1149,43 @@ def test_moe_dispatch_gives_equal_bits_twice(cuda, dtype):
     assert 0 < float(a[2]) < 1
     for u, v in zip(a, b):
         assert torch.equal(u, v)
+
+
+def test_traced_decode_step_adds_no_synchronize(cuda):
+    """The spans of a decode step read shapes, never values: a traced
+    `lm_decode_step` (the profiler recording, so every span site records)
+    of a reduced internlm2-20b (head size 128, GQA 2, bf16) through the
+    flash and decode kernels runs under `set_sync_debug_mode("error")`,
+    which raises on any synchronize."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import spans
+    from repro_torch.configs import get
+    from repro_torch.configs.base import RunConfig, reduced
+    from repro_torch.models import LM, lm_decode_step, lm_prefill
+
+    cfg = reduced(get("internlm2-20b"), n_layers=2, d_model=512, n_heads=4,
+                  n_kv_heads=2, d_ff=1024, vocab=512)
+    model = LM(cfg, RunConfig(dtype="bfloat16"), seed=7, device=cuda)
+    tokens = torch.randint(1, 512, (3, 40), device=cuda,
+                           generator=torch.Generator(cuda).manual_seed(8))
+    _, caches = lm_prefill(model, tokens, max_len=64)
+    nxt = tokens[:, -1:]
+    lm_decode_step(model, caches, nxt, 40)          # warm: lazy set-up
+    torch.cuda.synchronize()
+    spans.clear()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                lm_decode_step(model, caches, nxt, 41)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        names = [r.name for r in spans.records()]
+    finally:
+        spans.clear()
+    assert names.count("repro_torch.lm.decode_step") == 1
+    assert names.count("repro_torch.lm.block") == 2
+    assert names.count("repro_torch.lm.attend") == 2
+    assert names.count("repro_torch.lm.dense") == 2 * 7 + 1
