@@ -115,7 +115,10 @@ lines tagged with its name:
                the launch counters, set to 0 before each run, must show
                every attention and SSD call went through the kernels
                (every SSD call on the tensor cores) and no other kernel ran
-               (no copy, Init or matmul kernel); then full-width
+               (no copy, Init or matmul kernel); gemma2-2b and the dense
+               configs must replay their decode steps from CUDA graphs
+               captured once, and an untimed generate through the eager
+               step must give the same greedy rows; then full-width
                internvl2-26b's prefill of the same batch with 256 seeded
                patch embeddings of width 3,200 a row, through
                `make_prefill_step`, and 3 decode steps: finite logits, 48
@@ -2025,7 +2028,9 @@ def phase_serve(arch, mods, cfg=None, held=False, rcfg=None, attempts=2):
     launches of the first run.  A MoE model prints the dropped fraction of
     each layer's prefill.  With `held`, a further run goes through
     `HeldKernels`: every flash and decode call of the generate against its
-    plain version.  The model, its engine and the allocator's cached
+    plain version.  Where `decode_graphs_fit` holds, the decode steps must
+    replay from graphs captured once, with the eager step's greedy rows.
+    The model, its engine and the allocator's cached
     blocks are freed before it returns, so the next model has the card."""
     import torch
     from repro_torch.configs import RunConfig, get
@@ -2034,7 +2039,7 @@ def phase_serve(arch, mods, cfg=None, held=False, rcfg=None, attempts=2):
         make_requests)
     from repro_torch.models import LM
     from repro_torch.models.common import dense, unembed
-    from repro_torch.serve import ServeEngine
+    from repro_torch.serve import ServeEngine, decode_graphs_fit
 
     cfg = cfg or get(arch)
     cut = get(arch).n_layers
@@ -2068,8 +2073,9 @@ def phase_serve(arch, mods, cfg=None, held=False, rcfg=None, attempts=2):
             return logits, caches
         return run
 
+    step = engine._decode                  # the engine's GraphDecodeStep
     engine._prefill = timed(engine._prefill, "prefill")
-    engine._decode = timed(engine._decode, "decode")
+    engine._decode = timed(step, "decode")
 
     runs = []
     for attempt in range(attempts):
@@ -2109,6 +2115,28 @@ def phase_serve(arch, mods, cfg=None, held=False, rcfg=None, attempts=2):
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | launches "
             + ", ".join(f"{k} {v}" for k, v in counts.items()) +
             f" (ssd on route tensor_cores {ssd_tc})")
+    # where the model allows it the decode steps replayed from graphs: one
+    # capture, none fallen back to eager, and an untimed generate through
+    # the eager step gives the same greedy rows
+    if decode_graphs_fit(model):
+        if step.captures != 1 or step.fallbacks or step.graphs is None:
+            raise AssertionError(f"{arch}: decode graphs captured "
+                                 f"{step.captures} times, {step.fallbacks} "
+                                 f"fallbacks to eager")
+        engine._decode = step.eager
+        eager = engine.generate(make_requests(cfg.vocab_size))
+        engine._decode = step
+        differ = [i for i, r in enumerate(eager)
+                  if i != HOT_ROW and r.output != runs[0]["outputs"][i]]
+        if differ:
+            raise AssertionError(f"{arch}: greedy rows {differ} of the "
+                                 f"graphed decode differ from the eager")
+        log(f"[serve] {arch}{tag}: decode replayed from "
+            f"{len(step.graphs.graphs)} CUDA graphs (pool "
+            f"{step.graphs.pool_bytes / 2**20:.1f} MiB), greedy rows equal "
+            f"to an eager generate's")
+    elif step.captures or step.fallbacks:
+        raise AssertionError(f"{arch}: eager decode captured graphs")
     # an untimed generate: each MoE layer's dropped share, and with `held`
     # every kernel call held against its plain version
     if held or cfg.moe is not None:
@@ -2155,7 +2183,7 @@ def phase_serve(arch, mods, cfg=None, held=False, rcfg=None, attempts=2):
         log(f"[serve] {arch} untied head (B {len(PROMPTS)}, d {cfg.d_model}, "
             f"vocab {cfg.vocab_size}): bf16 product then upcast "
             f"{head_ms:.3f} ms per step")
-    del engine, model, x, out
+    del engine, step, model, x, out
     free_card()
     return runs[0]["counts"]
 

@@ -93,8 +93,12 @@ def _out(p: Attention, o: torch.Tensor) -> torch.Tensor:
     return dense(o, p.wo, dtype=p.dtype)
 
 
-def _qkv(p: Attention, x: torch.Tensor, cfg: ArchConfig,
-         positions: torch.Tensor):
+def attention_qkv(p: Attention, x: torch.Tensor, cfg: ArchConfig,
+                  positions: torch.Tensor):
+    """x (B, S, d) → q (B, Hq, S, dh), k and v (B, Hkv, S, dh), q and k
+    roped at `positions` (S,).  A decode step's first part, whose
+    positions may be a buffer on the card (`decode_positions` makes one
+    from an int)."""
     dh = cfg.resolved_head_dim
     q = _split_heads(_proj(p, x, "q"), cfg.n_heads, dh)
     k = _split_heads(_proj(p, x, "k"), cfg.n_kv_heads, dh)
@@ -276,7 +280,7 @@ def attention_forward(p: Attention, x: torch.Tensor, cfg: ArchConfig, *,
     if kv_override is None:
         if positions is None:
             positions = torch.arange(S, device=x.device)
-        q, k, v = _qkv(p, x, cfg, positions)
+        q, k, v = attention_qkv(p, x, cfg, positions)
     else:
         q = _split_heads(_proj(p, x, "q"), cfg.n_heads,
                          cfg.resolved_head_dim)
@@ -300,41 +304,66 @@ def cross_kv(p: Attention, enc_out: torch.Tensor, cfg: ArchConfig
     return k, v
 
 
+def decode_positions(pos: int, device: torch.device) -> torch.Tensor:
+    """The one-element int32 position tensor RoPE reads in a decode
+    step."""
+    return torch.full((1,), pos, dtype=torch.int32, device=device)
+
+
+def attention_decode_attend(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, cache_k: torch.Tensor,
+                            cache_v: torch.Tensor, pos: int,
+                            cfg: ArchConfig, *, window: int,
+                            rcfg: Optional[RunConfig] = None
+                            ) -> torch.Tensor:
+    """The decode step's second part: the token's k/v written into the
+    caches at `pos` IN PLACE, then its attention over rows [0, pos]:
+    `decode_attention_ref` under `kernels="xla"`, else the decode op
+    (looked up in this module at each call) → (B, Hq, dh).  A `pos` past
+    the cache raises, where the reference's `dynamic_update_slice` would
+    clamp it to the last slot."""
+    max_len = cache_k.shape[2]
+    if not 0 <= pos < max_len:
+        raise IndexError(f"decode position {pos} outside the KV cache of "
+                         f"max_len {max_len}")
+    cache_k[:, :, pos] = k[:, :, 0].to(cache_k.dtype)
+    cache_v[:, :, pos] = v[:, :, 0].to(cache_v.dtype)
+    kw = dict(kv_len=pos + 1, window=window, softcap=cfg.attn_softcap,
+              scale=_scale(cfg))
+    if plain_path(rcfg):
+        return on_local_shards(functools.partial(decode_attention_ref, **kw),
+                               q[:, :, 0], (cache_k, cache_v))
+    if spans.on:
+        with spans.span("repro_torch.lm.attend", q=q.shape, k=cache_k.shape,
+                        kv_len=pos + 1):
+            return decode_attention(q[:, :, 0], cache_k, cache_v, **kw)
+    return decode_attention(q[:, :, 0], cache_k, cache_v, **kw)
+
+
+def attention_decode_out(p: Attention, o: torch.Tensor) -> torch.Tensor:
+    """The decode step's last part: the out projection of the attention's
+    (B, Hq, dh) → (B, 1, d)."""
+    return _out(p, o.reshape(o.shape[0], 1, -1))
+
+
 def attention_decode_step(p: Attention, x: torch.Tensor,
                           cache_k: torch.Tensor, cache_v: torch.Tensor,
                           pos: int, cfg: ArchConfig, *,
                           window: int, rcfg: Optional[RunConfig] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One-token decode.  x (B, 1, d); cache (B, Hkv, max_len, dh); `pos`
-    is the current length.  Returns (out, cache_k, cache_v).  Under
-    `kernels="xla"` the attention is `decode_attention_ref`, else the
-    decode op.
+    is the current length.  Returns (out, cache_k, cache_v):
+    `attention_qkv`, `attention_decode_attend` and `attention_decode_out`
+    in turn.
 
     The token's k/v are written into the caches IN PLACE (the reference
-    returns updated copies).  A `pos` past the cache raises, where the
-    reference's `dynamic_update_slice` would clamp it to the last slot.
+    returns updated copies).  A `pos` past the cache raises.
     """
-    B = x.shape[0]
-    max_len = cache_k.shape[2]
-    if not 0 <= pos < max_len:
-        raise IndexError(f"decode position {pos} outside the KV cache of "
-                         f"max_len {max_len}")
-    positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
-    q, k, v = _qkv(p, x, cfg, positions)
-    cache_k[:, :, pos] = k[:, :, 0].to(cache_k.dtype)
-    cache_v[:, :, pos] = v[:, :, 0].to(cache_v.dtype)
-    kw = dict(kv_len=pos + 1, window=window, softcap=cfg.attn_softcap,
-              scale=_scale(cfg))
-    if plain_path(rcfg):
-        o = on_local_shards(functools.partial(decode_attention_ref, **kw),
-                            q[:, :, 0], (cache_k, cache_v))
-    elif spans.on:
-        with spans.span("repro_torch.lm.attend", q=q.shape, k=cache_k.shape,
-                        kv_len=pos + 1):
-            o = decode_attention(q[:, :, 0], cache_k, cache_v, **kw)
-    else:
-        o = decode_attention(q[:, :, 0], cache_k, cache_v, **kw)
-    return _out(p, o.reshape(B, 1, -1)), cache_k, cache_v
+    positions = decode_positions(pos, x.device)
+    q, k, v = attention_qkv(p, x, cfg, positions)
+    o = attention_decode_attend(q, k, v, cache_k, cache_v, pos, cfg,
+                                window=window, rcfg=rcfg)
+    return attention_decode_out(p, o), cache_k, cache_v
 
 
 # --------------------------------------------------------------------------
@@ -385,8 +414,7 @@ def attention_decode_step_ring(p: Attention, x: torch.Tensor,
     if not 0 <= slot < ring_k.shape[2]:
         raise IndexError(f"ring slot {slot} (pos {pos}, base {base}) "
                          f"outside the ring of {ring_k.shape[2]}")
-    positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
-    q, k, v = _qkv(p, x, cfg, positions)
+    q, k, v = attention_qkv(p, x, cfg, decode_positions(pos, x.device))
     ring_k[:, :, slot] = k[:, :, 0].to(ring_k.dtype)
     ring_v[:, :, slot] = v[:, :, 0].to(ring_v.dtype)
     q1, scale = q[:, :, 0], _scale(cfg)

@@ -25,8 +25,10 @@ from torch import nn
 from repro_torch import spans
 from repro_torch.configs.base import (ArchConfig, ATTN_FULL, ATTN_SWA,
                                       HYBRID, HYBRID_FULL, SSM, RunConfig)
-from .attention import (Attention, attention_decode_step,
-                        attention_decode_step_ring, attention_forward)
+from .attention import (Attention, attention_decode_attend,
+                        attention_decode_out, attention_decode_step_ring,
+                        attention_forward, attention_qkv,
+                        decode_positions)
 from .common import rmsnorm
 from .ffn import FFN, ffn_forward
 from .moe import MoE, moe_forward
@@ -178,34 +180,81 @@ def init_block_cache(batch: int, max_len: int, cfg: ArchConfig, kind: str,
     return cache
 
 
-def block_decode_step(p: Block, x: torch.Tensor, cache: Cache, pos: int,
-                      cfg: ArchConfig, kind: str,
-                      rcfg: Optional[RunConfig] = None
-                      ) -> Tuple[torch.Tensor, Cache]:
-    """One token through one layer.  An attention cache is written in
-    place (a cache with a ring: the ring only, the main cache holding
-    [0, base) with base = pos rounded down to the ring's length); an SSM
-    cache is replaced by the returned one."""
+def block_decode_pre(p: Block, x: torch.Tensor, cfg: ArchConfig, kind: str,
+                     positions: Optional[torch.Tensor]
+                     ) -> Tuple[torch.Tensor, Optional[Tuple]]:
+    """A decode step's first part, up to the attention: (the normed input,
+    the roped (q, k, v) of an attention layer or None)."""
     h = rmsnorm(p.ln1, x)
-    new_cache: Cache = {}
-    if kind in ATTN_KINDS and "rk" in cache:
-        R = cache["rk"].shape[2]
-        a, new_cache["rk"], new_cache["rv"] = attention_decode_step_ring(
-            p.attn, h, cache["k"], cache["v"], cache["rk"], cache["rv"],
-            pos, (pos // R) * R, cfg)
-        new_cache["k"], new_cache["v"] = cache["k"], cache["v"]
-    elif kind in ATTN_KINDS:
-        a, new_cache["k"], new_cache["v"] = attention_decode_step(
-            p.attn, h, cache["k"], cache["v"], pos, cfg,
-            window=_window_for(kind, cfg), rcfg=rcfg)
+    if kind not in ATTN_KINDS:
+        return h, None
+    return h, attention_qkv(p.attn, h, cfg, positions)
+
+
+def block_decode_attend(qkv: Optional[Tuple], cache: Cache, pos: int,
+                        cfg: ArchConfig, kind: str,
+                        rcfg: Optional[RunConfig] = None
+                        ) -> Tuple[Optional[torch.Tensor], Cache]:
+    """A decode step's second part: the token's k/v written into the
+    layer's cache at `pos` and its attention (`attention_decode_attend`):
+    (the attention's output or None, the new cache's k/v)."""
+    if qkv is None:
+        return None, {}
+    o = attention_decode_attend(*qkv, cache["k"], cache["v"], pos, cfg,
+                                window=_window_for(kind, cfg), rcfg=rcfg)
+    return o, {"k": cache["k"], "v": cache["v"]}
+
+
+def block_decode_post(p: Block, x: torch.Tensor, h: torch.Tensor,
+                      o: Optional[torch.Tensor], cache: Cache,
+                      cfg: ArchConfig, kind: str
+                      ) -> Tuple[torch.Tensor, Cache]:
+    """A decode step's last part, from the attention's output `o` on:
+    (the layer's output, the new SSM cache, {} for attention alone)."""
+    a = attention_decode_out(p.attn, o) if o is not None else None
+    return _decode_rest(p, x, h, a, cache, cfg, kind)
+
+
+def _decode_rest(p: Block, x: torch.Tensor, h: torch.Tensor,
+                 a: Optional[torch.Tensor], cache: Cache, cfg: ArchConfig,
+                 kind: str) -> Tuple[torch.Tensor, Cache]:
+    """The SSM branch on the normed input `h`, the mix with the attention
+    branch `a`, the post-norm and the FFN."""
+    ssm_cache: Cache = {}
     if kind in SSM_KINDS:
         s, ssm_cache = ssm_decode_step(p.ssm, h, cache, cfg)
-        new_cache.update(ssm_cache)
     h = _hybrid_mix(p, a, s) if kind in HYBRID_KINDS else \
         (s if kind == SSM else a)
     if cfg.post_block_norm:
         h = rmsnorm(p.post_ln1, h)
-    return _ffn_branch(p, x + h, cfg)[0], new_cache
+    return _ffn_branch(p, x + h, cfg)[0], ssm_cache
+
+
+def block_decode_step(p: Block, x: torch.Tensor, cache: Cache, pos: int,
+                      cfg: ArchConfig, kind: str,
+                      rcfg: Optional[RunConfig] = None
+                      ) -> Tuple[torch.Tensor, Cache]:
+    """One token through one layer: `block_decode_pre`,
+    `block_decode_attend` and `block_decode_post` in turn.  An attention
+    cache is written in place (a cache with a ring: the ring only, the
+    main cache holding [0, base) with base = pos rounded down to the
+    ring's length); an SSM cache is replaced by the returned one."""
+    if kind in ATTN_KINDS and "rk" in cache:
+        h = rmsnorm(p.ln1, x)
+        R = cache["rk"].shape[2]
+        a, rk, rv = attention_decode_step_ring(
+            p.attn, h, cache["k"], cache["v"], cache["rk"], cache["rv"],
+            pos, (pos // R) * R, cfg)
+        x, ssm_cache = _decode_rest(p, x, h, a, cache, cfg, kind)
+        return x, {"rk": rk, "rv": rv, "k": cache["k"], "v": cache["v"],
+                   **ssm_cache}
+    positions = decode_positions(pos, x.device) \
+        if kind in ATTN_KINDS else None
+    h, qkv = block_decode_pre(p, x, cfg, kind, positions)
+    o, new_cache = block_decode_attend(qkv, cache, pos, cfg, kind, rcfg)
+    x, ssm_cache = block_decode_post(p, x, h, o, cache, cfg, kind)
+    new_cache.update(ssm_cache)
+    return x, new_cache
 
 
 def _pad_rows(a: torch.Tensor, max_len: int) -> torch.Tensor:

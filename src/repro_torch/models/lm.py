@@ -151,15 +151,20 @@ class LM(nn.Module):
 
 
 def _embed_in(model: LM, tokens: torch.Tensor,
-              patch_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+              patch_embeds: Optional[torch.Tensor] = None,
+              scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The embedding rows, scaled by sqrt(d_model) only where the head is
-    tied, as in the reference.  A VLM's `patch_embeds` (B, n,
-    patch_embed_dim), projected by `vision_proj` in the compute dtype,
-    replace the first n positions; a prompt of fewer than n tokens raises
-    (the reference would return a longer sequence)."""
+    tied, as in the reference (`scale`, where given, is that factor made
+    once as a 0-d tensor of the compute dtype on the model's device: a
+    CUDA-graph capture cannot copy it from the host).  A VLM's
+    `patch_embeds` (B, n, patch_embed_dim), projected by `vision_proj` in
+    the compute dtype, replace the first n positions; a prompt of fewer
+    than n tokens raises (the reference would return a longer
+    sequence)."""
     x = embed(model.embed, tokens, model.dtype)
     if model.cfg.tie_embeddings:
-        x = x * x.new_tensor(math.sqrt(model.cfg.d_model))
+        x = x * (scale if scale is not None
+                 else x.new_tensor(math.sqrt(model.cfg.d_model)))
     if model.cfg.vision is not None and patch_embeds is not None:
         n = patch_embeds.shape[1]
         if n > x.shape[1]:
@@ -300,8 +305,7 @@ def lm_decode_step(model: LM, caches: List[Cache], tokens: torch.Tensor,
     (B, V) fp32, caches): attention caches are updated in place, SSM
     caches replaced, so use the returned list.  `rcfg` as `lm_prefill`
     reads it."""
-    with spans.span("repro_torch.lm.decode_step", B=tokens.shape[0],
-                    pos=pos):
+    with decode_step_span(tokens, pos):
         x = _embed_in(model, tokens)
         new_caches: List[Cache] = []
         for i, (layer, kind, cache) in enumerate(
@@ -314,8 +318,20 @@ def lm_decode_step(model: LM, caches: List[Cache], tokens: torch.Tensor,
                 x, c = block_decode_step(layer, x, cache, pos, model.cfg,
                                          kind, rcfg)
             new_caches.append(c)
-        x = rmsnorm(model.final_norm, x)
-        return _logits(model, x)[:, 0], new_caches
+        return decode_logits(model, x), new_caches
+
+
+def decode_step_span(tokens: torch.Tensor, pos: int):
+    """The span `lm.decode_step` around a decode step of `tokens` (B, 1)
+    at `pos`."""
+    return spans.span("repro_torch.lm.decode_step", B=tokens.shape[0],
+                      pos=pos)
+
+
+def decode_logits(model: LM, x: torch.Tensor) -> torch.Tensor:
+    """A decode step's tail: the last layer's x (B, 1, d) through the
+    final norm to the fp32 logits (B, V)."""
+    return _logits(model, rmsnorm(model.final_norm, x))[:, 0]
 
 
 def init_decode_cache(batch: int, max_len: int, cfg: ArchConfig,

@@ -8,7 +8,8 @@ from .kvcache import (KVLayout, PagedKVDMA, PagePool, append_descriptors,
                       span_append_descriptors, swap_descriptors)
 from .sched import (BlockAllocator, HashLM, ReqState, Scheduler,
                     ServeFrontDoor, ServeRequest, StepLM, oracle_generate)
-from .serve_step import (greedy_sample, make_decode_step, make_prefill_step,
+from .serve_step import (GraphDecodeStep, decode_graphs_fit, greedy_sample,
+                         make_decode_step, make_prefill_step,
                          temperature_sample)
 from .engine import Request, ServeEngine
 
@@ -18,6 +19,7 @@ __all__ = [
     "make_page_tables", "span_append_descriptors", "swap_descriptors",
     "BlockAllocator", "HashLM", "ReqState", "Scheduler", "ServeFrontDoor",
     "ServeRequest", "StepLM", "oracle_generate",
-    "make_prefill_step", "make_decode_step", "ServeEngine", "Request",
+    "make_prefill_step", "make_decode_step", "GraphDecodeStep",
+    "decode_graphs_fit", "ServeEngine", "Request",
     "greedy_sample", "temperature_sample",
 ]

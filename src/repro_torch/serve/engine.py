@@ -8,6 +8,11 @@ its own generator, seeded from the engine's seed and the row and kept on
 the engine, so its draws go on from one `generate` call to the next, as
 the reference's engine key does; a fresh engine with the same seed
 repeats them.
+
+The decode steps run through `GraphDecodeStep`: on the card, for a model
+of attention layers with dense FFNs, the layers replay from CUDA graphs
+captured at the first step of a batch size and kept while the batch size
+stays; elsewhere the eager step.
 """
 
 from __future__ import annotations
@@ -19,7 +24,7 @@ import torch
 
 from repro_torch import spans
 from repro_torch.models import LM
-from .serve_step import (greedy_sample, make_decode_step, make_prefill_step,
+from .serve_step import (GraphDecodeStep, greedy_sample, make_prefill_step,
                          temperature_sample)
 
 
@@ -60,7 +65,7 @@ class ServeEngine:
         self.seed = seed
         self._gens: List[torch.Generator] = []   # row i's sampling stream
         self._prefill = make_prefill_step(model, max_len=max_len)
-        self._decode = make_decode_step(model)
+        self._decode = GraphDecodeStep(model)
 
     def generate(self, requests: List[Request]) -> List[Request]:
         """Run a padded batch of requests to completion.  Its records

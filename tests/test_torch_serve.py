@@ -243,3 +243,152 @@ def test_sampling():
     gen = torch.Generator().manual_seed(0)
     assert int(temperature_sample(gen, logits, temperature=1e-6)[0]) == 1
     assert int(temperature_sample(gen, logits, temperature=0.0)[0]) == 1
+
+
+# -- the decode step's parts and `GraphDecodeStep`'s rule -----------------
+
+@pytest.mark.parametrize("which", ["qwen_setup", "setup", "hymba_setup"])
+def test_decode_parts_compose_to_block_decode_step(request, which):
+    """Dense (qwen2.5: qkv bias), sliding window with softcaps and post
+    norms (gemma2) and hybrid (hymba): `block_decode_pre`, `_attend` and
+    `_post` in turn, RoPE reading a position buffer made apart, give
+    `block_decode_step`'s output and caches bit for bit, layer by layer
+    over two steps."""
+    from repro_torch.models import lm_prefill
+    from repro_torch.models.attention import decode_positions
+    from repro_torch.models.blocks import (ATTN_KINDS, block_decode_attend,
+                                           block_decode_post,
+                                           block_decode_pre,
+                                           block_decode_step)
+    from repro_torch.models.lm import _embed_in
+    from repro_torch.serve.engine import left_pad
+
+    model, prompts, _ = request.getfixturevalue(which)
+    cfg = model.cfg
+    tokens = left_pad([prompts[0], prompts[2]])
+    _, want_caches = lm_prefill(model, tokens, max_len=MAX_LEN)
+    got_caches = [{k: v.clone() for k, v in c.items()} for c in want_caches]
+    nxt = tokens[:, -1:]
+    for pos in (tokens.shape[1], tokens.shape[1] + 1):
+        buf = torch.zeros(1, dtype=torch.int32)
+        buf.fill_(pos)
+        x = _embed_in(model, nxt)
+        for i, (layer, kind) in enumerate(zip(model.layers,
+                                              cfg.layer_kinds)):
+            want, want_caches[i] = block_decode_step(
+                layer, x, want_caches[i], pos, cfg, kind)
+            h, qkv = block_decode_pre(layer, x, cfg, kind,
+                                      buf if kind in ATTN_KINDS else None)
+            o, new = block_decode_attend(qkv, got_caches[i], pos, cfg, kind)
+            got, ssm_cache = block_decode_post(layer, x, h, o,
+                                               got_caches[i], cfg, kind)
+            new.update(ssm_cache)
+            got_caches[i] = new
+            assert torch.equal(got, want), (which, pos, i)
+            assert sorted(new) == sorted(want_caches[i])
+            for k in new:
+                assert torch.equal(new[k], want_caches[i][k]), (which, i, k)
+            x = want
+        assert torch.equal(decode_positions(pos, "cpu"), buf)
+
+
+def _small_lm(arch, **kw):
+    from repro_torch.configs import get
+    from repro_torch.configs.base import RunConfig, reduced
+    from repro_torch.models import LM
+    return LM(reduced(get(arch), **kw), RunConfig(dtype="float32"), seed=3,
+              device="cpu")
+
+
+def _with_dtensor_param(model):
+    """`model` with its final norm scale as a replicated DTensor on a
+    one-rank fake process group (initialised here if none is)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import DTensor, Replicate
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if not dist.is_initialized():
+        dist.init_process_group("fake", store=FakeStore(), rank=0,
+                                world_size=1)
+    mesh = DeviceMesh("cpu", [0])
+    model.final_norm = torch.nn.Parameter(
+        DTensor.from_local(model.final_norm.detach(), mesh, [Replicate()]),
+        requires_grad=False)
+    return model
+
+
+# (arch, on the card, what else) → whether the decode step is graphed
+GRAPH_RULE = {
+    "cpu": ("internlm2-20b", False, None, False),
+    "dtensor": ("internlm2-20b", True, "dtensor", False),
+    "ssm": ("mamba2-1.3b", True, None, False),
+    "hybrid": ("hymba-1.5b", True, None, False),
+    "moe": ("qwen2-moe-a2.7b", True, None, False),
+    "dense_cuda": ("internlm2-20b", True, None, True),
+    "swa_cuda": ("gemma2-2b", True, None, True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(GRAPH_RULE) + ["ring"])
+def test_graph_rule(monkeypatch, case):
+    """`decode_graphs_fit` reads the model's structure: the card (its
+    device property patched to CUDA here), no DTensor parameter,
+    attention layers with dense FFNs.  Caches with rings run the eager
+    step whatever the model."""
+    import torch.distributed as dist
+    from repro_torch import spans
+    from repro_torch.models import LM, init_decode_cache
+    from repro_torch.serve import GraphDecodeStep, decode_graphs_fit
+
+    arch, on_card, other, want = GRAPH_RULE.get(
+        case, ("internlm2-20b", True, "ring", True))
+    model = _small_lm(arch)
+    if on_card:
+        monkeypatch.setattr(LM, "device", property(
+            lambda self: torch.device("cuda")))
+    started = other == "dtensor" and not dist.is_initialized()
+    try:
+        if other == "dtensor":
+            _with_dtensor_param(model)
+        assert decode_graphs_fit(model) is want
+    finally:
+        if started:
+            dist.destroy_process_group()
+    if other != "ring":
+        return
+    # on the CPU in fact: an attempt to capture would fail and count
+    step = GraphDecodeStep(model)
+    caches = init_decode_cache(2, 32, model.cfg, torch.float32, ring=8,
+                               device="cpu")
+    spans.clear()
+    with spans.recording():
+        logits, _ = step(caches, torch.ones((2, 1), dtype=torch.long), 5)
+    recs = [r for r in spans.records()
+            if r.name == "repro_torch.serve.decode_graph"]
+    spans.clear()
+    assert logits.shape == (2, model.cfg.padded_vocab)
+    assert (step.captures, step.fallbacks) == (0, 0)
+    assert [r.attrs for r in recs] == [dict(graphs=0, captured=0, eager=1)]
+
+
+def test_engine_counts_eager_decode_steps_on_the_cpu():
+    """On the CPU `ServeEngine` runs the eager step, and under
+    `spans.recording()` counts `serve.decode_graph` with eager=1 at each
+    decode step."""
+    from repro_torch import spans
+
+    model = _small_lm("internlm2-20b")
+    engine = ServeEngine(model, max_len=32)
+    spans.clear()
+    with spans.recording():
+        engine.generate([Request(prompt=[1, 2, 3], max_new_tokens=4),
+                         Request(prompt=[4, 5], max_new_tokens=4)])
+    recs = [r for r in spans.records()
+            if r.name == "repro_torch.serve.decode_graph"]
+    steps = [r for r in spans.records()
+             if r.name == "repro_torch.lm.decode_step"]
+    spans.clear()
+    assert not engine._decode.fits
+    assert len(recs) == len(steps) == 3
+    assert all(r.attrs == dict(graphs=0, captured=0, eager=1) for r in recs)
