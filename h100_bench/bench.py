@@ -4,9 +4,10 @@ the check, and the result's line.
 Everything a cell is made of is found by name from `BENCHMARK.json`: its
 configuration (`configs/<config>.json`), its traffic mix
 (`traffic/<traffic>.json`), its check's limits (`limits/<cell>.json`),
-the family's reference (`reference/<family>.py`) and one reader a
-per-layer metric (`metrics/<metric>.py`, a function `read(run)` that
-returns the number or None).
+the configuration's family module (`families/<family>.py`: its
+reference, `ArchConfig`, kernels, flop count, traced ops and followed
+choice) and one reader a per-layer metric (`metrics/<metric>.py`, a
+function `read(run)` that returns the number or None).
 """
 
 from __future__ import annotations
@@ -24,7 +25,8 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from h100_bench import check, model, trace, traffic, weights, window
+from h100_bench import (check, families, model, trace, traffic, weights,
+                        window)
 
 HERE = Path(__file__).resolve().parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
@@ -93,7 +95,8 @@ class Session:
     def __init__(self, cfg: Dict, mix: Dict, device: torch.device,
                  seed: int) -> None:
         self.cfg, self.mix, self.device = cfg, mix, device
-        self.ref = model.reference(cfg)
+        self.family = families.of(cfg)
+        self.ref = self.family.reference
         self.layout = self.ref.layout(cfg)
         self.seeds = seeds(seed)
         self.weights = weights.draw(self.layout, model.served_dtype(cfg),
@@ -126,21 +129,33 @@ class Session:
     def window(self, seconds: float, cap: check.Capture,
                hooks: Optional[window.Hooks] = None,
                max_batches: Optional[int] = None) -> window.Result:
-        return window.run(self.engine, self.traffic.batch, seconds, hooks,
-                          sync=self.sync, max_batches=max_batches,
-                          capture=cap)
+        def next_batch():
+            reqs = self.traffic.batch()
+            cap.choose(reqs)              # the first batch's checked rows
+            return reqs
+        try:
+            return window.run(self.engine, next_batch, seconds, hooks,
+                              sync=self.sync, max_batches=max_batches,
+                              capture=cap)
+        finally:
+            cap.close()
 
     def capture(self) -> check.Capture:
-        """A fresh capture of the next window's first batch."""
+        """A fresh capture of the next window's first batch, following the
+        family's choice where it has one."""
         rng = np.random.default_rng(self.seeds["check"])
-        return check.Capture(self.mix["check_requests"],
-                             max(self.traffic.outputs),
-                             self.model.cfg.padded_vocab, rng, self.device)
+        cap = check.Capture(self.mix["check_requests"],
+                            max(self.traffic.outputs),
+                            self.model.cfg.padded_vocab, rng, self.device)
+        choice = self.family.FOLLOW
+        if choice is not None:
+            cap.follow(choice, choice.shape(self.cfg), self.mix["max_len"])
+        return cap
 
     def judge(self, result: window.Result, cap: check.Capture,
-              control: bool = False) -> Dict:
-        return check.judge(self.cfg, self.ref, self.weights, result, cap,
-                           self.device, control=control)
+              control: bool = False, limits: Optional[Dict] = None) -> Dict:
+        return check.judge(self.cfg, self.family, self.weights, result, cap,
+                           self.device, limits, control=control)
 
 
 def end_to_end(result: window.Result, peak_bytes: int) -> Dict[str, float]:
@@ -183,13 +198,14 @@ def run(bench: Dict, name: str, seed: int, seconds: float, traced: bool,
     c = cell(bench, name, here)
     if device.type == "cuda":
         from repro_torch.kernels import runtime
-        runtime.build(model.kernels(c.cfg))
+        runtime.build(families.of(c.cfg).kernels(c.cfg))
     t_build = time.perf_counter()
     s = Session(c.cfg, c.mix, device, seed)
     t_weights = time.perf_counter()
     tracer = None
     if traced:
-        tracer = trace.Tracer(device, c.mix["trace_decode_steps"])
+        tracer = trace.Tracer(device, c.mix["trace_decode_steps"],
+                              {**trace.OPS, **s.family.OPS})
         tracer.install()
     s.warm_up()
     cap = s.capture()
@@ -223,7 +239,7 @@ def run(bench: Dict, name: str, seed: int, seconds: float, traced: bool,
                    for m in c.end_to_end if e2e.get(m["name"]) is not None}
 
     t_read = time.perf_counter()
-    judged = s.judge(result, cap)
+    judged = s.judge(result, cap, limits=c.limits)
     t_check = time.perf_counter()
     print(f"seconds: imports and kernel build {t_build - t0:.2f}, weights "
           f"{t_weights - t_build:.2f}, warm-up {t0 + setup_s - t_weights:.2f}, "

@@ -13,12 +13,16 @@ same forward with both operands of every weight product rounded to
 float8 e4m3 first (a scale a weight column and a token row, the
 accumulation in float32), the lower precision a served bf16 model would
 be tempted into.
+
+`Follow` lets a family's reference take a discrete choice of the
+program's (an MoE router's top-k) where its own lies within a limit of
+a tie, and counts each time it does.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -59,10 +63,60 @@ class Fp8(Float32):
         return (t / scale).to(torch.float8_e4m3fn).float() * scale
 
     def weight(self, w: torch.Tensor) -> torch.Tensor:
-        return self._round(w.float(), 0)             # a scale a column
+        return self._round(w.float(), -2)            # a scale a column
 
     def __call__(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return self._round(x, -1) @ w                # a scale a row
+
+
+def topk(scores: torch.Tensor, k: int) -> torch.Tensor:
+    """(T, k) indices of the k highest scores of each row, the highest
+    first; equal scores go to the lower index."""
+    return torch.sort(scores, dim=-1, descending=True,
+                      stable=True).indices[:, :k]
+
+
+class Follow:
+    """Top-k choices at one site a step (the s-th call in layer order),
+    the program's taken near the reference's own ties.
+
+    `theirs[s][j]` is the program's (T, k) choice at site s for the j-th
+    sequence the reference visits there, by the same positions.  Where
+    the program's set of k differs from the reference's own, the
+    reference's margin is its k-th best score less its score of the
+    program's lowest choice: the program's choice is taken where that
+    margin is at most `limit`, and counted (`flips`); `margin` keeps the
+    widest over every choice that differed, taken or not.  With no
+    `theirs` the reference's own choices are kept in `own`, in the same
+    form, for another reference run to follow (the control's)."""
+
+    def __init__(self, theirs: Optional[Dict] = None, limit: float = 0.0
+                 ) -> None:
+        self.theirs, self.limit = theirs, limit
+        self.own: Dict[int, List[torch.Tensor]] = {}
+        self.flips, self.margin = 0, 0.0
+
+    def topk(self, site: int, scores: torch.Tensor, k: int
+             ) -> torch.Tensor:
+        """(T, k) indices into the scores' last dim, the highest first;
+        equal scores go to the lower index."""
+        own = topk(scores, k)
+        seen = self.own.setdefault(site, [])
+        seen.append(own)
+        if self.theirs is None:
+            return own
+        theirs = self.theirs[site][len(seen) - 1].to(scores.device)
+        differ = (theirs.sort(-1).values != own.sort(-1).values).any(-1)
+        margin = scores.gather(1, own[:, -1:])[:, 0] - \
+            scores.gather(1, theirs).min(-1).values
+        take = differ & (margin <= self.limit)
+        self.flips += int(take.sum())
+        if bool(differ.any()):
+            self.margin = max(self.margin, float(margin[differ].max()))
+        return torch.where(take[:, None], theirs, own)
+
+    def numbers(self, name: str) -> Dict[str, float]:
+        return {f"{name}_flips": self.flips, f"{name}_margin": self.margin}
 
 
 def rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float

@@ -21,9 +21,11 @@ LOAD_ALL = """
 import importlib, importlib.util, json, pathlib, sys
 sys.path[:0] = [{src!r}, {root!r}]
 for name in ("bench", "calibrate", "check", "model", "run", "trace",
-             "traffic", "weights", "window", "yardstick",
-             "reference.common", "reference.dense"):
+             "traffic", "weights", "window", "yardstick", "families"):
     importlib.import_module("h100_bench." + name)
+for sub in ("families", "reference"):
+    for path in sorted(pathlib.Path({here!r}, sub).glob("*.py")):
+        importlib.import_module(f"h100_bench.{{sub}}.{{path.stem}}")
 for path in sorted(pathlib.Path({here!r}, "metrics").glob("*.py")):
     spec = importlib.util.spec_from_file_location(path.stem, path)
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
@@ -31,10 +33,10 @@ print(json.dumps(sorted({{m.split(".")[0] for m in sys.modules}})))
 """
 
 LOAD_REFERENCE = """
-import importlib, json, sys
+import importlib, json, pathlib, sys
 sys.path[:0] = [{root!r}]
-for name in ("common", "dense"):
-    importlib.import_module("h100_bench.reference." + name)
+for path in sorted(pathlib.Path({here!r}, "reference").glob("*.py")):
+    importlib.import_module("h100_bench.reference." + path.stem)
 print(json.dumps(sorted({{m.split(".")[0] for m in sys.modules}})))
 """
 
@@ -55,7 +57,8 @@ def test_harness_loads_no_jax():
 
 
 def test_reference_loads_nothing_of_the_port():
-    names = _top_level(LOAD_REFERENCE.format(root=str(ROOT)))
+    names = _top_level(LOAD_REFERENCE.format(root=str(ROOT),
+                                             here=str(tiny.HERE)))
     assert not names & (FORBIDDEN | {"repro_torch"}), names
 
 

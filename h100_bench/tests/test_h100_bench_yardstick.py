@@ -10,6 +10,7 @@ import pytest
 
 from h100_bench.tests import tiny
 from h100_bench import traffic, yardstick
+from h100_bench.families import dense
 
 MIXES = sorted((tiny.HERE / "traffic").glob("*.json"))
 
@@ -92,7 +93,7 @@ def test_model_flops():
     weights a token (16 + 16 + 16 + 36), 80 flops a logit row, 16 an
     attended key."""
     cfg = _dense()
-    assert yardstick.matmul_params(cfg) == 84
+    assert dense.matmul_params(cfg) == 84
     assert yardstick.prefill_flops(cfg, [3]) == 2 * 84 * 3 + 80 + 16 * 6
     assert yardstick.decode_flops(cfg, [3]) == 2 * 84 + 80 + 16 * 4
     # a window of 2 on every layer but one of two

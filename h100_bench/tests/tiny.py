@@ -7,7 +7,7 @@ import json
 import shutil
 import sys
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Optional
 
 import pytest
 import torch
@@ -42,19 +42,22 @@ MIX = dict(loop="closed", batch=4,
 
 
 def bench_dir(tmp: Path, dtype: str = "bfloat16", mix: Dict = MIX,
-              limit: float = TEST_LIMIT):
+              limit: float = TEST_LIMIT, cfg: Optional[Dict] = None,
+              limits: Optional[Dict] = None):
     """A benchmark folder under `tmp` (the real metric readers, a small
     configuration, one mix, one limit) and its BENCHMARK.json, whose
-    metrics are the real file's; returns (folder, spec, cell name)."""
+    metrics are the real file's; returns (folder, spec, cell name).
+    `cfg` and `limits` replace the small dense configuration and its
+    `logit_err` limit."""
     shutil.copytree(HERE / "metrics", tmp / "metrics")
     for d in ("configs", "traffic", "limits"):
         (tmp / d).mkdir()
-    cfg = config(dtype)
+    cfg = cfg or config(dtype)
     name = f"{cfg['name']}.mix"
     (tmp / "configs" / f"{cfg['name']}.json").write_text(json.dumps(cfg))
     (tmp / "traffic" / "mix.json").write_text(json.dumps(mix))
     (tmp / "limits" / f"{name}.json").write_text(
-        json.dumps({"logit_err": limit}))
+        json.dumps(limits or {"logit_err": limit}))
     spec = json.loads((ROOT / "BENCHMARK.json").read_text())
     spec["workloads"] = [dict(name=name, config=cfg["name"], traffic="mix",
                               chips=1, why="test")]

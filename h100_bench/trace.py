@@ -1,7 +1,8 @@
 """The traced run: `torch.profiler` over a fixed slice of the window (the
 first batch's prefill and its first `trace_decode_steps` decode steps),
 with ranges of the harness's own around the steps and around each call
-of the three kernel ops, and the reading of that trace.
+of the kernel ops (`OPS`, and those of the configuration's family
+module), and the reading of that trace.
 
 The ops are wrapped where the model modules bind them
 (`repro_torch.models.attention.flash_attention` and `.decode_attention`,
@@ -27,7 +28,7 @@ from __future__ import annotations
 
 import bisect
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
@@ -35,30 +36,41 @@ from torch.profiler import ProfilerActivity, profile, record_function
 from h100_bench import window, yardstick
 
 PREFIX = "h100_bench."
-OPS = {"flash_attention": "repro_torch.models.attention",
-       "decode_attention": "repro_torch.models.attention",
-       "ssd": "repro_torch.models.ssm"}
+
+
+def _flash_args(args, kw) -> Dict:
+    q, k = args[0], args[1]
+    return dict(q=tuple(q.shape), k=tuple(k.shape),
+                causal=kw.get("causal", True), window=kw.get("window", 0),
+                elt=q.element_size())
+
+
+def _decode_args(args, kw) -> Dict:
+    q, k = args[0], args[1]
+    kv_len = kw.get("kv_len")
+    kv_len = k.shape[2] if kv_len is None else int(kv_len)
+    return dict(q=tuple(q.shape), k=tuple(k.shape), kv_len=kv_len,
+                window=kw.get("window", 0), elt=q.element_size())
+
+
+def _ssd_args(args, kw) -> Dict:
+    x, B = args[0], args[4]
+    return dict(x=tuple(x.shape), B=tuple(B.shape), elt=x.element_size())
+
+
+# the kernel ops every family's layers call: {op: (the module that binds
+# it, the call's shapes from its (args, kw), the call's (flops, bytes)
+# from those)}; a family module's `OPS` adds its own
+OPS = {"flash_attention": ("repro_torch.models.attention", _flash_args,
+                           yardstick.flash_work),
+       "decode_attention": ("repro_torch.models.attention", _decode_args,
+                            yardstick.decode_attn_work),
+       "ssd": ("repro_torch.models.ssm", _ssd_args, yardstick.ssd_work)}
 
 
 def _activities(device: torch.device):
     return [ProfilerActivity.CPU] + \
         ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
-
-
-def _call_args(op: str, args, kw) -> Dict:
-    if op == "flash_attention":
-        q, k = args[0], args[1]
-        return dict(q=tuple(q.shape), k=tuple(k.shape),
-                    causal=kw.get("causal", True), window=kw.get("window", 0),
-                    elt=q.element_size())
-    if op == "decode_attention":
-        q, k = args[0], args[1]
-        kv_len = kw.get("kv_len")
-        kv_len = k.shape[2] if kv_len is None else int(kv_len)
-        return dict(q=tuple(q.shape), k=tuple(k.shape), kv_len=kv_len,
-                    window=kw.get("window", 0), elt=q.element_size())
-    x, B = args[0], args[4]
-    return dict(x=tuple(x.shape), B=tuple(B.shape), elt=x.element_size())
 
 
 @dataclass
@@ -75,6 +87,7 @@ class Trace:
     spans: Dict[str, List[Tuple[int, int]]]
     device: List[Tuple[int, int, str, Optional[int]]]
     calls: Dict[str, List[Call]] = field(default_factory=dict)
+    work: Dict[str, Callable] = field(default_factory=dict)  # op → work
 
     def window(self) -> Tuple[int, int]:
         all_spans = [s for v in self.spans.values() for s in v]
@@ -122,7 +135,7 @@ class Trace:
         got = [c for c in self.calls.get(op, []) if c.device_s > 0]
         if not got:
             return None
-        least = sum(yardstick.bound(*yardstick.WORK[op](c.args))[0]
+        least = sum(yardstick.bound(*self.work[op](c.args))[0]
                     for c in got)
         return 100.0 * least / sum(c.device_s for c in got)
 
@@ -157,22 +170,25 @@ class Trace:
 
 class Tracer(window.Hooks):
     """Profiles batch 0's prefill and its first `steps` decode steps of a
-    window, and records each op call's shapes while it does."""
+    window, and records the shapes of each call of `ops` (`OPS` and the
+    family's) while it does."""
 
-    def __init__(self, device: torch.device, steps: int) -> None:
+    def __init__(self, device: torch.device, steps: int,
+                 ops: Dict[str, Tuple[str, Callable, Callable]]) -> None:
         self.device = device
         self.steps = steps
+        self.ops = ops
         self.prof: Optional[profile] = None
         self.active = False
         self.done = False
         self.open: Dict[str, record_function] = {}
-        self.calls: Dict[str, List[Call]] = {op: [] for op in OPS}
+        self.calls: Dict[str, List[Call]] = {op: [] for op in ops}
         self._orig = {}
 
     # -- the op wrappers ------------------------------------------------
     def install(self) -> None:
         import importlib
-        for op, mod_name in OPS.items():
+        for op, (mod_name, _, _) in self.ops.items():
             mod = importlib.import_module(mod_name)
             fn = getattr(mod, op)
             self._orig[op] = (mod, fn)
@@ -184,10 +200,12 @@ class Tracer(window.Hooks):
         self._orig.clear()
 
     def _wrap(self, op: str, fn):
+        call_args = self.ops[op][1]
+
         def traced(*args, **kw):
             if not self.active:
                 return fn(*args, **kw)
-            self.calls[op].append(Call(op, _call_args(op, args, kw)))
+            self.calls[op].append(Call(op, call_args(args, kw)))
             with record_function(f"{PREFIX}op.{op}"):
                 return fn(*args, **kw)
         return traced
@@ -262,7 +280,8 @@ class Tracer(window.Hooks):
         device = [(s, e, n, launch.get(c)) for s, e, n, c in device]
         spans = {n: sorted(v) for n, v in ranges.items()
                  if not n.startswith(PREFIX + "op.")}
-        trace = Trace(spans, device)
+        trace = Trace(spans, device,
+                      work={op: w for op, (_, _, w) in self.ops.items()})
         launches = sorted((t, s, e) for s, e, _, t in device if t is not None)
         times = [t for t, _, _ in launches]
         for op, calls in self.calls.items():

@@ -7,7 +7,9 @@ together as one standard normal in the served dtype and scaled leaf by
 leaf; the small float32 leaves as one normal and one uniform draw.  The
 laws:
 
-  matmul   N(0, 1/fan_in), fan_in the first dim
+  matmul   N(0, 1/fan_in), fan_in the rows of each matrix: the first
+           dim of a (d_in, d_out) weight, the second of stacked experts'
+           (E, d_in, d_out)
   embed    N(0, 0.02²)            head  N(0, 0.02²)
   norm     N(0, 0.1²)  (the norms scale by 1 + this)
   small    N(0, 0.1²)             conv_w  N(0, 1/taps)
@@ -27,7 +29,7 @@ CHUNK = 1 << 28                      # elements a draw
 
 
 def _scale(law: str, shape: Tuple[int, ...]) -> float:
-    return 1.0 / math.sqrt(shape[0]) if law == "matmul" else 0.02
+    return 1.0 / math.sqrt(shape[-2]) if law == "matmul" else 0.02
 
 
 def draw(layout: List[Tuple[str, Tuple[int, ...], str]],

@@ -15,6 +15,8 @@ from __future__ import annotations
 import functools
 from typing import Dict, Iterable, Tuple
 
+from h100_bench import families
+
 # NVIDIA H100 SXM data sheet: dense bf16 on the tensor cores, and HBM3
 PEAK_FLOPS = 989e12
 HBM_BYTES_PER_S = 3.35e12
@@ -88,31 +90,10 @@ def ssd_work(call: Dict) -> Tuple[float, float]:
     return ssd_flops_bytes(Bb, H, G, S, P, N, call["elt"])
 
 
-WORK = {"flash_attention": flash_work, "decode_attention": decode_attn_work,
-        "ssd": ssd_work}
-
-
 # ---------------------------------------------------------------------------
-# Model flops from the configuration's shapes
+# Model flops from the configuration's shapes (the family module counts
+# the weights a token goes through and the attention layers)
 # ---------------------------------------------------------------------------
-
-def attention_layers(cfg: Dict) -> Tuple[int, int]:
-    """(full-attention layers, windowed layers)."""
-    n = cfg["num_hidden_layers"]
-    if cfg.get("sliding_window", 0) <= 0:
-        return n, 0
-    full = len(cfg.get("full_attention_layers") or [])
-    return full, n - full
-
-
-def matmul_params(cfg: Dict) -> int:
-    """Weights of the products one token goes through, every layer, the
-    unembedding left out."""
-    d, dh = cfg["hidden_size"], cfg["head_dim"]
-    hq, hkv = cfg["num_attention_heads"], cfg["num_key_value_heads"]
-    layer = d * hq * dh + 2 * d * hkv * dh + hq * dh * d
-    layer += 3 * d * cfg["intermediate_size"]
-    return cfg["num_hidden_layers"] * layer
 
 
 def _keys(n_tokens: int, start: int, window: int) -> int:
@@ -132,11 +113,12 @@ def token_flops(cfg: Dict, n_tokens: int, start: int, logits: int) -> float:
     """Model flops of `n_tokens` useful tokens of one sequence at positions
     start.. of its own tokens (pads are no part of it), `logits` of which
     are unembedded: 2 a weight of each product, 4·D·Hq an attended key."""
+    family = families.of(cfg)
     d, dh, hq = cfg["hidden_size"], cfg["head_dim"], \
         cfg["num_attention_heads"]
-    flops = 2 * matmul_params(cfg) * n_tokens
+    flops = 2 * family.matmul_params(cfg) * n_tokens
     flops += 2 * d * cfg["vocab_size"] * logits
-    full, windowed = attention_layers(cfg)
+    full, windowed = family.attention_layers(cfg)
     per_key = 4 * dh * hq
     flops += per_key * full * _keys(n_tokens, start, 0)
     if windowed:
