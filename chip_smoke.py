@@ -996,11 +996,12 @@ def timed_in_turns(arch, label, kern, lib):
 
 
 def attention_layout_cases(cfg, mods, library, gen, windows, B=None, S=None,
-                           kv_len=None, name=None):
+                           kv_len=None, name=None, scale=None):
     """Flash and decode attention at `cfg`'s heads under the serve phase's
     traffic (B 4, 4,608 prompt tokens, causal, a 4,640-row cache at
     `kv_len` 4,608, bf16, no softcap), or at the given `B`, prompt `S` and
-    `kv_len`, once for each of `windows`: each against its plain version
+    `kv_len` (and softmax `scale`, 1/sqrt(D) by default), once for each
+    of `windows`: each against its plain version
     at TOL (flash row by row), then by device time (torch.profiler), 5
     rounds in turns with compiled `flex_attention`; the plain version by
     CUDA events.  Prints each case's time, bound, share of it and factor
@@ -1018,7 +1019,7 @@ def attention_layout_cases(cfg, mods, library, gen, windows, B=None, S=None,
     S = max(PROMPTS) if S is None else S
     kv_len = S if kv_len is None else kv_len
     Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    scale, bf16 = D ** -0.5, "bfloat16"
+    scale, bf16 = scale or D ** -0.5, "bfloat16"
     entries, found = {}, {}
 
     def randn(*shape):
@@ -1197,7 +1198,8 @@ def moe_config(arch):
 class MoeLog:
     """Within `with`, each `repro_torch.models.moe.route` call (one a MoE
     layer a forward, in the order they run) is kept as (device type,
-    expert_idx, dropped fraction), the last two left on their device."""
+    expert_idx, dropped fraction), the last two left on their device; a
+    dropless routing's dropped fraction is 0."""
 
     def __enter__(self):
         from repro_torch.models import moe
@@ -1205,8 +1207,10 @@ class MoeLog:
 
         def route(*args, **kw):
             r = self.inner(*args, **kw)
+            dropped = r.g_s.new_zeros(()) if r.keep is None else \
+                1 - r.keep.float().mean()          # dropless: none dropped
             self.calls.append((r.expert_idx.device.type, r.expert_idx,
-                               1 - r.keep.float().mean()))
+                               dropped))
             return r
         moe.route = route
         return self
@@ -1373,6 +1377,36 @@ def phase_dense_kernels(mods):
                                         gen, (0,)).values():
             entries[e["name"]] = e
     return entries
+
+
+GRANITE = "granite-4.0-h-small"
+# granite's cell (azure-conversation-b16): 16 rows, prompts to 2,040
+# tokens left-padded, the SSD's views padded to its chunk, caches of
+# 2,256 rows
+GRANITE_B, GRANITE_S, GRANITE_SSD_S, GRANITE_KV = 16, 2040, 2048, 2256
+
+
+def phase_granite_kernels(mods):
+    """Flash attention, decode attention and the SSD at granite-4.0-h-
+    small's shapes under its benchmark cell's traffic: 32 q on 8 kv heads
+    of 128 at its softmax scale of 1/128, causal, no window (NoPE), B 16,
+    a 2,040-token prompt, decode at kv_len 2,256; the SSD on the views
+    `models/ssm.py` hands it, 128 heads of 64, d_state 128, one group,
+    chunk 128, B 16 x 2,048, fp32 as it serves, on the tensor cores;
+    each against its plain version at TOL, then by device time in turns,
+    as `attention_layout_cases` and `ssd_layout_cases` say.  Returns the
+    entries named by the config."""
+    import torch
+    from repro_torch.configs import get
+
+    cfg = get(GRANITE)
+    gen = torch.Generator("cuda").manual_seed(11)
+    entries = attention_layout_cases(
+        cfg, mods, library_attention(), gen, (0,), B=GRANITE_B, S=GRANITE_S,
+        kv_len=GRANITE_KV, scale=cfg.query_scale)
+    entries["ssd"] = ssd_layout_cases(cfg, mods["ssd"], gen, GRANITE_B,
+                                      GRANITE_SSD_S, ("float32",))
+    return {e["name"]: e for e in entries.values()}
 
 
 def dma_plane():
@@ -2039,6 +2073,7 @@ def phase_serve(arch, mods, cfg=None, held=False, rcfg=None, attempts=2):
         make_requests)
     from repro_torch.models import LM
     from repro_torch.models.common import dense, unembed
+    from repro_torch.models.moe import dropless
     from repro_torch.serve import ServeEngine, decode_graphs_fit
 
     cfg = cfg or get(arch)
@@ -2144,7 +2179,18 @@ def phase_serve(arch, mods, cfg=None, held=False, rcfg=None, attempts=2):
                 (HeldKernels(mods) if held else contextlib.nullcontext()) \
                 as hk:
             engine.generate(make_requests(cfg.vocab_size))
-    if cfg.moe is not None:
+    if cfg.moe is not None and dropless(cfg.moe):
+        L, E = cfg.n_layers, cfg.moe.n_experts
+        if any(float(d) for _, _, d in routed.calls):
+            raise AssertionError(f"{arch}: a dropless MoE dropped pairs")
+        busiest = [int(torch.bincount(i.reshape(-1), minlength=E).max())
+                   for _, i, _ in routed.calls[:L]]
+        log(f"[serve] {arch} MoE ({E} experts top {cfg.moe.top_k}, "
+            f"dropless): no pair dropped in {len(routed.calls)} calls; the "
+            f"busiest expert's pairs in each layer of the prefill (of "
+            f"{routed.calls[0][1].numel()}): " +
+            " ".join(str(n) for n in busiest) + " (an untimed generate)")
+    elif cfg.moe is not None:
         dropped = [float(d) for _, _, d in routed.calls]
         L = cfg.n_layers
         log(f"[serve] {arch} MoE ({cfg.moe.n_experts} experts top "
@@ -4203,6 +4249,7 @@ def main() -> int:
     hymba_entries = phase_hymba_kernels(mods)
     dense_entries = phase_dense_kernels(mods)
     dense_entries.update(phase_moe_kernels(mods))
+    dense_entries.update(phase_granite_kernels(mods))
     front_entries = phase_front_kernels(mods)
     encdec_entries = phase_encdec_kernels(mods)
     entries.update(phase_dma(mods))
@@ -4215,6 +4262,7 @@ def main() -> int:
     for arch in MOE:
         served[arch] = phase_serve(arch, mods, moe_config(arch),
                                    held=arch == "qwen2-moe-a2.7b")
+    served[GRANITE] = phase_serve(GRANITE, mods)
     phase_moe_dispatch()
     entries["flash_attention"]["launches"] = gemma["flash_attention"]
     entries["decode_attention"]["launches"] = gemma["decode_attention"]

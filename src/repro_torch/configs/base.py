@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import ClassVar, Dict, Optional, Tuple
 
 # Layer kinds
 ATTN_FULL = "attn_full"
@@ -24,6 +24,7 @@ ATTN_SWA = "attn_swa"
 SSM = "ssm"
 HYBRID = "hybrid"          # parallel attention + SSM heads (hymba)
 HYBRID_FULL = "hybrid_full"   # the same with full attention
+SSM_FFN = "ssm_ffn"        # a Mamba-2 mixer, then the FFN or MoE (granite)
 
 
 @dataclass(frozen=True)
@@ -57,6 +58,25 @@ class MoEConfig:
     d_ff_shared: int = 0
     capacity_factor: float = 1.25
     router_aux_weight: float = 0.01
+
+
+@dataclass(frozen=True)
+class PortMoEConfig(MoEConfig):
+    """An `MoEConfig` with the fields only the port's own configs set.
+    `MoEConfig`'s fields mirror the reference's one for one (tests compare
+    the two as dicts), so these are a subclass's; `models.moe.dropless`
+    and `shared_gated` read them, with today's behaviour for any other
+    class, the reference's `MoEConfig` included.
+
+      dropless     every (token, expert) pair kept: the experts run over
+                   their own rows by a grouped product (`models.moe`),
+                   and `capacity_factor` is not read
+      shared_gate  the shared expert's output scaled by sigmoid(x ·
+                   shared_gate); False adds it ungated, and the layer has
+                   no `shared_gate` weight"""
+
+    dropless: bool = False
+    shared_gate: bool = True
 
 
 @dataclass(frozen=True)
@@ -112,6 +132,11 @@ class ArchConfig:
     vision: Optional[VisionStub] = None
     shapes: Tuple[ShapeSpec, ...] = (TRAIN_4K, PREFILL_32K, DECODE_32K)
     source: str = ""
+    # `PortArchConfig`'s fields, read through every ArchConfig (see there)
+    norm_eps: ClassVar[float] = 1e-6
+    embedding_multiplier: ClassVar[float] = 0.0
+    residual_multiplier: ClassVar[float] = 1.0
+    logits_divisor: ClassVar[float] = 1.0
 
     @property
     def resolved_head_dim(self) -> int:
@@ -159,6 +184,29 @@ class ArchConfig:
         if self.n_kv_heads and self.n_heads % self.n_kv_heads:
             raise ValueError(f"{self.name}: n_heads {self.n_heads} not a "
                              f"multiple of n_kv_heads {self.n_kv_heads}")
+
+
+@dataclass(frozen=True)
+class PortArchConfig(ArchConfig):
+    """An `ArchConfig` with the fields only the port's own configs set
+    (granite-4.0-h-small's µP multipliers and norm epsilon).
+    `ArchConfig`'s fields mirror the reference's one for one (tests
+    compare the two as dicts), so these are a subclass's; on
+    `ArchConfig` itself they are class attributes of the same defaults,
+    today's behaviour.
+
+      norm_eps              every RMSNorm's epsilon in the LM's layers,
+                            its final norm and the Mamba-2 gated norm
+      embedding_multiplier  the factor on the embedding rows; 0 keeps
+                            sqrt(d_model) on a tied head and none on an
+                            untied one
+      residual_multiplier   each branch's factor before its residual add
+      logits_divisor        the logits divided by it"""
+
+    norm_eps: float = 1e-6
+    embedding_multiplier: float = 0.0
+    residual_multiplier: float = 1.0
+    logits_divisor: float = 1.0
 
 
 @dataclass(frozen=True)

@@ -4,10 +4,13 @@
 A block is one residual layer:
   attn_full / attn_swa — [norm → attention → (+)] [norm → FFN|MoE → (+)]
   ssm                  — [norm → mamba2 → (+)]      (no FFN in Mamba-2)
+  ssm_ffn              — [norm → mamba2 → (+)] [norm → FFN|MoE → (+)]
   hybrid / hybrid_full — [norm → ½(attn ⊕ ssm) → (+)] [norm → FFN → (+)]
-with gemma2's optional post-norms on each branch.  A hybrid layer (hymba)
-runs attention and the SSM side by side on one normed input, norms each
-branch's output and averages the two.  The reference scans stacked
+with gemma2's optional post-norms on each branch, and each branch scaled
+by the config's `residual_multiplier` before its add where that is not 1
+(granite).  A hybrid layer (hymba) runs attention and the SSM side by
+side on one normed input, norms each branch's output and averages the
+two.  The reference scans stacked
 parameters per segment; the port keeps its layers in a flat list in the
 order they run (`ArchConfig.layer_kinds`) and loops over it:
 `segments_forward` for serving, `train_segments_forward` for training,
@@ -24,7 +27,8 @@ from torch import nn
 
 from repro_torch import spans
 from repro_torch.configs.base import (ArchConfig, ATTN_FULL, ATTN_SWA,
-                                      HYBRID, HYBRID_FULL, SSM, RunConfig)
+                                      HYBRID, HYBRID_FULL, SSM, SSM_FFN,
+                                      RunConfig)
 from .attention import (Attention, attention_decode_attend,
                         attention_decode_out, attention_decode_step_ring,
                         attention_forward, attention_qkv,
@@ -33,18 +37,19 @@ from .common import rmsnorm
 from .ffn import FFN, ffn_forward
 from .moe import MoE, moe_forward
 from .ssm import (SSM as SSMMixer, init_ssm_cache, ssm_decode_step,
-                  ssm_forward)
+                  ssm_dims, ssm_forward)
 
 HYBRID_KINDS = (HYBRID, HYBRID_FULL)
 ATTN_KINDS = (ATTN_FULL, ATTN_SWA) + HYBRID_KINDS
-SSM_KINDS = (SSM,) + HYBRID_KINDS
+MIXER_KINDS = (SSM, SSM_FFN)      # the Mamba-2 mixer alone in the layer
+SSM_KINDS = MIXER_KINDS + HYBRID_KINDS
 # attention layers: {"k", "v"} (a ring decode's full-attention layers also
 # "rk", "rv"); SSM layers: {"conv", "state"}; hybrid layers: all four
 Cache = Dict[str, torch.Tensor]
 
 
 def check_kind(kind: str) -> None:
-    if kind not in ATTN_KINDS + (SSM,):
+    if kind not in ATTN_KINDS + MIXER_KINDS:
         raise NotImplementedError(
             f"layer kind {kind!r} is not ported (ROADMAP.md, queue 1)")
 
@@ -98,27 +103,45 @@ def _ffn_branch(p: Block, x: torch.Tensor, cfg: ArchConfig,
     drops the aux loss, as the reference does."""
     if not p.has_ffn:
         return x, None
-    h, aux = rmsnorm(p.ln2, x), None
+    h, aux = rmsnorm(p.ln2, x, cfg.norm_eps), None
     if cfg.moe is not None:
         h, aux = moe_forward(p.moe, h, cfg, rcfg)
     else:
         h = ffn_forward(p.ffn, h, cfg.act)
     if cfg.post_block_norm:
-        h = rmsnorm(p.post_ln2, h)
-    return x + h, aux
+        h = rmsnorm(p.post_ln2, h, cfg.norm_eps)
+    return _residual(x, h, cfg), aux
 
 
-def _hybrid_mix(p: Block, a: torch.Tensor, s: torch.Tensor
-                ) -> torch.Tensor:
+def _residual(x: torch.Tensor, h: torch.Tensor, cfg: ArchConfig
+              ) -> torch.Tensor:
+    """x + the branch h, h scaled by `residual_multiplier` where it is not
+    1 (a multiply by 1 would be one more launch, and the same bits)."""
+    m = cfg.residual_multiplier
+    return x + (h if m == 1.0 else h * m)
+
+
+def _hybrid_mix(p: Block, a: torch.Tensor, s: torch.Tensor,
+                cfg: ArchConfig) -> torch.Tensor:
     """The hybrid layer's two branches, each normed, averaged."""
-    return 0.5 * (rmsnorm(p.attn_out_norm, a) + rmsnorm(p.ssm_out_norm, s))
+    eps = cfg.norm_eps
+    return 0.5 * (rmsnorm(p.attn_out_norm, a, eps) +
+                  rmsnorm(p.ssm_out_norm, s, eps))
+
+
+def _ssm_span(h: torch.Tensor, cfg: ArchConfig):
+    """The span `lm.ssm` of one mixer call on h (B, S, d); a site reads
+    `spans.on` before it calls this."""
+    _, H, P, _, N = ssm_dims(cfg)
+    return spans.span("repro_torch.lm.ssm", B=h.shape[0], S=h.shape[1], H=H,
+                      N=N, P=P)
 
 
 def _block(p: Block, x: torch.Tensor, cfg: ArchConfig, kind: str,
            positions: Optional[torch.Tensor], collect_cache: bool,
            rcfg: Optional[RunConfig]):
     """(x, the MoE's aux loss or None, the cache or {})."""
-    h = rmsnorm(p.ln1, x)
+    h = rmsnorm(p.ln1, x, cfg.norm_eps)
     cache: Cache = {}
     if kind in ATTN_KINDS:
         a = attention_forward(p.attn, h, cfg, window=_window_for(kind, cfg),
@@ -127,16 +150,17 @@ def _block(p: Block, x: torch.Tensor, cfg: ArchConfig, kind: str,
         if collect_cache:
             a, (cache["k"], cache["v"]) = a
     if kind in SSM_KINDS:
-        s = ssm_forward(p.ssm, h, cfg, return_state=collect_cache,
-                        rcfg=rcfg)
+        with _ssm_span(h, cfg) if spans.on else spans.OFF:
+            s = ssm_forward(p.ssm, h, cfg, return_state=collect_cache,
+                            rcfg=rcfg)
         if collect_cache:
             s, ssm_cache = s
             cache.update(ssm_cache)
-    h = _hybrid_mix(p, a, s) if kind in HYBRID_KINDS else \
-        (s if kind == SSM else a)
+    h = _hybrid_mix(p, a, s, cfg) if kind in HYBRID_KINDS else \
+        (s if kind in MIXER_KINDS else a)
     if cfg.post_block_norm:
-        h = rmsnorm(p.post_ln1, h)
-    x, aux = _ffn_branch(p, x + h, cfg, rcfg)
+        h = rmsnorm(p.post_ln1, h, cfg.norm_eps)
+    x, aux = _ffn_branch(p, _residual(x, h, cfg), cfg, rcfg)
     return x, aux, cache
 
 
@@ -185,7 +209,7 @@ def block_decode_pre(p: Block, x: torch.Tensor, cfg: ArchConfig, kind: str,
                      ) -> Tuple[torch.Tensor, Optional[Tuple]]:
     """A decode step's first part, up to the attention: (the normed input,
     the roped (q, k, v) of an attention layer or None)."""
-    h = rmsnorm(p.ln1, x)
+    h = rmsnorm(p.ln1, x, cfg.norm_eps)
     if kind not in ATTN_KINDS:
         return h, None
     return h, attention_qkv(p.attn, h, cfg, positions)
@@ -222,12 +246,13 @@ def _decode_rest(p: Block, x: torch.Tensor, h: torch.Tensor,
     branch `a`, the post-norm and the FFN."""
     ssm_cache: Cache = {}
     if kind in SSM_KINDS:
-        s, ssm_cache = ssm_decode_step(p.ssm, h, cache, cfg)
-    h = _hybrid_mix(p, a, s) if kind in HYBRID_KINDS else \
-        (s if kind == SSM else a)
+        with _ssm_span(h, cfg) if spans.on else spans.OFF:
+            s, ssm_cache = ssm_decode_step(p.ssm, h, cache, cfg)
+    h = _hybrid_mix(p, a, s, cfg) if kind in HYBRID_KINDS else \
+        (s if kind in MIXER_KINDS else a)
     if cfg.post_block_norm:
-        h = rmsnorm(p.post_ln1, h)
-    return _ffn_branch(p, x + h, cfg)[0], ssm_cache
+        h = rmsnorm(p.post_ln1, h, cfg.norm_eps)
+    return _ffn_branch(p, _residual(x, h, cfg), cfg)[0], ssm_cache
 
 
 def block_decode_step(p: Block, x: torch.Tensor, cache: Cache, pos: int,
@@ -240,7 +265,7 @@ def block_decode_step(p: Block, x: torch.Tensor, cache: Cache, pos: int,
     main cache holding [0, base) with base = pos rounded down to the
     ring's length); an SSM cache is replaced by the returned one."""
     if kind in ATTN_KINDS and "rk" in cache:
-        h = rmsnorm(p.ln1, x)
+        h = rmsnorm(p.ln1, x, cfg.norm_eps)
         R = cache["rk"].shape[2]
         a, rk, rv = attention_decode_step_ring(
             p.attn, h, cache["k"], cache["v"], cache["rk"], cache["rv"],

@@ -38,6 +38,7 @@ from .attention import flush_ring
 from .blocks import (ATTN_KINDS, SSM_KINDS, Block, Cache, block_decode_step,
                      init_block_cache, ring_layer, segments_forward,
                      train_segments_forward)
+from .moe import shared_gated
 from .ssm import SSM as SSMMixer, ssm_dims
 from .common import (DTYPES, dense, embed, rmsnorm, settle_partial,
                      softcap, trunc_normal_fill, unembed)
@@ -145,26 +146,36 @@ class LM(nn.Module):
                 init_ffn(m, mc.d_ff_expert)     # the stacked experts
                 if mc.n_shared_experts:
                     init_ffn(m.shared, mc.d_ff_shared)
-                    fill(m.shared_gate, 0.02)
+                    if shared_gated(mc):
+                        fill(m.shared_gate, 0.02)
             elif layer.has_ffn:
                 init_ffn(layer.ffn, cfg.d_ff)
+
+
+def embed_scale(cfg: ArchConfig) -> Optional[float]:
+    """The factor on the embedding rows: the config's
+    `embedding_multiplier` where it sets one, else sqrt(d_model) where the
+    head is tied, as in the reference, else none."""
+    if cfg.embedding_multiplier:
+        return cfg.embedding_multiplier
+    return math.sqrt(cfg.d_model) if cfg.tie_embeddings else None
 
 
 def _embed_in(model: LM, tokens: torch.Tensor,
               patch_embeds: Optional[torch.Tensor] = None,
               scale: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The embedding rows, scaled by sqrt(d_model) only where the head is
-    tied, as in the reference (`scale`, where given, is that factor made
-    once as a 0-d tensor of the compute dtype on the model's device: a
-    CUDA-graph capture cannot copy it from the host).  A VLM's
+    """The embedding rows, scaled by `embed_scale` where there is one
+    (`scale`, where given, is that factor made once as a 0-d tensor of
+    the compute dtype on the model's device: a CUDA-graph capture cannot
+    copy it from the host).  A VLM's
     `patch_embeds` (B, n, patch_embed_dim), projected by `vision_proj` in
     the compute dtype, replace the first n positions; a prompt of fewer
     than n tokens raises (the reference would return a longer
     sequence)."""
     x = embed(model.embed, tokens, model.dtype)
-    if model.cfg.tie_embeddings:
-        x = x * (scale if scale is not None
-                 else x.new_tensor(math.sqrt(model.cfg.d_model)))
+    factor = embed_scale(model.cfg)
+    if factor is not None:
+        x = x * (scale if scale is not None else x.new_tensor(factor))
     if model.cfg.vision is not None and patch_embeds is not None:
         n = patch_embeds.shape[1]
         if n > x.shape[1]:
@@ -176,12 +187,14 @@ def _embed_in(model: LM, tokens: torch.Tensor,
 
 
 def _logits(model: LM, x: torch.Tensor) -> torch.Tensor:
-    """fp32 logits.  The untied head is the reference's `dense`: a product
-    in the compute dtype (in bf16 each logit rounded to bf16), then
-    upcast."""
+    """fp32 logits, divided by the config's `logits_divisor` where it is
+    not 1.  The untied head is the reference's `dense`: a product in the
+    compute dtype (in bf16 each logit rounded to bf16), then upcast."""
     cfg = model.cfg
     logits = unembed(model.embed, x, model.dtype) if cfg.tie_embeddings \
         else dense(x, model.lm_head, dtype=model.dtype).float()
+    if cfg.logits_divisor != 1.0:
+        logits = logits / cfg.logits_divisor
     return mask_pad_vocab(softcap(logits, cfg.final_softcap), cfg)
 
 
@@ -208,7 +221,7 @@ def lm_forward(model: LM, tokens: torch.Tensor, rcfg: RunConfig,
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     x, aux = train_segments_forward(model.layers, x, model.cfg, rcfg,
                                     positions=positions, constrain=constrain)
-    x = rmsnorm(model.final_norm, x)
+    x = rmsnorm(model.final_norm, x, model.cfg.norm_eps)
     return _logits(model, x), aux
 
 
@@ -293,7 +306,7 @@ def lm_prefill(model: LM, tokens: torch.Tensor,
         x, caches = segments_forward(model.layers, x, model.cfg,
                                      positions=positions, cache_len=max_len,
                                      rcfg=rcfg)
-        x = rmsnorm(model.final_norm, x[:, -1:])
+        x = rmsnorm(model.final_norm, x[:, -1:], model.cfg.norm_eps)
         return _logits(model, x)[:, 0], caches
 
 
@@ -331,7 +344,8 @@ def decode_step_span(tokens: torch.Tensor, pos: int):
 def decode_logits(model: LM, x: torch.Tensor) -> torch.Tensor:
     """A decode step's tail: the last layer's x (B, 1, d) through the
     final norm to the fp32 logits (B, V)."""
-    return _logits(model, rmsnorm(model.final_norm, x))[:, 0]
+    return _logits(model, rmsnorm(model.final_norm, x,
+                                  model.cfg.norm_eps))[:, 0]
 
 
 def init_decode_cache(batch: int, max_len: int, cfg: ArchConfig,

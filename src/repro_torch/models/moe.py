@@ -10,6 +10,15 @@ with a capacity factor; overflowed (token, expert) pairs are dropped
 (contribution zero) and counted; a Switch-style load-balancing loss is
 returned.
 
+A dropless config (`PortMoEConfig(dropless=True)`, granite) keeps every
+pair: its experts run over their own rows alone (`grouped_experts`), the
+pairs' token rows gathered in expert order and three grouped products
+over the ragged groups, whose ends stay on the device (no host sync),
+then each token's k outputs summed under their gates by one batched
+product (deterministic, fp32 accumulation).  No (E, C, d) buffer is
+made, which at C ≥ T would not fit.  A shared expert is sigmoid-gated,
+or, where the config says `shared_gate=False`, added as it is.
+
 Three choices keep the port's results equal to the reference's and the
 same from run to run on the card:
   * top-k is a stable descending sort, so equal router probabilities go
@@ -43,6 +52,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch import spans
 from repro_torch.configs.base import ArchConfig, MoEConfig, RunConfig
 from repro_torch.core.vm import expert_gather_batch
 from repro_torch.dist.sharding import (P, data_axes, moe_mesh, placements,
@@ -51,12 +61,25 @@ from .common import activate, dense, rows_only
 from .ffn import FFN, ffn_forward
 
 
+def dropless(mc) -> bool:
+    """Whether the MoE config `mc` keeps every pair: a `PortMoEConfig`'s
+    `dropless`; False for any other class, the reference's own included
+    (tests put that inside the port's `ArchConfig`)."""
+    return getattr(mc, "dropless", False)
+
+
+def shared_gated(mc) -> bool:
+    """Whether the shared expert is sigmoid-gated: a `PortMoEConfig`'s
+    `shared_gate`; True for any other class."""
+    return getattr(mc, "shared_gate", True)
+
+
 class MoE(nn.Module):
     """The router (d, E), the stacked expert weights `w_gate` / `w_up`
     (E, d, f) and `w_down` (E, f, d), and with shared experts the
-    always-on `shared` FFN of `d_ff_shared` and its sigmoid gate
-    `shared_gate` (d, 1).  `dtype` is the compute dtype; all are stored
-    in `param_dtype` (`dtype` when None)."""
+    always-on `shared` FFN of `d_ff_shared` and, where the config gates
+    it, its sigmoid gate `shared_gate` (d, 1).  `dtype` is the compute
+    dtype; all are stored in `param_dtype` (`dtype` when None)."""
 
     def __init__(self, cfg: ArchConfig, dtype: torch.dtype,
                  device: torch.device,
@@ -72,7 +95,8 @@ class MoE(nn.Module):
         self.w_down = nn.Parameter(torch.empty(E, f, d, **kw))
         if mc.n_shared_experts:
             self.shared = FFN(d, mc.d_ff_shared, dtype, device, param_dtype)
-            self.shared_gate = nn.Parameter(torch.empty(d, 1, **kw))
+            if shared_gated(mc):
+                self.shared_gate = nn.Parameter(torch.empty(d, 1, **kw))
 
 
 def _capacity(tokens: int, mc: MoEConfig) -> int:
@@ -84,7 +108,8 @@ class Routing(NamedTuple):
     """One routing of T tokens to k of E experts with capacity C.  The
     pair columns (`e_s`, `t_s`, `g_s`, `keep`, `slot`) are in the stable
     order of their expert id; `slot` is e·C + rank, E·C (the trash row)
-    where the pair is dropped."""
+    where the pair is dropped.  A dropless routing keeps every pair: C is
+    0 and `keep` and `slot` are None."""
 
     logits: torch.Tensor      # (T, E) fp32
     probs: torch.Tensor       # (T, E) fp32
@@ -92,8 +117,8 @@ class Routing(NamedTuple):
     e_s: torch.Tensor         # (T·k,)
     t_s: torch.Tensor
     g_s: torch.Tensor         # gates, normalised over a token's k
-    keep: torch.Tensor        # (T·k,) bool
-    slot: torch.Tensor        # (T·k,) int64
+    keep: Optional[torch.Tensor]   # (T·k,) bool
+    slot: Optional[torch.Tensor]   # (T·k,) int64
     capacity: int
     order: torch.Tensor       # (T·k,) the pairs' token-major indices
 
@@ -105,7 +130,7 @@ def route(router: torch.Tensor, x2: torch.Tensor, mc: MoEConfig,
     router's own when None), upcast."""
     T = x2.shape[0]
     E, k = mc.n_experts, mc.top_k
-    C = _capacity(T, mc)
+    C = 0 if dropless(mc) else _capacity(T, mc)
     logits = dense(x2, router, dtype=dtype).float()
     probs = torch.softmax(logits, dim=-1)
     # stable descending sort: ties go to the lower expert id
@@ -118,6 +143,9 @@ def route(router: torch.Tensor, x2: torch.Tensor, mc: MoEConfig,
     e_s = flat_e[order]
     t_s = torch.div(order, k, rounding_mode="floor")   # repeat(arange(T), k)
     g_s = gate.reshape(-1)[order]
+    if dropless(mc):
+        return Routing(logits, probs, expert_idx, e_s, t_s, g_s, None, None,
+                       C, order)
     first = torch.searchsorted(e_s, e_s, side="left")
     rank = torch.arange(T * k, device=x2.device) - first
     keep = rank < C
@@ -162,6 +190,54 @@ def _combine(out_flat: torch.Tensor, r: Routing, k: int) -> torch.Tensor:
         yb = torch.where(keep[:, j, None], yb, yb.new_zeros(()))
         y = y + yb * gates[:, j, None]
     return y
+
+
+def expert_ends(r: Routing, n_experts: int) -> torch.Tensor:
+    """(E,) int32 on the routing's device: where each expert's pairs end
+    in the expert order (the pairs are sorted by expert, so a search finds
+    it without a host sync)."""
+    return torch.searchsorted(
+        r.e_s, torch.arange(n_experts, device=r.e_s.device), right=True,
+        out_int32=True)
+
+
+def grouped_experts(p, x2: torch.Tensor, r: Routing, act: str,
+                    ends: torch.Tensor) -> torch.Tensor:
+    """A dropless routing's experts over x2 (T, d) in its dtype: each
+    pair's token row gathered in expert order, through its expert's gated
+    FFN by three grouped products over the experts' ragged groups (expert
+    e's rows end at ends[e], `expert_ends`), then combined
+    (`_combine_dropless`) → y (T, d)."""
+    cdt = x2.dtype
+    xs = x2[r.t_s]
+    h = activate(torch._grouped_mm(xs, p.w_gate.to(cdt), offs=ends), act) \
+        * torch._grouped_mm(xs, p.w_up.to(cdt), offs=ends)
+    del xs
+    return _combine_dropless(
+        torch._grouped_mm(h, p.w_down.to(cdt), offs=ends), r)
+
+
+def _combine_dropless(out: torch.Tensor, r: Routing) -> torch.Tensor:
+    """y (T, d) from a dropless routing's expert outputs `out` (T·k, d),
+    in the expert order: each token's k rows gathered by falling gate
+    (a token's rows found by inverting the routing's order, no sort) and
+    summed under their gates by one batched product a token, (1, k) @
+    (k, d), in the compute dtype with fp32 accumulation: a fixed order
+    and one rounding, no atomics."""
+    T, k = r.expert_idx.shape
+    at = torch.empty_like(r.order)     # each pair's row in `out`, by token
+    at[r.order] = torch.arange(T * k, device=out.device)
+    gates = r.g_s[at].to(out.dtype).view(T, 1, k)
+    return torch.bmm(gates, out[at].view(T, k, -1))[:, 0]
+
+
+def _count_route(r: Routing, ends: torch.Tensor) -> None:
+    """The counter `moe.route` of one routing: its pairs, and `ends`
+    (`expert_ends`), kept on the device: no launch and no wait here;
+    `spans.records()` reads it after the device has finished.  Expert
+    e's pairs are ends[e] - ends[e - 1]: the busiest expert's pairs and
+    the experts given one or more follow from it."""
+    spans.count("repro_torch.moe.route", pairs=r.e_s.shape[0], ends=ends)
 
 
 def _move(t: torch.Tensor, mesh, src, dst) -> torch.Tensor:
@@ -247,6 +323,17 @@ def moe_dispatch_compute(p, x2: torch.Tensor, mc: MoEConfig, act: str,
     cdt = dtype or p.router.dtype
     x2 = x2.to(cdt)
     r = route(p.router, x2, mc, cdt)
+    ends = expert_ends(r, E) if dropless(mc) or spans.on else None
+    if spans.on:
+        _count_route(r, ends)
+    if dropless(mc):
+        if psum_axis is not None:
+            raise NotImplementedError("a dropless MoE has no mesh dispatch")
+        y = grouped_experts(p, x2, r, act, ends)
+        zero = y.new_zeros((), dtype=torch.float32)
+        # serving (autograd off) has no use for the load-balancing loss
+        aux = _aux_loss(r, E) if torch.is_grad_enabled() else zero
+        return y, aux, zero
     buf = dispatch(x2, r, E)
     h = activate(torch.bmm(buf, p.w_gate.to(cdt)), act) * \
         torch.bmm(buf, p.w_up.to(cdt))
@@ -278,14 +365,18 @@ def moe_dispatch_compute(p, x2: torch.Tensor, mc: MoEConfig, act: str,
         else:
             raise ValueError(f"unknown moe reduce mode {reduce_mode!r}")
 
-    T = x2.shape[0]
+    aux = _aux_loss(r, E)
+    dropped = 1.0 - r.keep.float().sum() / (x2.shape[0] * k)
+    return y, aux, dropped
+
+
+def _aux_loss(r: Routing, n_experts: int) -> torch.Tensor:
+    """The Switch load-balancing loss: E · Σ_e mean prob_e · top-1 share_e."""
     me = r.probs.mean(dim=0)
     top1 = torch.argmax(r.logits, dim=-1)
-    ce = (top1[:, None] == torch.arange(E, device=top1.device)).float() \
-        .mean(dim=0)                                      # one-hot mean
-    aux = E * torch.sum(me * ce)
-    dropped = 1.0 - r.keep.float().sum() / (T * k)
-    return y, aux, dropped
+    ce = (top1[:, None] == torch.arange(n_experts, device=top1.device)) \
+        .float().mean(dim=0)                              # one-hot mean
+    return n_experts * torch.sum(me * ce)
 
 
 def moe_expert_gather(token_va: np.ndarray, expert_idx: np.ndarray,
@@ -371,7 +462,21 @@ def moe_forward(p: MoE, x: torch.Tensor, cfg: ArchConfig,
     default, also where `rcfg` is None), the routed experts take the
     mesh dispatch when B divides over the data dims, as in the
     reference; else they run locally (a DTensor batch: the mesh dispatch
-    with the tokens whole on every data rank, the same values)."""
+    with the tokens whole on every data rank, the same values).  While
+    spans record, the call is the span `lm.moe` (T, E, k: the routed
+    experts and the shared one) and its routing counts `moe.route`."""
+    mc = cfg.moe
+    B, S, d = x.shape
+    if not spans.on:
+        return _moe_forward(p, x, cfg, rcfg)
+    with spans.span("repro_torch.lm.moe", T=B * S, E=mc.n_experts,
+                    k=mc.top_k):
+        return _moe_forward(p, x, cfg, rcfg)
+
+
+def _moe_forward(p: MoE, x: torch.Tensor, cfg: ArchConfig,
+                 rcfg: Optional[RunConfig]
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     mc = cfg.moe
     rcfg = rcfg or RunConfig()
     B, S, d = x.shape
@@ -399,6 +504,8 @@ def moe_forward(p: MoE, x: torch.Tensor, cfg: ArchConfig,
     y = rows_only(y2.reshape(B, S, d))
     if mc.n_shared_experts:
         shared = ffn_forward(p.shared, x, cfg.act)
-        sg = torch.sigmoid(dense(x, p.shared_gate, dtype=p.dtype).float())
-        y = y + sg.to(y.dtype) * shared
+        if shared_gated(mc):
+            sg = torch.sigmoid(dense(x, p.shared_gate, dtype=p.dtype).float())
+            shared = sg.to(y.dtype) * shared
+        y = y + shared
     return y, aux * mc.router_aux_weight

@@ -71,6 +71,7 @@ class SSM(nn.Module):
         rcfg = rcfg or RunConfig()
         self.dtype = dtype
         self.chunk = rcfg.ssd_chunk or cfg.ssm.chunk
+        self.eps = cfg.norm_eps             # the gated norm's
         self.ssd_dtype = DTYPES[rcfg.ssd_compute_dtype]
         d_inner, H, P, G, N = ssm_dims(cfg)
         d_conv = conv_dim(cfg)
@@ -182,7 +183,7 @@ def _split_proj(proj: torch.Tensor, cfg: ArchConfig):
 
 
 def _gated_out(p: SSM, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
-    y = rmsnorm(p.gate_norm, y * F.silu(z.float()))
+    y = rmsnorm(p.gate_norm, y * F.silu(z.float()), p.eps)
     return dense(y, p.out_proj, dtype=p.dtype)
 
 

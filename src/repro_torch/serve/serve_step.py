@@ -22,7 +22,6 @@ whose layers replay from CUDA graphs where the model allows it
 
 from __future__ import annotations
 
-import math
 import warnings
 from typing import Callable, List, Optional, Tuple, Union
 
@@ -36,7 +35,8 @@ from repro_torch.models import (LM, EncDec, encdec_decode_step,
                                 lm_prefill)
 from repro_torch.models.blocks import (Cache, block_decode_attend,
                                        block_decode_post, block_decode_pre)
-from repro_torch.models.lm import _embed_in, decode_logits, decode_step_span
+from repro_torch.models.lm import (_embed_in, decode_logits,
+                                   decode_step_span, embed_scale)
 
 DECODE_GRAPH = "repro_torch.serve.decode_graph"
 
@@ -130,9 +130,9 @@ class _Graphs:
         self.pos = torch.zeros((1,), dtype=torch.int32, device=dev)
         self.o = torch.zeros((B, cfg.n_heads, cfg.resolved_head_dim),
                              dtype=model.dtype, device=dev)
-        # a tied head's embedding scale; every tensor a graph reads is
-        # held here, or its memory would go back to the allocator
-        self.scale = torch.tensor(math.sqrt(cfg.d_model), dtype=model.dtype,
+        # the embedding's scale; every tensor a graph reads is held here,
+        # or its memory would go back to the allocator
+        self.scale = torch.tensor(embed_scale(cfg) or 1.0, dtype=model.dtype,
                                   device=dev)
         layers = list(zip(model.layers, cfg.layer_kinds))
 

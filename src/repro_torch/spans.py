@@ -5,7 +5,8 @@
                         around it
   on                    whether a site reached now records: true inside
                         `recording()` and inside a recorded span
-  count(name, **values) one point record (start == end)
+  count(name, **values) one point record (start == end); a value may be
+                        a tensor on the device, read by `records()`
   call(name, **attrs)   the span of one `ServeEngine.generate` call, which
                         numbers the call: every record made inside it
                         carries that number
@@ -24,7 +25,10 @@ and build nothing; they record only inside a recorded span (the model's
 keyword dict of its attrs and the `with` of one shared no-op object.  A
 span never reads a tensor's value and never makes a tensor: its attrs
 are Python ints, strings and shapes, so a CUDA-graph capture of a step
-is not broken by its spans.
+is not broken by its spans.  A counter of device values (`moe.route`,
+off any graphed path) keeps a tensor the step already made, with no
+launch and no wait; `records()` reads it, after the traced slice, as a
+reader of a profiled slice does.
 
 Timestamps are `time.time_ns()`: the Unix epoch in ns, the clock of the
 profiler's events (`_KinetoEvent.start_ns()`), so the program's records
@@ -130,7 +134,8 @@ def span(name: str, **attrs):
 
 
 def count(name: str, **values) -> None:
-    """A point record of `values` (Python ints)."""
+    """A point record of `values`: Python ints, or tensors left as they
+    are until `records()` reads them."""
     if not (on or _profiling()):
         return
     t = time.time_ns()
@@ -173,8 +178,11 @@ def recording() -> Iterator[None]:
 
 
 def records() -> List[Record]:
-    """The buffer's records, in the order they ended."""
-    return [Record(*r) for r in _buf]
+    """The buffer's records, in the order they ended; a counter's tensors
+    read as Python ints or lists of them (a device tensor waits for the
+    device)."""
+    return [Record(*r[:6], {k: v.tolist() if isinstance(v, torch.Tensor)
+                            else v for k, v in r[6].items()}) for r in _buf]
 
 
 def dropped() -> int:

@@ -1189,3 +1189,56 @@ def test_traced_decode_step_adds_no_synchronize(cuda):
     assert names.count("repro_torch.lm.block") == 2
     assert names.count("repro_torch.lm.attend") == 2
     assert names.count("repro_torch.lm.dense") == 2 * 7 + 1
+
+
+def test_traced_granite_moe_adds_no_synchronize(cuda):
+    """The counter `moe.route` keeps the grouped products' expert ends on
+    the device and reads nothing: `_count_route` alone, and a traced
+    `moe_forward` of a reduced granite-4.0-h-small's dropless MoE (bf16;
+    routing, the grouped products over ragged groups whose ends stay on
+    the device, the combine and the ungated shared MLP) at a prefill's and
+    a decode step's rows, inside `spans.recording()` so its span and
+    counter record, run under `set_sync_debug_mode("error")`, which
+    raises on any synchronize; the ends then read as the routing's
+    cumulative pairs."""
+    from repro_torch import spans
+    from repro_torch.configs import get
+    from repro_torch.configs.base import RunConfig, reduced
+    from repro_torch.models import LM
+    from repro_torch.models.moe import (_count_route, expert_ends,
+                                        moe_forward, route)
+
+    cfg = reduced(get("granite-4.0-h-small"), n_layers=1, d_model=512,
+                  n_heads=4, n_kv_heads=2, d_ff=1024, vocab=512)
+    moe = LM(cfg, RunConfig(dtype="bfloat16"), seed=7,
+             device=cuda).layers[0].moe
+    mc = cfg.moe
+    xs = [_randn((B, S, cfg.d_model), torch.bfloat16, cuda, 9 + S)
+          for B, S in ((3, 40), (3, 1))]
+    r = route(moe.router, xs[0].reshape(-1, cfg.d_model), mc)
+    ends = expert_ends(r, mc.n_experts)
+    with torch.no_grad():                           # as it serves
+        for x in xs:
+            moe_forward(moe, x, cfg)                # warm: lazy set-up
+    torch.cuda.synchronize()
+    spans.clear()
+    try:
+        with spans.recording(), torch.no_grad():
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                _count_route(r, ends)
+                for x in xs:
+                    moe_forward(moe, x, cfg)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        recs = spans.records()
+    finally:
+        spans.clear()
+    assert [x.name for x in recs].count("repro_torch.lm.moe") == 2
+    route_recs = [x.attrs for x in recs if x.name == "repro_torch.moe.route"]
+    want = torch.bincount(r.expert_idx.reshape(-1),
+                          minlength=mc.n_experts).cumsum(0).tolist()
+    assert route_recs[0] == dict(pairs=120 * mc.top_k, ends=want)
+    assert route_recs[1] == route_recs[0]
+    assert route_recs[2]["pairs"] == 3 * mc.top_k
+    assert route_recs[2]["ends"][-1] == 3 * mc.top_k
